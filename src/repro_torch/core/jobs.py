@@ -1,0 +1,103 @@
+"""Serving jobs for the lane executor (``repro.core.jobs.make_serve_job``),
+built on the PyTorch model.
+
+A serving job's block is one k-token decode chunk for a request batch
+against a live KV cache; the first block runs the prefill too.  Blocks are
+homogeneous, the structural property the paper's predictor exploits.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs.base import ArchConfig
+from ..models import lm
+from .executor import ExecutorJob
+
+
+def _sync(device: torch.device) -> None:
+    # The executor times a block with the host clock around the call, so a
+    # block must end when the device is done (the analogue of
+    # jax.block_until_ready); otherwise the predictor samples launch latency.
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def make_serve_job(
+    cfg: ArchConfig,
+    name: str,
+    *,
+    blocks: int,
+    tokens_per_block: int = 8,
+    batch: int = 2,
+    prompt_len: int = 16,
+    max_residency: int = 4,
+    arrival: float = 0.0,
+    seed: int = 0,
+    tenant: Optional[str] = None,
+    prompt=None,
+    device=None,
+) -> ExecutorJob:
+    """A serving job: ``blocks`` decode chunks of ``tokens_per_block`` each
+    against a live KV cache (prefill happens in the first block).
+
+    Weights come from ``lm.init(cfg, seed=seed)``.  ``prompt`` ([batch,
+    prompt_len] token ids, a tensor or numpy array) defaults to tokens
+    drawn from a ``torch.Generator`` seeded with ``seed``; passing one lets
+    a test feed both packages the same prompt.
+    """
+    device = resolve_device(device)
+    max_seq = prompt_len + blocks * tokens_per_block + 8
+    params = lm.init(cfg, seed=seed, device=device)
+    if prompt is None:
+        gen = torch.Generator().manual_seed(seed)
+        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                               generator=gen)
+    prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt)
+                             else prompt).to(device=device, dtype=torch.long)
+    if tuple(prompt.shape) != (batch, prompt_len):
+        raise ValueError(f"prompt shape {tuple(prompt.shape)}, expected "
+                         f"{(batch, prompt_len)}")
+    state: Dict = {"caches": None, "lengths": None, "token": None}
+
+    def do_prefill():
+        return lm.prefill(cfg, params, prompt, max_seq=max_seq)
+
+    def do_decode(token, caches, lengths):
+        logits, caches = lm.decode_step(cfg, params, token, caches, lengths)
+        return torch.argmax(logits, -1), caches
+
+    def warmup():
+        # Pays every one-time cost (kernel build and load, allocator growth)
+        # on caches of its own: the job's state is untouched.
+        logits, caches = do_prefill()
+        lengths = torch.full((batch,), prompt_len, dtype=torch.int32,
+                             device=device)
+        do_decode(torch.argmax(logits, -1), caches, lengths)
+        _sync(device)
+
+    def make_block_fn(residency: int) -> Callable[[], None]:
+        def block():
+            if state["caches"] is None:
+                logits, caches = do_prefill()
+                state["caches"] = caches
+                state["lengths"] = torch.full((batch,), prompt_len,
+                                              dtype=torch.int32, device=device)
+                state["token"] = torch.argmax(logits, -1)
+            for _ in range(tokens_per_block):
+                tok, caches = do_decode(state["token"], state["caches"],
+                                        state["lengths"])
+                state["token"] = tok
+                state["caches"] = caches
+                state["lengths"] = state["lengths"] + 1
+            _sync(device)
+        return block
+
+    return ExecutorJob(name=name, num_blocks=blocks,
+                       max_residency=max_residency,
+                       make_block_fn=make_block_fn, arrival=arrival,
+                       warmup_fn=warmup, tenant=tenant)

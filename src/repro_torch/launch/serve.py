@@ -1,0 +1,268 @@
+"""Concurrent serving driver of the port (``repro.launch.serve``).
+
+Decode jobs (request batches with different generation lengths) share the
+device under a thread-block-style scheduling policy.  Jobs are submitted
+asynchronously through :class:`repro_torch.core.scheduler_service.
+SchedulerService`, each ``--stagger`` seconds after the previous one while
+the device is already running.  The structural predictor profiles each
+job's first decode chunk and SRTF runs the predicted-shortest job first,
+preempting at chunk boundaries; STP/ANTT are reported per tenant (one
+tenant per arch).  ``--closed-loop N`` instead keeps N clients each with
+one job in flight until ``--requests`` jobs complete, and reports the
+steady-state queueing view.
+
+Job keys are ``{arch}#{order}``, as in the JAX package.  Solo baselines are
+measured once per distinct (arch, blocks) item.
+
+Unlike the JAX driver, which always serves reduced configs, the model runs
+at its full published width unless ``--reduced`` is given, on ``cuda``
+unless ``--device cpu`` is.  The scenario-driven options of the JAX driver
+(``--scenario``, ``--scenario-kernels``, ``--cache-dir``, ``--max-blocks``)
+need the scenario registry and sweep cache, which the port has not taken
+over yet.
+
+Example::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --jobs yi-6b:8,yi-6b:2 --policy srtf --compare-fifo --batch 4 \
+        --prompt-len 1024 --tokens-per-block 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --reduced --jobs yi-6b:4,yi-6b:2 --policy srtf --compare-fifo \
+        --tokens-per-block 4 --prompt-len 8 --batch 1
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import gc
+import itertools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs import get_arch
+from ..core.executor import LaneExecutor
+from ..core.jobs import make_serve_job
+from ..core.metrics import evaluate, evaluate_queueing
+from ..core.policies import make_policy
+from ..core.scheduler_service import SchedulerService
+
+
+def parse_jobs(args) -> List[Tuple[str, int]]:
+    out = []
+    for item in args.jobs.split(","):
+        arch_id, _, blocks = item.partition(":")
+        out.append((arch_id, int(blocks or 8)))
+    return out
+
+
+def build_job(args, arch_id: str, blocks: int, seed: int):
+    cfg = get_arch(arch_id)
+    return make_serve_job(
+        cfg.reduced() if args.reduced else cfg, arch_id, blocks=blocks,
+        tokens_per_block=args.tokens_per_block, batch=args.batch,
+        prompt_len=args.prompt_len, max_residency=args.lanes,
+        seed=seed, tenant=arch_id, device=args.device)
+
+
+def release_device_memory(device: torch.device) -> None:
+    """Free the memory of a finished run before the next one starts.
+
+    The executor keeps every job (and so its weights and caches) until it
+    is dropped, and it forms a reference cycle with its scheduling core, so
+    only a collection frees a finished run's memory."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def measure_solo(args) -> Dict[Tuple[str, int], float]:
+    """Measured isolated runtime per distinct (arch, blocks) item — the
+    STP/ANTT baseline, measured once and reused by every policy run."""
+    solo: Dict[Tuple[str, int], float] = {}
+    for arch_id, blocks in parse_jobs(args):
+        if (arch_id, blocks) in solo:
+            continue                  # one baseline per distinct item
+        job = build_job(args, arch_id, blocks, args.seed)
+        res = LaneExecutor([job], make_policy("fifo"),
+                           n_lanes=args.lanes).run()
+        solo[(arch_id, blocks)] = next(iter(res.values())).turnaround
+        del job, res
+        release_device_memory(args.device)
+    return solo
+
+
+def print_tenant_report(service: SchedulerService) -> None:
+    for tenant, info in sorted(service.tenant_report().items()):
+        tm = info["metrics"]
+        if tm is not None:
+            print(f"    tenant={tenant}: jobs={info['jobs']} "
+                  f"STP={tm['stp']:.3f} ANTT={tm['antt']:.3f}")
+
+
+async def run_service(args, policy: str, solo: Dict[Tuple[str, int], float]):
+    """One policy run: staggered async submissions against a live service.
+    Returns (metrics, job results)."""
+    service = SchedulerService(n_lanes=args.lanes, policy=policy,
+                               predictor=args.predictor)
+    items = parse_jobs(args)
+    try:
+        handles = []
+        solo_by_key: Dict[str, float] = {}
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        for i, (arch_id, blocks) in enumerate(items):
+            delay = t0 + i * args.stagger - loop.time()
+            if delay > 0:
+                await asyncio.sleep(delay)  # late arrival, busy machine
+            handle = service.submit(
+                build_job(args, arch_id, blocks, args.seed + i),
+                tenant=arch_id, solo_runtime=solo[(arch_id, blocks)])
+            solo_by_key[handle.key] = solo[(arch_id, blocks)]
+            handles.append(handle)
+        results = [await h.result() for h in handles]
+    finally:
+        service.close()
+
+    m = evaluate({r.key: r.turnaround for r in results}, solo_by_key)
+    print(f"[serve] policy={policy:14s} STP={m.stp:.3f} ANTT={m.antt:.3f} "
+          f"fairness={m.fairness:.3f}")
+    print_tenant_report(service)
+    for r in sorted(results, key=lambda r: r.key):
+        print(f"    {r.key}: turnaround={r.turnaround:.2f}s "
+              f"blocks={r.blocks}")
+    return m, results
+
+
+async def run_service_closed_loop(args, policy: str,
+                                  solo: Dict[Tuple[str, int], float]):
+    """One closed-loop policy run: ``--closed-loop`` concurrent clients,
+    each looping submit -> await -> think, against a live service."""
+    service = SchedulerService(n_lanes=args.lanes, policy=policy,
+                               predictor=args.predictor)
+    items = parse_jobs(args)
+    counter = itertools.count()
+    results = []
+    solo_by_key: Dict[str, float] = {}
+
+    async def client(cid: int) -> None:
+        rng = np.random.default_rng((args.seed, cid))
+        while True:
+            i = next(counter)
+            if i >= args.requests:
+                return
+            if args.think > 0.0:
+                await asyncio.sleep(float(rng.exponential(args.think)))
+            arch_id, blocks = items[i % len(items)]
+            handle = service.submit(
+                build_job(args, arch_id, blocks, args.seed + i),
+                tenant=arch_id, solo_runtime=solo[(arch_id, blocks)])
+            solo_by_key[handle.key] = solo[(arch_id, blocks)]
+            results.append(await handle.result())
+
+    try:
+        await asyncio.gather(
+            *(client(c) for c in range(args.closed_loop)))
+    finally:
+        service.close()
+
+    # Machine-time (virtual-clock) arrivals/finishes: the queueing view is
+    # of the machine under load, not of wall-clock client latency.
+    q = evaluate_queueing({r.key: r.arrival for r in results},
+                          {r.key: r.finish for r in results},
+                          end_time=service.machine_time,
+                          warmup_frac=args.warmup_frac)
+    m = evaluate({r.key: r.turnaround for r in results}, solo_by_key)
+    print(f"[serve] policy={policy:14s} closed-loop={args.closed_loop} "
+          f"requests={q.n_completed} mean_rt={q.mean_response:.3f}s "
+          f"p95_rt={q.p95_response:.3f}s in_system={q.mean_in_system:.2f} "
+          f"xput={q.throughput:.2f}/s")
+    print(f"    STP={m.stp:.3f} ANTT={m.antt:.3f} "
+          f"fairness={m.fairness:.3f}")
+    print_tenant_report(service)
+    return q, results
+
+
+def _run(args, policy: str, solo) -> Tuple[object, list, Optional[int]]:
+    """One policy run, then its memory released.  Returns (metrics, job
+    results, peak device bytes or None on the CPU)."""
+    cuda = args.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(args.device)
+    runner = run_service_closed_loop if args.closed_loop > 0 else run_service
+    metrics, results = asyncio.run(runner(args, policy, solo))
+    peak = torch.cuda.max_memory_allocated(args.device) if cuda else None
+    if peak is not None:
+        print(f"    peak device memory: {peak / 2**30:.2f} GiB")
+    release_device_memory(args.device)
+    return metrics, results, peak
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--jobs", default="yi-6b:24,yi-6b:6",
+                    help="arch:decode_blocks,...")
+    ap.add_argument("--policy", default="srtf")
+    ap.add_argument("--predictor", default="simple-slicing",
+                    help="registered predictor name (simple-slicing, ewma)")
+    ap.add_argument("--compare-fifo", action="store_true")
+    ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens-per-block", type=int, default=8)
+    ap.add_argument("--stagger", type=float, default=0.02,
+                    help="seconds between async job submissions")
+    ap.add_argument("--closed-loop", type=int, default=0,
+                    help="drive the service closed-loop at this target "
+                         "concurrency (N clients, each resubmitting when "
+                         "its job finishes; 0 = open-loop pacing)")
+    ap.add_argument("--requests", type=int, default=12,
+                    help="total jobs a closed-loop run completes")
+    ap.add_argument("--think", type=float, default=0.0,
+                    help="mean Exp think seconds between a closed-loop "
+                         "client's completion and its next submission")
+    ap.add_argument("--warmup-frac", type=float, default=0.0,
+                    help="fraction of the closed-loop window trimmed "
+                         "before computing queueing metrics")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cuda unless asked; no fallback)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve each arch's reduced config instead of its "
+                         "full published width")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, dict]:
+    """Run the driver; returns ``{policy: {"metrics", "results",
+    "peak_bytes"}}`` for callers that check the run."""
+    args = build_parser().parse_args(argv)
+    args.device = resolve_device(args.device)
+    solo = measure_solo(args)
+    runs: Dict[str, dict] = {}
+    policies = [args.policy]
+    if args.compare_fifo and args.policy != "fifo":
+        policies.append("fifo")
+    for policy in policies:
+        metrics, results, peak = _run(args, policy, solo)
+        runs[policy] = {"metrics": metrics, "results": results,
+                        "peak_bytes": peak}
+    if len(policies) == 2:
+        m, mf = runs[args.policy]["metrics"], runs["fifo"]["metrics"]
+        if args.closed_loop > 0:
+            print(f"[serve] {args.policy} vs fifo at concurrency "
+                  f"{args.closed_loop}: mean_rt "
+                  f"{mf.mean_response / m.mean_response:.2f}x, p95_rt "
+                  f"{mf.p95_response / m.p95_response:.2f}x")
+        else:
+            print(f"[serve] {args.policy} vs fifo: STP {m.stp / mf.stp:.2f}x, "
+                  f"ANTT {mf.antt / m.antt:.2f}x")
+    return runs
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,75 @@
+"""Load parameters into the port from flat arrays.
+
+:func:`params_from_numpy` takes the JAX package's parameters flattened to
+a ``{path: array}`` dict, as ``repro.checkpoint.checkpointer`` flattens
+them (``stage0/u0/mixer/wq``; the checkpointer's sanitised form
+``stage0_u0_mixer_wq`` is accepted too), and returns the port's nested
+parameters (:mod:`repro_torch.models.lm`).  It is the one way the tests
+share weights between the two packages, and :func:`lm.init` goes through
+it as well.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs.base import ArchConfig
+from .layers import DEFAULT_COMPUTE_DTYPE
+from .lm import dense_plan, param_shapes
+
+_SANITIZE = re.compile(r"[^A-Za-z0-9_.:-]")     # the checkpointer's rule
+
+
+def params_from_numpy(cfg: ArchConfig, flat: Mapping[str, object], *,
+                      device=None,
+                      dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> Dict:
+    """Nested port parameters on ``device`` from flat arrays (numpy arrays
+    or tensors).  Matrices and biases are cast once to ``dtype`` (the JAX
+    package casts them at every use, to the same values); norm scales and
+    biases stay float32.  Stacked stage parameters are split along their
+    leading axis into per-layer views.  Raises on a missing, unexpected or
+    misshapen entry."""
+    device = resolve_device(device)
+    shapes = param_shapes(cfg)
+    by_flat = {_SANITIZE.sub("_", k): k for k in flat}
+    want = {_SANITIZE.sub("_", k): k for k in shapes}
+    missing = sorted(set(want) - set(by_flat))
+    extra = sorted(set(by_flat) - set(want))
+    if missing or extra:
+        raise KeyError(f"{cfg.arch_id}: parameters missing {missing}, "
+                       f"unexpected {extra}")
+
+    nested: Dict = {}
+    for san, path in want.items():
+        arr = flat[by_flat[san]]
+        shape = shapes[path][0]
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{path}: shape {tuple(arr.shape)}, expected "
+                             f"{shape}")
+        t = arr if torch.is_tensor(arr) else torch.from_numpy(np.array(arr))
+        parts = path.split("/")
+        keep_fp32 = "norm" in parts[-2]
+        t = t.to(device=device,
+                 dtype=torch.float32 if keep_fp32 else dtype)
+        node = nested
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t
+
+    for si, stage in enumerate(dense_plan(cfg)):
+        units = nested[f"stage{si}"]
+        for ui in range(len(stage.unit)):
+            stacked = units[f"u{ui}"]
+            units[f"u{ui}"] = [_select(stacked, r)
+                               for r in range(stage.repeats)]
+    return nested
+
+
+def _select(tree: Dict, r: int) -> Dict:
+    return {k: _select(v, r) if isinstance(v, dict) else v[r]
+            for k, v in tree.items()}

@@ -1,0 +1,188 @@
+"""The port's serving path and scheduler copy, on the CPU.
+
+* Serving jobs of reduced yi-6b run through the port's SchedulerService
+  under srtf and fifo, and through ``python -m repro_torch.launch.serve``.
+* The port's copies of the scheduler modules are held to the JAX
+  package's: the files are identical, and both ``LaneExecutor``s produce
+  the same trace and results for the same jobs under one fake clock.
+* The port imports neither JAX nor the JAX package, and its entry points
+  refuse to run without a card unless asked for the CPU.
+"""
+
+import ast
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro.core.executor as j_executor
+from repro.core.executor import ExecutorJob as JJob, LaneExecutor as JLane
+from repro.core.policies import POLICIES, make_policy as j_make_policy
+from repro_torch.configs import get_arch
+from repro_torch.core import executor as t_executor
+from repro_torch.core.executor import ExecutorJob as TJob, LaneExecutor as TLane
+from repro_torch.core.jobs import make_serve_job
+from repro_torch.core.policies import make_policy as t_make_policy
+from repro_torch.core.scheduler_service import SchedulerService
+from repro_torch.launch import serve
+from repro_torch.models import lm
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+COPIED = ["configs/" + p.name for p in sorted(
+    (ROOT / "src" / "repro" / "configs").glob("*.py"))] + [
+    f"core/{m}.py" for m in ("workload", "events", "predictor", "machine",
+                             "policies", "executor", "metrics",
+                             "scheduler_service")]
+
+
+# ------------------------------------------------------------- serving
+@pytest.mark.parametrize("policy", ["srtf", "fifo"])
+def test_serve_jobs_finish_through_the_service(policy):
+    cfg = get_arch("yi-6b").reduced()
+    blocks = {"long": 4, "short": 2}
+    with SchedulerService(n_lanes=2, policy=policy) as service:
+        handles = {
+            name: service.submit(make_serve_job(
+                cfg, name, blocks=n, tokens_per_block=2, batch=1,
+                prompt_len=8, seed=i, device="cpu"))
+            for i, (name, n) in enumerate(sorted(blocks.items()))}
+        results = {name: h.result_blocking(timeout=120)
+                   for name, h in handles.items()}
+    for name, res in results.items():
+        assert res.blocks == blocks[name] and not res.cancelled
+
+
+def test_serve_job_takes_a_given_prompt_and_keeps_state_through_warmup():
+    cfg = get_arch("yi-6b").reduced()
+    prompt = torch.arange(16).reshape(2, 8) % cfg.vocab_size
+    job = make_serve_job(cfg, "p", blocks=1, tokens_per_block=1, batch=2,
+                         prompt_len=8, prompt=prompt.numpy(), device="cpu")
+    job.warmup_fn()
+    job.make_block_fn(1)()
+    with pytest.raises(ValueError, match="prompt shape"):
+        make_serve_job(cfg, "p", blocks=1, batch=1, prompt_len=8,
+                       prompt=prompt, device="cpu")
+
+
+@pytest.mark.parametrize("extra,blocks", [
+    ([], [2, 3]),
+    (["--closed-loop", "2", "--requests", "3"], [2, 3, 3]),
+], ids=["open-loop", "closed-loop"])
+def test_serve_cli_reduced_on_cpu(extra, blocks, capsys):
+    runs = serve.main(["--device", "cpu", "--reduced",
+                       "--jobs", "yi-6b:3,yi-6b:2", "--policy", "srtf",
+                       "--compare-fifo", "--tokens-per-block", "2",
+                       "--prompt-len", "8", "--batch", "1", "--lanes", "2",
+                       "--stagger", "0"] + extra)
+    assert sorted(runs) == ["fifo", "srtf"]
+    for run in runs.values():
+        assert run["peak_bytes"] is None
+        assert sorted(r.blocks for r in run["results"]) == blocks
+    assert "srtf vs fifo" in capsys.readouterr().out
+
+
+# ------------------------------------------------- scheduler-copy parity
+JOBS = [
+    # (name, blocks, max_residency, arrival s, block seconds)
+    ("a", 7, 2, 0.0, 0.30),
+    ("b", 3, 4, 0.05, 0.10),
+    ("c", 5, 1, 0.40, 0.20),
+    ("d", 2, 3, 0.45, 0.70),
+]
+
+
+def _drive(job_cls, lane_cls, make_policy, module, predictor, policy,
+           monkeypatch):
+    clock = [0.0]
+    monkeypatch.setattr(module, "time",
+                        types.SimpleNamespace(perf_counter=lambda: clock[0]))
+
+    def job(name, blocks, res, arrival, secs):
+        calls = [0]
+
+        def make_block_fn(residency):
+            def block():
+                calls[0] += 1
+                # deterministic, slightly uneven block times
+                clock[0] += secs * (1.0 + 0.1 * (calls[0] % 3))
+            return block
+        return job_cls(name=name, num_blocks=blocks, max_residency=res,
+                       make_block_fn=make_block_fn, arrival=arrival,
+                       est_block_seconds=secs)
+
+    ex = lane_cls([job(*spec) for spec in JOBS], make_policy(policy),
+                  n_lanes=4, predictor=predictor)
+    results = ex.run()
+    return ex.trace, {k: (r.arrival, r.finish, r.blocks, r.cancelled)
+                      for k, r in sorted(results.items())}
+
+
+@pytest.mark.parametrize("predictor", ["simple-slicing", "ewma"])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_scheduler_copy_matches_reference(policy, predictor, monkeypatch):
+    want = _drive(JJob, JLane, j_make_policy, j_executor, predictor, policy,
+                  monkeypatch)
+    got = _drive(TJob, TLane, t_make_policy, t_executor, predictor, policy,
+                 monkeypatch)
+    assert got == want
+    assert len(want[0]) == sum(spec[1] for spec in JOBS)
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_is_identical_to_reference(rel):
+    assert (PORT / rel).read_bytes() == \
+        (ROOT / "src" / "repro" / rel).read_bytes()
+
+
+# ------------------------------------------------------ package boundary
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(ROOT)}:{node.lineno} "
+                               f"imports {name}")
+    assert not bad, bad
+    assert len(_port_files()) > 20
+
+
+def test_entry_points_refuse_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    cfg = get_arch("yi-6b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_serve_job(cfg, "x", blocks=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced", "--jobs", "yi-6b:1"])
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(alone, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_bytes(script.read_bytes())
+        script = tmp_path / "chip_smoke.py"
+    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
