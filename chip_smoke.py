@@ -2,31 +2,37 @@
 
     python3 chip_smoke.py
 
-Phases, each reporting on lines of its own; any failure ends the script
-with a non-zero exit and no result line:
+Phases, each reporting on lines of its own and its seconds; any failure
+ends the script with a non-zero exit and no result line:
 
 1. device  -- require CUDA; print ``nvidia-smi``'s name and power limit.
 2. build   -- compile every CUDA kernel of the port from ``src/`` (one
               ``nvcc`` per source, all at once) and print the build time.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
-              the serving path's shapes and at ragged, windowed and mixed-
-              length ones: bf16 inputs, plain version in float32, stated
+              the serving paths' shapes and at ragged, windowed, grouped,
+              resumed and mixed-length ones: bf16 inputs (fp32 dt, A, gates
+              and states for the scans), plain version in float32, stated
               tolerance; times of kernel, plain version and
-              ``F.scaled_dot_product_attention`` (a yardstick the port never
-              calls) with CUDA events, and the least time the card could
-              take for the same work.
-4. model   -- full-width yi-6b in bf16 (random weights from a seed):
-              prefill and 4 decode steps through the kernels against the
-              same weights through the plain versions; relative L2 error
-              of the logits against a stated bound, argmax agreement.
-5. serve   -- the serving entry point at full width,
-              ``--jobs yi-6b:8,yi-6b:2 --policy srtf --compare-fifo
-              --batch 4 --prompt-len 1024 --tokens-per-block 8``, with the
-              kernels' launch counters set to 0 just before and read just
-              after; every job must finish and both kernels must have run.
+              ``F.scaled_dot_product_attention`` where it computes the same
+              function (a yardstick the port never calls) with CUDA events,
+              and the least time the card could take for the same work.
+4. model   -- full-width yi-6b, mamba2-2.7b and recurrentgemma-2b in bf16
+              (random weights from a seed): prefill and 4 decode steps
+              through the kernels against the same weights through the
+              plain versions; relative L2 error of the logits against a
+              stated bound, argmax agreement; prefill and decode-step times
+              and where a decode step's device time goes.
+5. serve   -- the serving entry point at full width on two paths, each with
+              the kernels' launch counters set to 0 just before and read
+              just after: ``--jobs yi-6b:8,yi-6b:2`` (flash and decode
+              attention) and ``--jobs mamba2-2.7b:8,recurrentgemma-2b:2``
+              (all four kernels), both ``--policy srtf --compare-fifo
+              --batch 4 --prompt-len 1024 --tokens-per-block 8``; every job
+              must finish and every kernel of the path must have run.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel
+(launches summed over both serve paths); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -45,25 +51,45 @@ import torch.profiler
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor-core rate
-# and HBM3 bandwidth.  The kernels take bf16 inputs.
+# H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor-core
+# rate, float32 rate outside the tensor cores, and HBM3 bandwidth.
 PEAK_FLOPS = 989e12
+PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-# Kernel vs plain version: |kernel - plain| <= ATOL + RTOL * |plain|.  The
-# kernels round probabilities to bf16 before the PV product (flash) and
-# round the output to bf16 (both); bf16 keeps 8 bits, ~0.4% relative per
-# rounding, and this is the bf16 tolerance of tests/test_kernels.py.
-ATOL = RTOL = 2e-2
+# Kernel vs plain version: |kernel - plain| <= tol + tol * |plain|, with the
+# bf16 tolerances of tests/test_kernels.py.  Attention (2e-2): the kernels
+# round probabilities to bf16 before the PV product (flash) and the output
+# to bf16 (both), ~0.4% relative per rounding.  Scans (3e-2): the kernels
+# accumulate in fp32 in another order than the plain versions and round y
+# or h to bf16; a long scan carries each step's rounding into the next.
+ATTN_TOL = 2e-2
+SCAN_TOL = 3e-2
 # Full-width model, kernels vs plain versions: relative L2 error of each
-# logits vector.  Per layer the attention outputs differ by a few bf16
-# roundings; 32 layers compound them.
+# logits vector.  The kernels and the plain versions round to bf16 at
+# different places (flash rounds probabilities; the scans sum in another
+# order, so outputs whose fp32 values straddle a rounding boundary come out
+# one ulp apart), and every layer carries the last one's differences on
+# through the residual stream.  How far such roundings travel depends on
+# the model's depth and weights -- random weights amplify them, and 64
+# Mamba-2 layers far more than 32 attention layers -- so the run measures
+# it: the floor is the error of the plain path in bf16 against the plain
+# path in fp32 on the same (bf16-valued) weights.  Two paths with
+# independent roundings of that size differ by ~1.4 floor; the bound is
+# twice the floor, and never below the 5e-2 that yi-6b was held to.
 MODEL_REL_L2 = 5e-2
 
-SERVE_ARGS = ["--jobs", "yi-6b:8,yi-6b:2", "--policy", "srtf",
-              "--compare-fifo", "--batch", "4", "--prompt-len", "1024",
-              "--tokens-per-block", "8"]
 B, PROMPT, TOKENS_PER_BLOCK, LONGEST = 4, 1024, 8, 8
 MAX_SEQ = PROMPT + LONGEST * TOKENS_PER_BLOCK + 8   # make_serve_job's max_seq
+SERVE_COMMON = ["--policy", "srtf", "--compare-fifo", "--batch", str(B),
+                "--prompt-len", str(PROMPT), "--tokens-per-block",
+                str(TOKENS_PER_BLOCK)]
+# The serving paths, each with the kernels it must launch.
+SERVE_PATHS = [
+    ("yi-6b:8,yi-6b:2", ("flash_attention", "decode_attention")),
+    ("mamba2-2.7b:8,recurrentgemma-2b:2",
+     ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")),
+]
+MODELS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
 SLEEP_CYCLES = 200_000_000            # device sleep before a timed run
 
 
@@ -111,8 +137,10 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
+    """Least milliseconds for the work: the larger of operations over the
+    peak rate of their type and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -130,15 +158,16 @@ def sdpa(q, k, v, mask=None, causal=False):
                                           is_causal=causal, enable_gqa=True)
 
 
-def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                tol: float = ATTN_TOL) -> float:
     if got.shape != want.shape or not torch.isfinite(got).all():
         fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
              f"non-finite output")
     diff = (got.float() - want.float()).abs()
-    ok = bool((diff <= ATOL + RTOL * want.float().abs()).all())
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
     err = float(diff.max())
     print(f"[kernels] {name}: max_abs_err={err:.3e} "
-          f"(tol {ATOL} + {RTOL}*|plain|) {'ok' if ok else 'MISMATCH'}",
+          f"(tol {tol} + {tol}*|plain|) {'ok' if ok else 'MISMATCH'}",
           flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version")
@@ -176,6 +205,14 @@ def phase_build() -> None:
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
+    out = {}
+    out.update(kernels_attention(gen))
+    out["ssd_scan"] = kernel_ssd(gen)
+    out["rglru_scan"] = kernel_rglru(gen)
+    return out
+
+
+def kernels_attention(gen: torch.Generator) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda,
@@ -191,55 +228,71 @@ def phase_kernels(gen: torch.Generator) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    H, KV, D = 32, 4, 128
     out = {}
 
     # -- flash attention (prefill) ---------------------------------------
     flash_cases = [
-        # name, B, Sq, Sk, mask, window, q_offset
-        ("prefill B4 S1024 causal", B, PROMPT, PROMPT, "causal", 0, 0),
-        ("ragged Sq200 Sk333 causal q_offset133", 2, 200, 333, "causal", 0,
-         133),
-        ("ragged Sq77 Sk150 none", 3, 77, 150, "none", 0, 0),
-        ("window S700 w128", 2, 700, 700, "window", 128, 0),
+        # name, B, Sq, Sk, H, KV, D, mask, window, q_offset
+        ("prefill B4 S1024 causal", B, PROMPT, PROMPT, 32, 4, 128, "causal",
+         0, 0),
+        ("ragged Sq200 Sk333 causal q_offset133", 2, 200, 333, 32, 4, 128,
+         "causal", 0, 133),
+        ("ragged Sq77 Sk150 none", 3, 77, 150, 32, 4, 128, "none", 0, 0),
+        ("window S700 w128", 2, 700, 700, 32, 4, 128, "window", 128, 0),
+        ("D256 prefill B4 S1024 H10 KV1 window2048", B, PROMPT, PROMPT, 10,
+         1, 256, "window", 2048, 0),
+        ("D256 ragged Sq77 Sk150 causal q_offset73", 1, 77, 150, 4, 2, 256,
+         "causal", 0, 73),
+        ("D256 window S300 w50", 2, 300, 300, 10, 1, 256, "window", 50, 0),
     ]
     errs = []
-    for name, b, sq, sk, kind, window, off in flash_cases:
-        q, k, v = randn(b, sq, H, D), randn(b, sk, KV, D), randn(b, sk, KV, D)
+    for name, b, sq, sk, h, kv, d, kind, window, off in flash_cases:
+        q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
         kw = dict(mask_kind=kind, window=window, q_offset=off)
         got = flash_attention_cuda(q, k, v, **kw)
         want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
         errs.append(check_close(f"flash_attention {name}", got, want))
-    # timing at the serving path's prefill shape
-    q, k, v = randn(B, PROMPT, H, D), randn(B, PROMPT, KV, D), \
-        randn(B, PROMPT, KV, D)
-    mask = ref.causal_mask(PROMPT, PROMPT, 0, dev)
-    pairs = int(mask.sum())
-    flops = 2.0 * B * H * pairs * (D + D)
-    o = torch.empty_like(q)
-    b_ms, b_by = bound(flops, nbytes(q, k, v, o))
-    ms = device_ms(lambda: flash_attention_cuda(q, k, v), 20)
-    call_ms = wall_ms(lambda: flash_attention_cuda(q, k, v), 20)
-    plain_ms = device_ms(lambda: flash_attention_plain(q, k, v), 5)
-    lib_ms = device_ms(lambda: sdpa(q, k, v, causal=True), 20)
-    print(f"[kernels] flash_attention B{B} S{PROMPT} H{H} KV{KV} D{D} causal: "
-          f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per call back "
-          f"to back), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP)", flush=True)
+
+    def time_flash(h, kv, d, kind, window, label):
+        """Times at a serving path's prefill shape (S <= window, so the
+        window mask is the causal one and SDPA's is_causal matches it)."""
+        q, k, v = randn(B, PROMPT, h, d), randn(B, PROMPT, kv, d), \
+            randn(B, PROMPT, kv, d)
+        pairs = int(ref.causal_mask(PROMPT, PROMPT, 0, dev).sum())
+        flops = 2.0 * B * h * pairs * (d + d)
+        b_ms, b_by = bound(flops, nbytes(q, k, v, q))
+        kw = dict(mask_kind=kind, window=window)
+        ms = device_ms(lambda: flash_attention_cuda(q, k, v, **kw), 20)
+        call_ms = wall_ms(lambda: flash_attention_cuda(q, k, v, **kw), 20)
+        plain_ms = device_ms(lambda: flash_attention_plain(q, k, v, **kw), 5)
+        lib_ms = device_ms(lambda: sdpa(q, k, v, causal=True), 20)
+        print(f"[kernels] flash_attention {label} B{B} S{PROMPT} H{h} KV{kv} "
+              f"D{d} {kind}: kernel {ms:.4f} ms on the device ({call_ms:.4f}"
+              f" ms per call back to back), plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{flops / 1e9:.2f} GFLOP)", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
+
     out["flash_attention"] = dict(
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms)
+        max_abs_err=max(errs),
+        **time_flash(32, 4, 128, "causal", 0, "yi-6b"))
+    time_flash(10, 1, 256, "window", 2048, "recurrentgemma-2b")
 
     # -- decode attention -------------------------------------------------
     errs = []
     decode_cases = [
-        ("decode B4 mixed lengths", [1, 300, 777, MAX_SEQ]),
-        ("decode B4 short lengths", [1, 2, 63, 65]),
+        # name, H, KV, D, cache slots, lengths
+        ("decode B4 mixed lengths", 32, 4, 128, MAX_SEQ,
+         [1, 300, 777, MAX_SEQ]),
+        ("decode B4 short lengths", 32, 4, 128, MAX_SEQ, [1, 2, 63, 65]),
+        ("D256 G10 ring of 2048 mixed lengths", 10, 1, 256, 2048,
+         [1, PROMPT, MAX_SEQ, 2048]),
     ]
-    for name, lens in decode_cases:
-        q = randn(B, H, D)
-        kc, vc = randn(B, MAX_SEQ, KV, D), randn(B, MAX_SEQ, KV, D)
+    for name, h, kv, d, slots, lens in decode_cases:
+        q = randn(B, h, d)
+        kc, vc = randn(B, slots, kv, d), randn(B, slots, kv, d)
         length = torch.tensor(lens, dtype=torch.int32, device=dev)
         got = decode_attention_cuda(q, kc, vc, length)
         want = decode_attention_plain(q.float(), kc.float(), vc.float(),
@@ -247,168 +300,319 @@ def phase_kernels(gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         errs.append(check_close(f"decode_attention {name} {lens}", got,
                                 want))
+    q, kc, vc = randn(B, 32, 128), randn(B, MAX_SEQ, 4, 128), \
+        randn(B, MAX_SEQ, 4, 128)
     zero = torch.tensor([0, 5, 0, 9], dtype=torch.int32, device=dev)
     z = decode_attention_cuda(q, kc, vc, zero)
     torch.cuda.synchronize()
     if bool(z[0].any()) or bool(z[2].any()):
         fail("decode_attention: length 0 rows are not zero")
     print("[kernels] decode_attention length 0 rows: zeros ok", flush=True)
-    # timing at a serving decode step: every row at a mid-run length; eight
-    # cache copies in turn so the 50 MB L2 does not hold the K/V reads
-    fill = PROMPT + LONGEST * TOKENS_PER_BLOCK // 2
-    length = torch.full((B,), fill, dtype=torch.int32, device=dev)
-    q = randn(B, H, D)
-    caches = [(randn(B, MAX_SEQ, KV, D), randn(B, MAX_SEQ, KV, D))
-              for _ in range(8)]
-    turn = [0]
 
-    def run(fn):
-        kc, vc = caches[turn[0] % len(caches)]
-        turn[0] += 1
-        return fn(q, kc, vc, length)
+    def time_decode(h, kv, d, slots, fill, label):
+        """Times at a serving decode step: every row at a mid-run length;
+        eight cache copies in turn so the 50 MB L2 does not hold the K/V
+        reads."""
+        length = torch.full((B,), fill, dtype=torch.int32, device=dev)
+        q = randn(B, h, d)
+        caches = [(randn(B, slots, kv, d), randn(B, slots, kv, d))
+                  for _ in range(8)]
+        turn = [0]
 
-    o = torch.empty_like(q)
-    kv_bytes = B * fill * KV * (D + D) * 2
-    flops = 2.0 * B * H * fill * (D + D)
-    b_ms, b_by = bound(flops, kv_bytes + nbytes(q, o, length))
-    ms = device_ms(lambda: run(decode_attention_cuda), 100)
-    call_ms = wall_ms(lambda: run(decode_attention_cuda), 100)
-    plain_ms = device_ms(lambda: run(decode_attention_plain), 20)
-    valid = torch.arange(MAX_SEQ, device=dev)[None] < length[:, None]
-    amask = valid[:, None, None, :]
-    lib_ms = device_ms(lambda: run(lambda q_, k_, v_, _l: sdpa(
-        q_[:, None], k_, v_, mask=amask)), 50)
-    print(f"[kernels] decode_attention B{B} S{MAX_SEQ} fill {fill} H{H} KV{KV} "
-          f"D{D}: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per call "
-          f"back to back), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}; {kv_bytes / 1e6:.2f} MB of K/V)",
-          flush=True)
+        def run(fn):
+            kc, vc = caches[turn[0] % len(caches)]
+            turn[0] += 1
+            return fn(q, kc, vc, length)
+
+        kv_bytes = B * fill * kv * (d + d) * 2
+        flops = 2.0 * B * h * fill * (d + d)
+        b_ms, b_by = bound(flops, kv_bytes + nbytes(q, q, length))
+        ms = device_ms(lambda: run(decode_attention_cuda), 100)
+        call_ms = wall_ms(lambda: run(decode_attention_cuda), 100)
+        plain_ms = device_ms(lambda: run(decode_attention_plain), 20)
+        valid = torch.arange(slots, device=dev)[None] < length[:, None]
+        amask = valid[:, None, None, :]
+        lib_ms = device_ms(lambda: run(lambda q_, k_, v_, _l: sdpa(
+            q_[:, None], k_, v_, mask=amask)), 50)
+        print(f"[kernels] decode_attention {label} B{B} S{slots} fill {fill} "
+              f"H{h} KV{kv} D{d}: kernel {ms:.4f} ms on the device "
+              f"({call_ms:.4f} ms per call back to back), plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {kv_bytes / 1e6:.2f} MB of K/V)", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
+
     out["decode_attention"] = dict(
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms)
+        max_abs_err=max(errs),
+        **time_decode(32, 4, 128, MAX_SEQ,
+                      PROMPT + LONGEST * TOKENS_PER_BLOCK // 2, "yi-6b"))
+    time_decode(10, 1, 256, 2048, PROMPT + TOKENS_PER_BLOCK,
+                "recurrentgemma-2b")
     return out
 
 
-def phase_model(gen: torch.Generator) -> None:
+def kernel_ssd(gen: torch.Generator) -> dict:
+    """The SSD scan against its plain (chunked fp32) version; times at the
+    mamba2-2.7b prefill shape.  No single PyTorch call computes the scan,
+    so there is no library time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def inputs(b, s, h, p, g, n, init):
+        return ((randn(b, s, h, p) * 0.5).to(torch.bfloat16),
+                F.softplus(randn(b, s, h)), -torch.exp(randn(h)),
+                (randn(b, s, g, n) * 0.3).to(torch.bfloat16),
+                (randn(b, s, g, n) * 0.3).to(torch.bfloat16),
+                randn(b, h, p, n) * 0.2 if init else None)
+
+    serve = (B, PROMPT, 80, 64, 1, 128, 128, False)
+    cases = [
+        # name, (B, S, H, P, G, N, chunk, initial_state)
+        ("serve B4 S1024 H80 P64 G1 N128 chunk128", serve),
+        ("G2 S=chunk=64", (2, 64, 8, 32, 2, 64, 64, False)),
+        ("G4 S320 chunk64 with initial_state", (3, 320, 8, 64, 4, 128, 64,
+                                                True)),
+        ("G4 S320 chunk64 without initial_state", (3, 320, 8, 64, 4, 128, 64,
+                                                   False)),
+        ("ragged P24 N40 chunk48 S96 with initial_state",
+         (1, 96, 3, 24, 1, 40, 48, True)),
+    ]
+    errs = []
+    for name, (b, s, h, p, g, n, chunk, init) in cases:
+        x, dt, A, Bm, Cm, h0 = inputs(b, s, h, p, g, n, init)
+        y, state = ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)
+        want_y, want_state = ssd_plain(x.float(), dt, A, Bm.float(),
+                                       Cm.float(), chunk=chunk,
+                                       initial_state=h0)
+        torch.cuda.synchronize()
+        errs.append(check_close(f"ssd_scan {name} y", y, want_y, SCAN_TOL))
+        errs.append(check_close(f"ssd_scan {name} state", state, want_state,
+                                SCAN_TOL))
+
+    b, s, h, p, g, n, chunk, _ = serve
+    x, dt, A, Bm, Cm, _ = inputs(b, s, h, p, g, n, False)
+    y, state = ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk)
+    nc = s // chunk
+    # per (b, h, chunk): C B^T, L x, C state^T and the chunk state
+    flops = 2.0 * b * h * nc * chunk * (chunk * n + chunk * p + 2 * p * n)
+    total = nbytes(x, dt, A, Bm, Cm, y, state)
+    b_ms, b_by = bound(flops, total)
+    ms = device_ms(lambda: ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk), 20)
+    plain_ms = device_ms(lambda: ssd_plain(x, dt, A, Bm, Cm, chunk=chunk), 3)
+    print(f"[kernels] ssd_scan serve B{b} S{s} H{h} P{p} G{g} N{n} chunk "
+          f"{chunk}: kernel {ms:.4f} ms on the device, plain {plain_ms:.4f} "
+          f"ms, library none, bound {b_ms:.4f} ms ({b_by}; "
+          f"{total / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def kernel_rglru(gen: torch.Generator) -> dict:
+    """The RG-LRU scan against its plain (sequential fp32) version; times
+    at the recurrentgemma-2b prefill shape.  No single PyTorch call
+    computes the recurrence, so there is no library time."""
+    from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def inputs(b, s, c, init):
+        return ((randn(b, s, c) * 0.5).to(torch.bfloat16),
+                torch.sigmoid(randn(b, s, c)), torch.sigmoid(randn(b, s, c)),
+                -torch.nn.functional.softplus(randn(c)),
+                randn(b, c) if init else None)
+
+    serve = (B, PROMPT, 2560, False)
+    cases = [
+        ("serve B4 S1024 C2560", serve),
+        ("S300 C384 with initial_state", (2, 300, 384, True)),
+        ("S77 C100", (3, 77, 100, False)),
+    ]
+    errs = []
+    for name, (b, s, c, init) in cases:
+        x, ga, gi, la, h0 = inputs(b, s, c, init)
+        h, state = rglru_cuda(x, ga, gi, la, initial_state=h0)
+        want_h, want_state = rglru_plain(x.float(), ga, gi, la,
+                                         initial_state=h0)
+        torch.cuda.synchronize()
+        errs.append(check_close(f"rglru_scan {name} h", h, want_h, SCAN_TOL))
+        errs.append(check_close(f"rglru_scan {name} state", state,
+                                want_state, SCAN_TOL))
+
+    b, s, c, _ = serve
+    x, ga, gi, la, _ = inputs(b, s, c, False)
+    h, state = rglru_cuda(x, ga, gi, la)
+    # per element: 2 exp, a sqrt and ~7 multiply-adds, in fp32
+    flops = 10.0 * b * s * c
+    total = nbytes(x, ga, gi, la, h, state)
+    b_ms, b_by = bound(flops, total, PEAK_FP32)
+    ms = device_ms(lambda: rglru_cuda(x, ga, gi, la), 20)
+    # The plain version is a Python loop over the 1024 steps, ~10k small
+    # operations: more than the launch queue holds behind device_ms's
+    # sleep, so it is timed back to back (host-paced, as it runs).
+    plain_ms = wall_ms(lambda: rglru_plain(x, ga, gi, la), 2)
+    print(f"[kernels] rglru_scan serve B{b} S{s} C{c}: kernel {ms:.4f} ms on "
+          f"the device, plain {plain_ms:.4f} ms (back to back), library "
+          f"none, bound {b_ms:.4f} ms ({b_by}; {total / 1e6:.2f} MB)",
+          flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+KINDS = {   # device-time classes of the profiler's kernel names
+    "attention kernels": ("flash_fwd_kernel", "decode_split_kernel",
+                          "decode_combine_kernel"),
+    "scan kernels": ("ssd_chunk_scan_kernel", "rglru_scan_kernel"),
+    "matmuls": ("gemm", "xmma", "cutlass", "nvjet"),
+}
+
+
+def profile(fn, n: int, what: str) -> None:
+    """torch.profiler over ``n`` calls: device busy time by kind of kernel,
+    and the device's idle share between the first kernel's start and the
+    last one's end."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kinds = {kind: 0.0 for kind in list(KINDS) + ["other"]}
+    first, last = math.inf, -math.inf
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kind = next((k for k, tags in KINDS.items()
+                     if any(t in name for t in tags)), "other")
+        kinds[kind] += e.time_range.elapsed_us()
+        first = min(first, e.time_range.start)
+        last = max(last, e.time_range.end)
+    busy = sum(kinds.values())
+    if busy == 0.0:
+        print(f"[model] profiler recorded no device time for the {what}: "
+              f"device busy and idle share not measured", flush=True)
+        return
+    parts = ", ".join(f"{k} {v / 1e3 / n:.3f} ms" for k, v in kinds.items())
+    print(f"[model] profiled {what} (torch.profiler, {n} calls): device busy "
+          f"{busy / 1e3 / n:.3f} ms per call ({parts}); device idle "
+          f"{1 - busy / (last - first):.1%} of the "
+          f"{(last - first) / 1e3 / n:.3f} ms per call between first and "
+          f"last kernel", flush=True)
+
+
+def _to_float32(tree):
+    """A copy of a parameter tree in float32 (exact: bf16 values fit)."""
+    if isinstance(tree, dict):
+        return {k: _to_float32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_float32(v) for v in tree]
+    return tree.float()
+
+
+def phase_model(gen: torch.Generator, arch: str) -> None:
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
+    from repro_torch.models.bridge import leaf_dtype
 
-    cfg = get_arch("yi-6b")
+    cfg = get_arch(arch)
     t0 = time.perf_counter()
     params = lm.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    print(f"[model] yi-6b full width ({cfg.n_layers} layers, d "
-          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}) initialised in "
+    print(f"[model] {arch} full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}) initialised in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
                            device="cuda")
     steps = torch.randint(0, cfg.vocab_size, (4, B), generator=gen,
                           device="cuda")
 
-    def run(backend):
-        logits, caches = lm.prefill(cfg, params, prompt, max_seq=MAX_SEQ,
-                                    backend=backend)
+    def run(backend, p=params, dtype=torch.bfloat16):
+        logits, caches = lm.prefill(cfg, p, prompt, max_seq=MAX_SEQ,
+                                    backend=backend, dtype=dtype)
         out = [logits.float()]
         lengths = torch.full((B,), PROMPT, dtype=torch.int32, device="cuda")
         for tok in steps:
-            logits, caches = lm.decode_step(cfg, params, tok, caches, lengths,
-                                            backend=backend)
+            logits, caches = lm.decode_step(cfg, p, tok, caches, lengths,
+                                            backend=backend, dtype=dtype)
             out.append(logits.float())
             lengths = lengths + 1
         torch.cuda.synchronize()
         return out
 
+    def rel_l2(got, want):
+        return max(float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+                   for g, w in zip(got, want))
+
     got, want = run("kernel"), run("ref")
-    worst, agree, total = 0.0, 0, 0
+    agree, total = 0, 0
     for i, (g, w) in enumerate(zip(got, want)):
         if g.shape != (B, cfg.padded_vocab) or not torch.isfinite(g).all():
-            fail(f"model step {i}: logits shape {tuple(g.shape)} or "
+            fail(f"{arch} step {i}: logits shape {tuple(g.shape)} or "
                  f"non-finite")
-        rel = float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
-        worst = max(worst, rel)
         agree += int((g.argmax(-1) == w.argmax(-1)).sum())
         total += B
-    print(f"[model] prefill + 4 decode steps, kernels vs plain: max relative "
-          f"L2 error of logits {worst:.3e} (bound {MODEL_REL_L2}), argmax "
-          f"agreement {agree}/{total}", flush=True)
-    if not worst < MODEL_REL_L2:
-        fail("full-width logits through the kernels disagree with the plain "
-             "versions")
+    worst = rel_l2(got, want)
+    truth = run("ref", _to_float32(params), torch.float32)
+    floor, kernel_to_truth = rel_l2(want, truth), rel_l2(got, truth)
+    limit = max(MODEL_REL_L2, 2 * floor)
+    print(f"[model] {arch} prefill + 4 decode steps, kernels vs plain: max "
+          f"relative L2 error of logits {worst:.3e} (bound {limit:.3e} = "
+          f"max({MODEL_REL_L2}, 2 x floor)), argmax agreement "
+          f"{agree}/{total}; floor (plain bf16 vs plain fp32) {floor:.3e}, "
+          f"kernels bf16 vs plain fp32 {kernel_to_truth:.3e}", flush=True)
+    if not worst < limit:
+        fail(f"{arch}: full-width logits through the kernels disagree with "
+             f"the plain versions")
+    del truth
 
     # Where a serving step's time goes: prefill and decode-step wall time
-    # (back to back, as the serving loop runs them), then torch.profiler
-    # over a few decode steps: device busy time by kind of kernel, and the
-    # device's idle share between the first kernel's start and the last
-    # one's end.
-    weight_bytes = sum(       # every weight but the embedding table
-        math.prod(shape) * (4 if "norm" in key else 2)
+    # (back to back, as the serving loop runs them), then the profiler.
+    # A decode step reads every weight once; with tied embeddings the head
+    # reads the whole embedding table too.
+    weight_bytes = sum(
+        math.prod(shape) * leaf_dtype(key, torch.bfloat16).itemsize
         for key, (shape, _) in lm.param_shapes(cfg).items()
-        if key != "embed/table")
-    prefill_ms = wall_ms(lambda: lm.prefill(cfg, params, prompt,
-                                            max_seq=MAX_SEQ), 3)
-    _, caches = lm.prefill(cfg, params, prompt, max_seq=MAX_SEQ)
+        if key != "embed/table" or cfg.tie_embeddings)
+
+    def do_prefill():
+        return lm.prefill(cfg, params, prompt, max_seq=MAX_SEQ)
+
+    prefill_ms = wall_ms(do_prefill, 3)
+    _, caches = do_prefill()
     lengths = torch.full((B,), PROMPT, dtype=torch.int32, device="cuda")
 
     def step():
         lm.decode_step(cfg, params, steps[0], caches, lengths)
 
     step_ms = wall_ms(step, 10, warmup=2)
-    print(f"[model] prefill B{B} S{PROMPT}: {prefill_ms:.3f} ms; decode step "
-          f"B{B}: {step_ms:.3f} ms; decode-step bound: {weight_bytes / 1e9:.2f}"
-          f" GB of weights / 3.35 TB/s = "
+    print(f"[model] {arch} prefill B{B} S{PROMPT}: {prefill_ms:.3f} ms; "
+          f"decode step B{B}: {step_ms:.3f} ms; decode-step bound: "
+          f"{weight_bytes / 1e9:.2f} GB of weights / 3.35 TB/s = "
           f"{weight_bytes / PEAK_BYTES * 1e3:.3f} ms", flush=True)
-    n_prof = 3
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            step()
-        torch.cuda.synchronize()
-    kinds = {"attention kernels": 0.0, "matmuls": 0.0, "other": 0.0}
-    first, last = math.inf, -math.inf
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.name.lower()
-        if any(t in name for t in ("flash_fwd_kernel", "decode_split_kernel",
-                                   "decode_combine_kernel")):
-            kind = "attention kernels"
-        elif any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet")):
-            kind = "matmuls"
-        else:
-            kind = "other"
-        kinds[kind] += e.time_range.elapsed_us()
-        first = min(first, e.time_range.start)
-        last = max(last, e.time_range.end)
-    busy = sum(kinds.values())
-    if busy == 0.0:
-        print("[model] profiler recorded no device time: device busy and "
-              "idle share not measured", flush=True)
-    else:
-        parts = ", ".join(f"{k} {v / 1e3 / n_prof:.3f} ms"
-                          for k, v in kinds.items())
-        print(f"[model] profiled decode step (torch.profiler, {n_prof} "
-              f"steps): device busy {busy / 1e3 / n_prof:.3f} ms per step "
-              f"({parts}); device idle {1 - busy / (last - first):.1%} of "
-              f"the {(last - first) / 1e3 / n_prof:.3f} ms per step between "
-              f"first and last kernel", flush=True)
+    profile(step, 3, f"{arch} decode step")
+    profile(do_prefill, 1, f"{arch} prefill")
     del params, got, want, caches
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def phase_serve() -> dict:
+def phase_serve(jobs: str, path_kernels) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    print(f"[serve] python -m repro_torch.launch.serve {' '.join(SERVE_ARGS)}",
+    args = ["--jobs", jobs] + SERVE_COMMON
+    print(f"[serve] python -m repro_torch.launch.serve {' '.join(args)}",
           flush=True)
     ops.reset_launch_counts()
-    runs = serve.main(SERVE_ARGS)
+    runs = serve.main(args)
     launches = ops.launch_counts()
     print(f"[serve] kernel launches in the serve run: {launches}", flush=True)
-    want_blocks = sorted([8, 2])
+    want_blocks = sorted(int(item.split(":")[1]) for item in jobs.split(","))
     for policy, run in runs.items():
         blocks = sorted(r.blocks for r in run["results"])
         if blocks != want_blocks or any(r.cancelled for r in run["results"]):
@@ -421,33 +625,44 @@ def phase_serve() -> dict:
               flush=True)
     if sorted(runs) != ["fifo", "srtf"]:
         fail(f"serve ran {sorted(runs)}, expected srtf and fifo")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"serve never launched the {name} kernel")
+    for name in path_kernels:
+        if launches[name] <= 0:
+            fail(f"serve --jobs {jobs} never launched the {name} kernel")
     return launches
 
 
+def timed(name: str, fn, *args):
+    t0 = time.perf_counter()
+    result = fn(*args)
+    print(f"[{name}] phase took {time.perf_counter() - t0:.1f}s", flush=True)
+    return result
+
+
 def main() -> None:
-    kind = phase_device()
-    phase_build()
+    kind = timed("device", phase_device)
+    timed("build", phase_build)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    stats = phase_kernels(gen)
-    phase_model(gen)
-    launches = phase_serve()
+    stats = timed("kernels", phase_kernels, gen)
+    for arch in MODELS:
+        timed("model", phase_model, gen, arch)
+    launches = {}
+    for jobs, path_kernels in SERVE_PATHS:
+        counts = timed("serve", phase_serve, jobs, path_kernels)
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
     sources = {
-        "flash_attention": (
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:109"),
-        "decode_attention": (
-            "src/repro_torch/kernels/csrc/decode_attention.cu",
-            "src/repro/kernels/decode_attention.py:84"),
+        "flash_attention": "src/repro/kernels/flash_attention.py:109",
+        "decode_attention": "src/repro/kernels/decode_attention.py:84",
+        "ssd_scan": "src/repro/kernels/ssd_scan.py:94",
+        "rglru_scan": "src/repro/kernels/rglru_scan.py:74",
     }
     kernels = []
-    for name, (source, replaces) in sources.items():
+    for name, replaces in sources.items():
         s = stats[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

@@ -2,8 +2,11 @@
 built on the PyTorch model.
 
 A serving job's block is one k-token decode chunk for a request batch
-against a live KV cache; the first block runs the prefill too.  Blocks are
-homogeneous, the structural property the paper's predictor exploits.
+against its live cache (attention KV caches, Mamba-2 and RG-LRU states,
+whatever the arch's plan keeps); the first block runs the prefill too.
+Blocks are homogeneous, the structural property the paper's predictor
+exploits.  Nothing here depends on the arch: any config the port's model
+runs (dense GQA, Mamba-2, the RG-LRU hybrid) makes a job.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ def make_serve_job(
     device=None,
 ) -> ExecutorJob:
     """A serving job: ``blocks`` decode chunks of ``tokens_per_block`` each
-    against a live KV cache (prefill happens in the first block).
+    against a live cache (prefill happens in the first block).
 
     Weights come from ``lm.init(cfg, seed=seed)``.  ``prompt`` ([batch,
     prompt_len] token ids, a tensor or numpy array) defaults to tokens

@@ -22,7 +22,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_cuda_build"
@@ -140,3 +142,20 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
         lib.error_string.argtypes = [ctypes.c_int]
         msg = lib.error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: Tuple[int, ...], device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor on ``device`` with
+    this dtype and shape: what a kernel's raw pointer arguments assume."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -18,6 +18,10 @@
 // no wgmma, no TMA, no pipelining of the K/V loads, one query head per
 // CTA (the G heads of a KV group re-read its K/V tiles, mostly from L2).
 //
+// Head dims (D, Dv): (64, 64), (128, 128), (64, 128), (128, 64) and
+// (256, 256); at 256 the shared-memory tiles below take ~191 KB, inside
+// the 227 KB opt-in at one CTA per SM.
+//
 // Layout: q [B, Sq, H, D], k [B, Sk, KV, D], v [B, Sk, KV, Dv], out
 // [B, Sq, H, Dv], all contiguous.  Grid (ceil(Sq/64), H, B); a CTA of four
 // warps owns 64 query rows (16 per warp) of one head and walks the K/V
@@ -282,6 +286,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     if (D == 64 && Dv == 128)
         return (int)launch<64, 128>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
                                     window, q_offset, scale, st);
+    if (D == 256 && Dv == 256)   // recurrentgemma; ~191 KB of shared memory
+        return (int)launch<256, 256>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
+                                     window, q_offset, scale, st);
     return (int)cudaErrorInvalidValue;
 }
 

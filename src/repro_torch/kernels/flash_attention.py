@@ -19,7 +19,8 @@ import torch
 from . import _build, ref
 
 MASK_KINDS = {"none": 0, "causal": 1, "window": 2}
-HEAD_DIMS = (64, 128)
+#: (D, Dv) pairs the kernel is built for.
+HEAD_DIMS = ((64, 64), (128, 128), (64, 128), (128, 64), (256, 256))
 
 
 def flash_attention_plain(q, k, v, *, mask_kind: str = "causal",
@@ -72,7 +73,7 @@ def flash_attention_cuda(q, k, v, *, mask_kind: str = "causal",
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if H % KV:
         raise ValueError(f"n_heads {H} is not a multiple of n_kv {KV}")
-    if D not in HEAD_DIMS or Dv not in HEAD_DIMS:
+    if (D, Dv) not in HEAD_DIMS:
         raise ValueError(f"head dims D={D}, Dv={Dv} not supported "
                          f"(kernel is built for {HEAD_DIMS})")
     if mask_kind not in MASK_KINDS:

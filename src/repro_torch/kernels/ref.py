@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the attention oracles (``repro.kernels.ref``).
+"""Plain PyTorch versions of the oracles (``repro.kernels.ref``).
 
-Simple and quadratic, computed in float32: the semantic ground truth that
-the CUDA kernels are held to, and the path every kernel wrapper takes for
-tensors that lie on the CPU.
+Simple (quadratic attention, sequential scans), computed in float32: the
+semantic ground truth that the kernels' plain versions and the CUDA
+kernels are held to.  The attention oracles are also the path the
+attention wrappers take for tensors that lie on the CPU.
 """
 
 from __future__ import annotations
@@ -74,3 +75,64 @@ def decode_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", probs, v_cache.float())
     return out.reshape(B, H, -1).to(q.dtype)
+
+
+def ssd_scan(
+    x: torch.Tensor,          # [B, S, H, P]
+    dt: torch.Tensor,         # [B, S, H]        (softplus already applied)
+    A: torch.Tensor,          # [H]              (negative)
+    Bmat: torch.Tensor,       # [B, S, G, N]
+    Cmat: torch.Tensor,       # [B, S, G, N]
+    initial_state: Optional[torch.Tensor] = None,  # [B, H, P, N]
+) -> tuple:
+    """Mamba-2 SSD recurrence, sequential reference.
+
+    h_t = exp(A dt_t) * h_{t-1} + dt_t * x_t B_t^T    (outer product P x N)
+    y_t = h_t C_t
+    Returns (y [B,S,H,P], final_state [B,H,P,N]).
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bmat.shape[2], Bmat.shape[3]
+    rep = H // G
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf = Bmat.float().repeat_interleave(rep, dim=2)          # [B,S,H,N]
+    Cf = Cmat.float().repeat_interleave(rep, dim=2)
+    h = (initial_state.float() if initial_state is not None
+         else torch.zeros((Bsz, H, P, N), device=x.device))
+    ys = []
+    for t in range(S):
+        decay = torch.exp(Af[None] * dtf[:, t])              # [B,H]
+        h = h * decay[..., None, None] + \
+            (dtf[:, t, :, None] * xf[:, t])[..., None] * Bf[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((Bsz, 0, H, P))
+    return y.to(x.dtype), h
+
+
+def rglru_scan(
+    x: torch.Tensor,          # [B, S, C] gated input
+    gate_a: torch.Tensor,     # [B, S, C] recurrence gate in (0,1)
+    gate_i: torch.Tensor,     # [B, S, C] input gate in (0,1)
+    log_a: torch.Tensor,      # [C] per-channel base decay (log, negative)
+    initial_state: Optional[torch.Tensor] = None,  # [B, C]
+    c: float = 8.0,
+) -> tuple:
+    """RG-LRU recurrence (RecurrentGemma), sequential reference.
+
+    a_t = exp(c * log_a * r_t);  h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t x_t)
+    Returns (h [B,S,C], final_state [B,C]).
+    """
+    Bsz, S, C = x.shape
+    xf, rf, inf_ = x.float(), gate_a.float(), gate_i.float()
+    la = log_a.float()
+    h = (initial_state.float() if initial_state is not None
+         else torch.zeros((Bsz, C), device=x.device))
+    hs = []
+    for t in range(S):
+        log_at = c * la[None] * rf[:, t]                     # [B,C], <= 0
+        at = torch.exp(log_at)
+        beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_at), min=0.0))
+        h = at * h + beta * (inf_[:, t] * xf[:, t])
+        hs.append(h)
+    out = torch.stack(hs, dim=1) if hs else xf.new_zeros((Bsz, 0, C))
+    return out.to(x.dtype), h

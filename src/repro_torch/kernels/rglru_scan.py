@@ -1,0 +1,74 @@
+"""RG-LRU scan: the CUDA kernel's wrapper and its plain version.
+
+The kernel (``csrc/rglru_scan.cu``) replaces the Pallas TPU kernel
+``repro.kernels.rglru_scan.rglru_pallas``.  Its wrapper takes CUDA tensors
+in the JAX package's layout -- x ``[B, S, C]`` bf16, the gates ``[B, S,
+C]`` fp32 (the mix the RG-LRU block feeds it), ``log_a`` ``[C]`` fp32 and
+an optional fp32 initial state ``[B, C]`` -- checks them, allocates h
+(bf16) and the final state (fp32) and launches on PyTorch's current
+stream.  Unlike the Pallas kernel it takes ``initial_state`` itself.  It
+raises on anything the kernel does not take; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build, ref
+
+
+def rglru_plain(x, gate_a, gate_i, log_a, *,
+                initial_state: Optional[torch.Tensor] = None,
+                c: float = 8.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same recurrence as a sequential float32 loop
+    (:func:`ref.rglru_scan`).  Returns (h in x's dtype, final state fp32)."""
+    return ref.rglru_scan(x, gate_a, gate_i, log_a, initial_state, c)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("rglru_scan")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_scan_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                   ctypes.c_float, i, p]
+    lib.rglru_scan_fwd.restype = ctypes.c_int
+    return lib
+
+
+def rglru_cuda(x, gate_a, gate_i, log_a, *,
+               initial_state: Optional[torch.Tensor] = None,
+               c: float = 8.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel.  Returns (h ``[B, S, C]`` bf16, final state
+    ``[B, C]`` fp32)."""
+    if x.dim() != 3:
+        raise ValueError("x must be [B, S, C]")
+    B, S, C = x.shape
+    args = [("x", x, torch.bfloat16, (B, S, C)),
+            ("gate_a", gate_a, torch.float32, (B, S, C)),
+            ("gate_i", gate_i, torch.float32, (B, S, C)),
+            ("log_a", log_a, torch.float32, (C,))]
+    if initial_state is not None:
+        args.append(("initial_state", initial_state, torch.float32, (B, C)))
+    for name, t, dtype, shape in args:
+        _build.check_tensor(name, t, dtype, shape, x.device)
+    h = torch.empty_like(x)
+    state = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    if B == 0 or C == 0:
+        return h, state
+    lib = _lib()
+    status = lib.rglru_scan_fwd(
+        x.data_ptr(), gate_a.data_ptr(), gate_i.data_ptr(), log_a.data_ptr(),
+        initial_state.data_ptr() if initial_state is not None else None,
+        h.data_ptr(), state.data_ptr(), B, S, C, float(c), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, status, "rglru_scan_fwd")
+    rglru_cuda.launches += 1
+    return h, state
+
+
+#: Launches of the CUDA kernel since the last reset (``launches = 0``).
+rglru_cuda.launches = 0

@@ -21,14 +21,20 @@ unless ``--device cpu`` is.  The scenario-driven options of the JAX driver
 need the scenario registry and sweep cache, which the port has not taken
 over yet.
 
+The archs served are those the port's model runs: the dense GQA ones
+(yi-6b, yi-34b, mistral-nemo-12b), mamba2-2.7b and recurrentgemma-2b, in
+any mix.  recurrentgemma's local-attention cache holds exactly its window
+(2048 positions at full width, 64 reduced), so prompt plus generated
+tokens must fit in it.
+
 Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --jobs yi-6b:8,yi-6b:2 --policy srtf --compare-fifo --batch 4 \
-        --prompt-len 1024 --tokens-per-block 8
+        --jobs mamba2-2.7b:8,recurrentgemma-2b:2 --policy srtf \
+        --compare-fifo --batch 4 --prompt-len 1024 --tokens-per-block 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-        --reduced --jobs yi-6b:4,yi-6b:2 --policy srtf --compare-fifo \
-        --tokens-per-block 4 --prompt-len 8 --batch 1
+        --reduced --jobs mamba2-2.7b:8,recurrentgemma-2b:2 --policy srtf \
+        --compare-fifo --tokens-per-block 4 --prompt-len 8 --batch 1
 """
 
 from __future__ import annotations

@@ -20,9 +20,21 @@ import torch
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from .layers import DEFAULT_COMPUTE_DTYPE
-from .lm import dense_plan, param_shapes
+from .lm import param_shapes, ported_plan
 
 _SANITIZE = re.compile(r"[^A-Za-z0-9_.:-]")     # the checkpointer's rule
+# Leaves the JAX package reads in float32 (ssm.py: dt_bias, a_log;
+# rglru.py: a_param): rounding them to bf16 would move A, dt and log_a.
+_FP32_LEAVES = ("dt_bias", "a_log", "a_param")
+
+
+def leaf_dtype(path: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a parameter is kept in: float32 for norm scales and
+    biases and for :data:`_FP32_LEAVES`, ``dtype`` for everything else."""
+    parts = path.split("/")
+    if "norm" in parts[-2] or parts[-1] in _FP32_LEAVES:
+        return torch.float32
+    return dtype
 
 
 def params_from_numpy(cfg: ArchConfig, flat: Mapping[str, object], *,
@@ -31,7 +43,8 @@ def params_from_numpy(cfg: ArchConfig, flat: Mapping[str, object], *,
     """Nested port parameters on ``device`` from flat arrays (numpy arrays
     or tensors).  Matrices and biases are cast once to ``dtype`` (the JAX
     package casts them at every use, to the same values); norm scales and
-    biases stay float32.  Stacked stage parameters are split along their
+    biases and the leaves the JAX package reads in float32 stay float32
+    (:func:`leaf_dtype`).  Stacked stage parameters are split along their
     leading axis into per-layer views.  Raises on a missing, unexpected or
     misshapen entry."""
     device = resolve_device(device)
@@ -53,15 +66,13 @@ def params_from_numpy(cfg: ArchConfig, flat: Mapping[str, object], *,
                              f"{shape}")
         t = arr if torch.is_tensor(arr) else torch.from_numpy(np.array(arr))
         parts = path.split("/")
-        keep_fp32 = "norm" in parts[-2]
-        t = t.to(device=device,
-                 dtype=torch.float32 if keep_fp32 else dtype)
+        t = t.to(device=device, dtype=leaf_dtype(path, dtype))
         node = nested
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = t
 
-    for si, stage in enumerate(dense_plan(cfg)):
+    for si, stage in enumerate(ported_plan(cfg)):
         units = nested[f"stage{si}"]
         for ui in range(len(stage.unit)):
             stacked = units[f"u{ui}"]

@@ -1,17 +1,25 @@
-"""The language model of the port (``repro.models.lm``), dense GQA plan.
+"""The language model of the port (``repro.models.lm``).
 
-``build_plan`` is the JAX package's; the port runs the plan
-``Stage((LayerSpec("gqa", "dense"),), n_layers)``: yi-6b, yi-34b,
-mistral-nemo and pixtral's text path.  The JAX package scans each stage's
-stacked parameters with ``lax.scan``; here the stacked parameters are
-split into a list of per-layer views when they are loaded
-(:mod:`repro_torch.models.bridge`) and a Python loop walks them.
+``build_plan`` is the JAX package's.  The port runs three of its plans:
+dense GQA ``Stage((LayerSpec("gqa", "dense"),), n_layers)`` (yi-6b,
+yi-34b, mistral-nemo and pixtral's text path), the Mamba-2 plan
+``Stage((LayerSpec("ssd", "none"),), n_layers)`` (mamba2-2.7b) and the
+Griffin hybrid of RG-LRU and local-attention layers (recurrentgemma-2b:
+8 repeats of (rglru, rglru, local) and a second stage of (rglru, rglru)).
+The JAX package scans each stage's stacked parameters with ``lax.scan``;
+here the stacked parameters are split into a list of per-layer views when
+they are loaded (:mod:`repro_torch.models.bridge`) and a Python loop walks
+them, stage after stage.
 
 Parameters are a nested dict: ``params["stage0"]["u0"]`` is the list of
 per-layer dicts of stage 0's unit 0, other leaves are as in the JAX
-package (``params["embed"]["table"]`` and so on).  KV caches are
-``caches["stage0"]["u0"] = {"k": [L, B, max_seq, KV, hd], "v": ...}``,
-updated in place by :func:`decode_step`.
+package (``params["embed"]["table"]`` and so on).  Caches keep the JAX
+package's structure, one dict of stacked ``[L, ...]`` leaves per unit:
+``{"k", "v"}`` ``[L, B, slots, KV, hd]`` for attention (``max_seq`` slots,
+or exactly ``window`` for a local layer), ``{"ssm" [L, B, H, P, N] fp32,
+"conv_x"/"conv_b"/"conv_c" [L, B, W-1, C]}`` for Mamba-2 and ``{"h" [L, B,
+C] fp32, "conv" [L, B, W-1, C]}`` for RG-LRU.  :func:`decode_step` updates
+them in place.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ import torch
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .layers import (
     DEFAULT_COMPUTE_DTYPE,
     apply_mlp,
@@ -76,19 +86,14 @@ def build_plan(cfg: ArchConfig) -> Tuple[Stage, ...]:
 _LATER = {
     "mla": "the MLA mixer (minicpm3-4b, deepseek-v2-lite) comes with the "
            "MLA slice",
-    "ssd": "the Mamba-2 SSD mixer (mamba2-2.7b) comes with the Mamba-2 slice",
-    "rglru": "the RG-LRU mixer (recurrentgemma-2b) comes with the RG-LRU "
-             "slice",
-    "local": "local attention with a ring cache (recurrentgemma-2b) comes "
-             "with the RG-LRU slice",
     "moe": "the MoE FFN (dbrx, deepseek-v2-lite) comes with the MoE slice",
     "cross": "the encoder and cross attention (whisper) come with the "
              "encoder-decoder slice",
 }
 
 
-def dense_plan(cfg: ArchConfig) -> Tuple[Stage, ...]:
-    """The plan, if this slice of the port runs it; else NotImplementedError."""
+def ported_plan(cfg: ArchConfig) -> Tuple[Stage, ...]:
+    """The plan, if the port runs it; else NotImplementedError."""
     plan = build_plan(cfg)
     for stage in plan:
         for spec in stage.unit:
@@ -100,7 +105,21 @@ def dense_plan(cfg: ArchConfig) -> Tuple[Stage, ...]:
 
 
 # ================================================================== init
-Init = Union[float, str]        # normal std, or "ones" / "zeros"
+Init = Union[float, str]        # normal std, or the name of a fixed init
+
+
+def _fixed_init(how: str, n: int) -> torch.Tensor:
+    """The non-random initialisations, as vectors of length ``n``."""
+    if how == "ones":
+        return torch.ones(n)
+    if how == "zeros":
+        return torch.zeros(n)
+    if how == "a_log":          # Mamba-2: A = -exp(a_log) in [-16, -1]
+        return torch.log(torch.linspace(1.0, 16.0, n))
+    if how == "a_param":        # RG-LRU: a = exp(-softplus(.)) in [0.9, 0.999]
+        return torch.log(torch.expm1(-torch.log(
+            torch.linspace(0.9, 0.999, n))))
+    raise ValueError(f"unknown initialisation {how!r}")
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
@@ -108,10 +127,11 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
     ``stage0/u0/mixer/wq``), with its shape and its initialisation as in
     ``repro.models.lm.init``.  Stage parameters carry the leading
     ``[repeats]`` axis, as they do there."""
-    plan = dense_plan(cfg)
+    plan = ported_plan(cfg)
     d, V = cfg.d_model, cfg.padded_vocab
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     bias = cfg.norm == "layer"
+    s_in = 1.0 / math.sqrt(d)
 
     def norm(prefix: str, lead: Tuple[int, ...]) -> Dict:
         out = {f"{prefix}/scale": (lead + (d,), "ones")}
@@ -119,6 +139,50 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
             out[f"{prefix}/bias"] = (lead + (d,), "zeros")
         return out
 
+    def attention(L: Tuple[int, ...]) -> Dict:
+        out = {"wq": (L + (d, H, hd), s_in), "wk": (L + (d, KV, hd), s_in),
+               "wv": (L + (d, KV, hd), s_in),
+               "wo": (L + (H, hd, d), 1.0 / math.sqrt(H * hd))}
+        if bias:
+            out.update(bq=(L + (H, hd), "zeros"), bk=(L + (KV, hd), "zeros"),
+                       bv=(L + (KV, hd), "zeros"), bo=(L + (d,), "zeros"))
+        return out
+
+    def mamba2(L: Tuple[int, ...]) -> Dict:           # ssm.mamba2_init
+        s = cfg.ssm
+        heads, di, gn = s.d_inner // s.head_dim, s.d_inner, \
+            s.n_groups * s.state_dim
+        return {"w_gate": (L + (d, di), s_in), "w_x": (L + (d, di), s_in),
+                "w_b": (L + (d, gn), s_in), "w_c": (L + (d, gn), s_in),
+                "w_dt": (L + (d, heads), s_in),
+                "conv_x_w": (L + (s.conv_width, di), 0.2),
+                "conv_x_b": (L + (di,), "zeros"),
+                "conv_b_w": (L + (s.conv_width, gn), 0.2),
+                "conv_b_b": (L + (gn,), "zeros"),
+                "conv_c_w": (L + (s.conv_width, gn), 0.2),
+                "conv_c_b": (L + (gn,), "zeros"),
+                "dt_bias": (L + (heads,), "zeros"),
+                "a_log": (L + (heads,), "a_log"),
+                "d_skip": (L + (heads,), "ones"),
+                "gate_norm/scale": (L + (di,), "ones"),
+                "out_proj": (L + (di, d), 1.0 / math.sqrt(di))}
+
+    def rglru(L: Tuple[int, ...]) -> Dict:            # rglru.rglru_block_init
+        r = cfg.rglru
+        W, nb = r.width, rglru_mod.N_GATE_BLOCKS
+        blk = W // nb
+        return {"wx": (L + (d, W), s_in), "wy": (L + (d, W), s_in),
+                "conv_w": (L + (r.conv_width, W), 0.2),
+                "conv_b": (L + (W,), "zeros"),
+                "gate_a": (L + (nb, blk, blk), 1.0 / math.sqrt(blk)),
+                "gate_a_b": (L + (W,), "zeros"),
+                "gate_i": (L + (nb, blk, blk), 1.0 / math.sqrt(blk)),
+                "gate_i_b": (L + (W,), "zeros"),
+                "a_param": (L + (W,), "a_param"),
+                "out": (L + (W, d), 1.0 / math.sqrt(W))}
+
+    mixers = {"gqa": attention, "local": attention, "ssd": mamba2,
+              "rglru": rglru}
     shapes: Dict[str, Tuple[Tuple[int, ...], Init]] = {
         "embed/table": ((V, d), 0.02)}
     shapes.update(norm("final_norm", ()))
@@ -128,19 +192,12 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
         for ui, spec in enumerate(stage.unit):
             L = (stage.repeats,)
             pre = f"stage{si}/u{ui}"
-            ff = spec.d_ff or cfg.d_ff
             shapes.update(norm(f"{pre}/norm1", L))
-            s_in = 1.0 / math.sqrt(d)
-            shapes[f"{pre}/mixer/wq"] = (L + (d, H, hd), s_in)
-            shapes[f"{pre}/mixer/wk"] = (L + (d, KV, hd), s_in)
-            shapes[f"{pre}/mixer/wv"] = (L + (d, KV, hd), s_in)
-            shapes[f"{pre}/mixer/wo"] = (L + (H, hd, d),
-                                         1.0 / math.sqrt(H * hd))
-            if bias:
-                shapes[f"{pre}/mixer/bq"] = (L + (H, hd), "zeros")
-                shapes[f"{pre}/mixer/bk"] = (L + (KV, hd), "zeros")
-                shapes[f"{pre}/mixer/bv"] = (L + (KV, hd), "zeros")
-                shapes[f"{pre}/mixer/bo"] = (L + (d,), "zeros")
+            for key, val in mixers[spec.mixer](L).items():
+                shapes[f"{pre}/mixer/{key}"] = val
+            if spec.ffn != "dense":
+                continue
+            ff = spec.d_ff or cfg.d_ff
             shapes.update(norm(f"{pre}/norm2", L))
             if cfg.act in ("swiglu", "geglu"):
                 shapes[f"{pre}/ffn/gate/w"] = (L + (d, ff), s_in)
@@ -169,10 +226,9 @@ def init(cfg: ArchConfig, *, seed: int = 0, device=None,
     gen.manual_seed(seed)
     flat = {}
     for key, (shape, how) in param_shapes(cfg).items():
-        if how == "ones":
-            flat[key] = torch.ones(shape, device=device)
-        elif how == "zeros":
-            flat[key] = torch.zeros(shape, device=device)
+        if isinstance(how, str):
+            flat[key] = _fixed_init(how, shape[-1]).to(device).expand(
+                shape).clone()
         else:
             flat[key] = torch.randn(shape, generator=gen, device=device
                                     ).mul_(how).to(dtype)
@@ -181,12 +237,17 @@ def init(cfg: ArchConfig, *, seed: int = 0, device=None,
 
 # ================================================================ serving
 def _layers(cfg: ArchConfig, params: Dict):
-    """(stage key, unit key, repeat, layer params) in execution order."""
-    for si, stage in enumerate(dense_plan(cfg)):
+    """(spec, stage key, unit key, repeat, layer params) in execution
+    order: stage after stage, each repeat of the stage's unit in turn."""
+    for si, stage in enumerate(ported_plan(cfg)):
         for r in range(stage.repeats):
-            for ui in range(len(stage.unit)):
-                yield (f"stage{si}", f"u{ui}", r,
+            for ui, spec in enumerate(stage.unit):
+                yield (spec, f"stage{si}", f"u{ui}", r,
                        params[f"stage{si}"][f"u{ui}"][r])
+
+
+def _window(cfg: ArchConfig, spec: LayerSpec) -> int:
+    return cfg.rglru.window if spec.mixer == "local" and cfg.rglru else 0
 
 
 def _head(cfg: ArchConfig, params: Dict, x: torch.Tensor, dtype):
@@ -195,37 +256,76 @@ def _head(cfg: ArchConfig, params: Dict, x: torch.Tensor, dtype):
     return x @ cast(params["lm_head"]["w"], dtype)
 
 
+def _store(unit_c: Dict, entry: Dict, r: int, reps: int,
+           slots: Optional[int] = None) -> None:
+    """Write one layer's cache ``entry`` at repeat ``r`` of its unit's
+    stacked ``[reps, ...]`` leaves (allocated at first use).  With
+    ``slots``, axis 1 of every leaf (the sequence) is zero-padded to that
+    many slots."""
+    for name, t in entry.items():
+        if name not in unit_c:
+            shape = list(t.shape)
+            if slots is not None:
+                shape[1] = slots
+            unit_c[name] = t.new_zeros([reps] + shape)
+        if slots is None:
+            unit_c[name][r] = t
+        else:
+            unit_c[name][r, :, :t.shape[1]] = t
+
+
 def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             max_seq: int, backend: str = "kernel",
             dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE):
-    """Run the prompt, return (last-token logits [B,V], caches)."""
+    """Run the prompt, return (last-token logits [B,V], caches).
+
+    A local-attention layer's cache has exactly ``window`` slots, and the
+    decode step writes a token at slot ``length`` (``repro.models.
+    attention.gqa_decode`` takes the ring branch only when the cache is
+    longer than the window), so a sequence may not outgrow the window:
+    ``max_seq > window`` raises ``ValueError`` for a config with local
+    layers.
+    """
     B, S = tokens.shape
     if max_seq < S:
         raise ValueError(
             f"max_seq={max_seq} smaller than prompt length {S}")
-    device = tokens.device
-    KV, hd = cfg.n_kv_heads, cfg.head_dim_
+    for stage in ported_plan(cfg):
+        for spec in stage.unit:
+            if spec.mixer == "local" and max_seq > _window(cfg, spec):
+                raise ValueError(
+                    f"{cfg.arch_id}: max_seq={max_seq} exceeds the local "
+                    f"attention window {_window(cfg, spec)}; the window's "
+                    f"cache has no slot past it")
+    rope = cfg.rope_theta if cfg.has_attention else None
     x = embed(params["embed"], tokens, dtype)
-    positions = torch.arange(S, device=device)
+    positions = torch.arange(S, device=tokens.device)
     caches: Dict = {}
-    for sk, uk, r, p in _layers(cfg, params):
-        unit_c = caches.setdefault(sk, {})
-        if uk not in unit_c:
-            reps = len(params[sk][uk])
-            unit_c[uk] = {
-                "k": torch.zeros((reps, B, max_seq, KV, hd), dtype=dtype,
-                                 device=device),
-                "v": torch.zeros((reps, B, max_seq, KV, hd), dtype=dtype,
-                                 device=device)}
+    for spec, sk, uk, r, p in _layers(cfg, params):
+        unit_c = caches.setdefault(sk, {}).setdefault(uk, {})
+        reps = len(params[sk][uk])
         h = apply_norm(p["norm1"], x, cfg.norm)
-        mix, kv = attn.gqa_apply(p["mixer"], h, rope_theta=cfg.rope_theta,
-                                 mask_kind="causal", positions=positions,
-                                 backend=backend, dtype=dtype)
-        unit_c[uk]["k"][r, :, :S] = kv["k"]
-        unit_c[uk]["v"][r, :, :S] = kv["v"]
+        if spec.mixer in ("gqa", "local"):
+            window = _window(cfg, spec)
+            mix, kv = attn.gqa_apply(
+                p["mixer"], h, rope_theta=rope,
+                mask_kind="window" if window else "causal", window=window,
+                positions=positions, backend=backend, dtype=dtype)
+            # S <= max_seq <= window: the JAX package's ring of `window`
+            # slots holds position t at slot t, as the padded cache does
+            _store(unit_c, kv, r, reps, slots=window or max_seq)
+        elif spec.mixer == "ssd":
+            mix, state = ssm_mod.mamba2_apply(p["mixer"], h, cfg.ssm,
+                                              backend=backend, dtype=dtype)
+            _store(unit_c, state, r, reps)
+        else:
+            mix, state = rglru_mod.rglru_block_apply(
+                p["mixer"], h, cfg.rglru, backend=backend, dtype=dtype)
+            _store(unit_c, state, r, reps)
         x = x + mix
-        x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
-                          cfg.act, dtype)
+        if spec.ffn == "dense":
+            x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
+                              cfg.act, dtype)
     # the head is applied to the last position only, as in the JAX package
     last = apply_norm(params["final_norm"], x[:, -1, :], cfg.norm)
     return _head(cfg, params, last, dtype), caches
@@ -237,18 +337,31 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
                 dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE):
     """One token for every sequence in the batch: (logits [B,V], caches).
 
-    ``caches`` is updated in place (see :func:`attn.gqa_decode`) and
+    ``caches`` is updated in place (the JAX package returns new ones) and
     returned; ``lengths`` (int32 ``[B]``) counts the positions cached.
     """
     x = embed(params["embed"], token, dtype)                  # [B,D]
-    for sk, uk, r, p in _layers(cfg, params):
+    for spec, sk, uk, r, p in _layers(cfg, params):
         c = caches[sk][uk]
         h = apply_norm(p["norm1"], x, cfg.norm)
-        mix, _ = attn.gqa_decode(p["mixer"], h, {"k": c["k"][r], "v": c["v"][r]},
-                                 lengths, rope_theta=cfg.rope_theta,
-                                 backend=backend, dtype=dtype)
+        if spec.mixer in ("gqa", "local"):
+            mix, _ = attn.gqa_decode(
+                p["mixer"], h, {"k": c["k"][r], "v": c["v"][r]}, lengths,
+                rope_theta=cfg.rope_theta, window=_window(cfg, spec),
+                backend=backend, dtype=dtype)
+        else:
+            state = {name: t[r] for name, t in c.items()}
+            if spec.mixer == "ssd":
+                mix, new = ssm_mod.mamba2_decode(p["mixer"], h, state,
+                                                 cfg.ssm, dtype=dtype)
+            else:
+                mix, new = rglru_mod.rglru_block_decode(
+                    p["mixer"], h, state, cfg.rglru, dtype=dtype)
+            for name, t in new.items():
+                state[name].copy_(t)
         x = x + mix
-        x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
-                          cfg.act, dtype)
+        if spec.ffn == "dense":
+            x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
+                              cfg.act, dtype)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _head(cfg, params, x, dtype), caches

@@ -5,10 +5,12 @@ GPU machine::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Inputs are bf16; the plain versions run in float32 on the same values.
-Tolerance |kernel - plain| <= 2e-2 + 2e-2 |plain|: the kernels round
-probabilities (flash) and outputs to bf16, ~0.4% relative each, and 2e-2
-is the bf16 tolerance of ``tests/test_kernels.py``.
+Inputs are bf16 (the scans' dt, A, gates and states fp32, as the models
+feed them); the plain versions run in float32 on the same values.
+Tolerance |kernel - plain| <= tol + tol |plain|: the kernels round
+probabilities (flash) and outputs to bf16, ~0.4% relative each; tol is
+the bf16 tolerance of ``tests/test_kernels.py``, 2e-2 for attention and
+3e-2 for the scans.
 """
 
 import pytest
@@ -23,9 +25,12 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
+from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
+from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
+SCAN_TOL = 3e-2
 
 
 @pytest.fixture
@@ -41,10 +46,10 @@ def _randn(gen, *shape):
     return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
 
-def _close(got, want):
+def _close(got, want, tol=TOL):
     assert got.shape == want.shape and torch.isfinite(got).all()
     diff = (got.float() - want.float()).abs()
-    assert bool((diff <= TOL + TOL * want.float().abs()).all()), \
+    assert bool((diff <= tol + tol * want.float().abs()).all()), \
         float(diff.max())
 
 
@@ -58,6 +63,9 @@ FLASH = [
     (1, 65, 65, 2, 1, 128, 64, "causal", 0, 0),
     (1, 65, 65, 2, 1, 64, 128, "window", 64, 0),
     (1, 8, 8, 2, 2, 64, 64, "window", 2, 20),    # rows see no key: zeros
+    (2, 130, 130, 10, 1, 256, 256, "window", 2048, 0),   # recurrentgemma
+    (1, 77, 150, 4, 2, 256, 256, "causal", 0, 73),
+    (1, 200, 200, 2, 1, 256, 256, "window", 50, 0),
 ]
 
 
@@ -79,6 +87,7 @@ DECODE = [
     (4, 1096, 32, 4, 128, 128, [1, 300, 777, 1096]),
     (3, 200, 8, 8, 128, 128, [64, 65, 129]),
     (2, 70, 16, 1, 64, 128, [0, 70]),
+    (4, 2048, 10, 1, 256, 256, [1, 1024, 1096, 2048]),   # recurrentgemma
 ]
 
 
@@ -94,6 +103,69 @@ def test_decode_kernel_matches_plain(case, gen):
     _close(got, want)
 
 
+SSD = [
+    # (B, S, H, P, G, N, chunk, initial_state)
+    (1, 64, 4, 32, 2, 64, 64, False),        # G > 1, S = chunk
+    (3, 320, 8, 64, 4, 128, 64, True),       # several chunks, resumed
+    (1, 96, 3, 24, 1, 40, 48, True),         # ragged tiles
+    (2, 256, 4, 64, 1, 128, 128, False),     # the mamba2-2.7b head shape
+]
+
+
+def _ssd_inputs(gen, B, S, H, P, G, N, init):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = (randn(B, S, H, P) * 0.5).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(randn(B, S, H))
+    A = -torch.exp(randn(H))
+    Bm = (randn(B, S, G, N) * 0.3).to(torch.bfloat16)
+    Cm = (randn(B, S, G, N) * 0.3).to(torch.bfloat16)
+    h0 = randn(B, H, P, N) * 0.2 if init else None
+    return x, dt, A, Bm, Cm, h0
+
+
+@pytest.mark.parametrize("case", SSD, ids=str)
+def test_ssd_kernel_matches_plain(case, gen):
+    B, S, H, P, G, N, chunk, init = case
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(gen, B, S, H, P, G, N, init)
+    y, state = ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)
+    want_y, want_state = ssd_plain(x.float(), dt, A, Bm.float(), Cm.float(),
+                                   chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    _close(y, want_y, SCAN_TOL)
+    _close(state, want_state, SCAN_TOL)
+
+
+RGLRU = [
+    # (B, S, C, initial_state)
+    (1, 16, 128, False),
+    (2, 300, 384, True),      # S not a multiple of 256
+    (3, 77, 100, False),      # C not a multiple of the block
+    (4, 1024, 2560, False),   # the recurrentgemma-2b prefill shape
+]
+
+
+def _rglru_inputs(gen, B, S, C, init):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = (randn(B, S, C) * 0.5).to(torch.bfloat16)
+    ga, gi = torch.sigmoid(randn(B, S, C)), torch.sigmoid(randn(B, S, C))
+    la = -torch.nn.functional.softplus(randn(C))
+    return x, ga, gi, la, randn(B, C) if init else None
+
+
+@pytest.mark.parametrize("case", RGLRU, ids=str)
+def test_rglru_kernel_matches_plain(case, gen):
+    x, ga, gi, la, h0 = _rglru_inputs(gen, *case)
+    h, state = rglru_cuda(x, ga, gi, la, initial_state=h0)
+    want_h, want_state = rglru_plain(x.float(), ga, gi, la, initial_state=h0)
+    torch.cuda.synchronize()
+    _close(h, want_h, SCAN_TOL)
+    _close(state, want_state, SCAN_TOL)
+
+
 def test_ops_route_cuda_tensors_to_the_kernels(gen):
     ops.reset_launch_counts()
     q, k = _randn(gen, 1, 16, 4, 64), _randn(gen, 1, 16, 2, 64)
@@ -101,9 +173,14 @@ def test_ops_route_cuda_tensors_to_the_kernels(gen):
     ops.decode_attention(q[:, 0].contiguous(), k, k,
                          torch.tensor([5], dtype=torch.int32, device="cuda"))
     ops.flash_attention(q, k, k, backend="ref")
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(gen, 1, 32, 2, 16, 1, 16, False)
+    ops.ssd(x, dt, A, Bm, Cm, chunk=16)
+    ops.ssd(x, dt, A, Bm, Cm, chunk=16, backend="ref")
+    ops.rglru(*_rglru_inputs(gen, 1, 8, 16, False)[:4])
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 1,
-                                   "decode_attention": 1}
+                                   "decode_attention": 1, "ssd_scan": 1,
+                                   "rglru_scan": 1}
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -119,3 +196,23 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="length"):
         decode_attention_cuda(q[:, 0].contiguous(), k, k,
                               torch.tensor([5], device="cuda"))
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(gen, 1, 32, 2, 16, 1, 16, False)
+    with pytest.raises(TypeError, match="dt"):
+        ssd_cuda(x, dt.to(torch.bfloat16), A, Bm, Cm, chunk=16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_cuda(x, dt, A, Bm, Cm, chunk=24)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm,
+                 Cm, chunk=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_cuda(*_ssd_inputs(gen, 1, 256, 1, 64, 1, 256, False)[:5],
+                 chunk=256)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_cuda(x.cpu(), dt, A, Bm, Cm, chunk=16)
+    x, ga, gi, la, _ = _rglru_inputs(gen, 1, 8, 16, False)
+    with pytest.raises(TypeError, match="gate_a"):
+        rglru_cuda(x, ga.to(torch.bfloat16), gi, la)
+    with pytest.raises(TypeError, match="x must be"):
+        rglru_cuda(x.float(), ga, gi, la)
+    with pytest.raises(ValueError, match="log_a"):
+        rglru_cuda(x, ga, gi, la[:1])

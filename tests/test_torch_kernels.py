@@ -1,4 +1,4 @@
-"""The port's attention ops against the JAX package's, on the CPU.
+"""The port's ops against the JAX package's, on the CPU.
 
 The same numpy inputs (drawn from ``default_rng``) go through the port's
 ops (which take the kernels' plain versions for CPU tensors) and through
@@ -16,10 +16,14 @@ import torch
 from repro.kernels import ops as jops, ref as jref
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.rglru_scan import rglru_pallas
+from repro.kernels.ssd_scan import ssd_pallas
 from repro.models.layers import causal_mask, window_mask
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rglru_scan import rglru_cuda
+from repro_torch.kernels.ssd_scan import ssd_cuda
 
 # The sweeps of tests/test_kernels.py, dtypes by name.
 ATTN_SWEEP = [
@@ -38,11 +42,27 @@ DECODE_SWEEP = [
     (3, 17, 4, 1, 32, "float32"),
     (2, 16, 4, 4, 16, "bfloat16"),
 ]
+SSD_SWEEP = [
+    # (B, S, H, P, G, N, chunk, dtype)
+    (1, 16, 2, 4, 1, 8, 8, "float32"),
+    (2, 32, 4, 8, 2, 16, 8, "float32"),
+    (1, 24, 2, 8, 1, 4, 12, "float32"),
+    (2, 32, 4, 8, 1, 16, 16, "bfloat16"),
+]
+RGLRU_SWEEP = [
+    # (B, S, C, dtype)
+    (1, 16, 4, "float32"),
+    (2, 48, 12, "float32"),
+    (2, 1024, 4, "float32"),       # multi-chunk path
+    (2, 32, 8, "bfloat16"),
+]
 # tests/test_kernels.py: TOL / TOL32 times 10 for attention, 2e-2 / 1e-4
-# for decode.  bf16 inputs are rounded to bf16 identically on both sides;
-# the tolerance covers the bf16 rounding of the outputs.
+# for decode, 3e-2 / 1e-4 for the scans.  bf16 inputs are rounded to bf16
+# identically on both sides; the tolerance covers the bf16 rounding of the
+# outputs.
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DECODE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 JAX_REFS = ["ref", "xla", "pallas"]
 
 
@@ -128,6 +148,151 @@ def test_fully_masked_rows_give_zeros():
     assert torch.count_nonzero(out) == 0
 
 
+def _ssd_inputs(rng, B, S, H, P, G, N, dtype, init=False):
+    """numpy inputs of tests/test_kernels.py's SSD cases, as (jax, torch)
+    pairs: x, dt, A, B, C and (with ``init``) an initial state."""
+    f32 = np.float32
+    x = rng.standard_normal((B, S, H, P), dtype=f32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H), dtype=f32)))
+    A = -np.exp(rng.standard_normal((H,), dtype=f32))
+    Bm = rng.standard_normal((B, S, G, N), dtype=f32) * 0.3
+    Cm = rng.standard_normal((B, S, G, N), dtype=f32) * 0.3
+    h0 = rng.standard_normal((B, H, P, N), dtype=f32) * 0.2
+    return (_pair(x, dtype), _pair(dt, "float32"), _pair(A, "float32"),
+            _pair(Bm, dtype), _pair(Cm, dtype),
+            _pair(h0, "float32") if init else (None, None))
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("impl", JAX_REFS)
+@pytest.mark.parametrize("case", SSD_SWEEP, ids=str)
+def test_ssd_matches_jax(case, impl, init):
+    B, S, H, P, G, N, chunk, dtype = case
+    rng = np.random.default_rng(200 + SSD_SWEEP.index(case))
+    pairs = _ssd_inputs(rng, B, S, H, P, G, N, dtype, init)
+    (jx, tx), (jdt, tdt), (ja, ta), (jb, tb), (jc, tc), (jh0, th0) = pairs
+    if impl == "ref":
+        want_y, want_h = jref.ssd_scan(jx, jdt, ja, jb, jc, jh0)
+    elif impl == "xla":
+        want_y, want_h = jops.ssd(jx, jdt, ja, jb, jc, chunk=chunk,
+                                  initial_state=jh0)
+    else:
+        want_y, want_h = ssd_pallas(jx, jdt, ja, jb, jc, chunk=chunk,
+                                    initial_state=jh0)
+    y, h = ops.ssd(tx, tdt, ta, tb, tc, chunk=chunk, initial_state=th0)
+    assert y.dtype == tx.dtype and h.dtype == torch.float32
+    tol = SCAN_TOL[dtype]
+    np.testing.assert_allclose(_np32(y), _np32(want_y), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np32(h), _np32(want_h), rtol=tol, atol=tol)
+
+
+def test_ssd_plain_matches_the_sequential_oracle():
+    """The port's chunked form against its own sequential oracle."""
+    rng = np.random.default_rng(210)
+    pairs = _ssd_inputs(rng, 2, 48, 4, 8, 2, 16, "float32", init=True)
+    tx, tdt, ta, tb, tc, th0 = (t for _, t in pairs)
+    y, h = ops.ssd(tx, tdt, ta, tb, tc, chunk=16, initial_state=th0)
+    want_y, want_h = ref.ssd_scan(tx, tdt, ta, tb, tc, th0)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_decode_steps_match_the_scan():
+    """Decoding token by token equals the full-sequence scan, and the port's
+    step equals the JAX package's."""
+    rng = np.random.default_rng(211)
+    B, S, H, P, G, N = 2, 8, 4, 4, 2, 8
+    pairs = _ssd_inputs(rng, B, S, H, P, G, N, "float32", init=True)
+    (jx, tx), (jdt, tdt), (ja, ta), (jb, tb), (jc, tc), (jh, th) = pairs
+    want_y, want_h = ops.ssd(tx, tdt, ta, tb, tc, chunk=4, initial_state=th)
+    ys = []
+    for t in range(S):
+        y_t, th = ops.ssd_decode_step(tx[:, t], tdt[:, t], ta, tb[:, t],
+                                      tc[:, t], th)
+        jy_t, jh = jops.ssd_decode_step(jx[:, t], jdt[:, t], ja, jb[:, t],
+                                        jc[:, t], jh)
+        np.testing.assert_allclose(_np32(y_t), _np32(jy_t), rtol=1e-4,
+                                   atol=1e-4)
+        ys.append(y_t)
+    torch.testing.assert_close(torch.stack(ys, 1), want_y, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(th, want_h, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np32(th), _np32(jh), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_refuses_a_ragged_chunk():
+    rng = np.random.default_rng(212)
+    pairs = _ssd_inputs(rng, 1, 24, 2, 4, 1, 8, "float32")
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ops.ssd(*(t for _, t in pairs[:5]), chunk=16)
+
+
+def _rglru_inputs(rng, B, S, C, dtype, init=False):
+    """numpy inputs of tests/test_kernels.py's RG-LRU cases, as (jax,
+    torch) pairs: x, gate_a, gate_i, log_a and an initial state."""
+    f32 = np.float32
+
+    def sigmoid(a):
+        return 1.0 / (1.0 + np.exp(-a))
+
+    x = rng.standard_normal((B, S, C), dtype=f32) * 0.5
+    ga = sigmoid(rng.standard_normal((B, S, C), dtype=f32))
+    gi = sigmoid(rng.standard_normal((B, S, C), dtype=f32))
+    la = -np.log1p(np.exp(rng.standard_normal((C,), dtype=f32))) * 0.1
+    h0 = rng.standard_normal((B, C), dtype=f32)
+    return (_pair(x, dtype), _pair(ga, dtype), _pair(gi, dtype),
+            _pair(la, "float32"),
+            _pair(h0, "float32") if init else (None, None))
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("impl", JAX_REFS)
+@pytest.mark.parametrize("case", RGLRU_SWEEP, ids=str)
+def test_rglru_matches_jax(case, impl, init):
+    B, S, C, dtype = case
+    rng = np.random.default_rng(300 + RGLRU_SWEEP.index(case))
+    pairs = _rglru_inputs(rng, B, S, C, dtype, init)
+    (jx, tx), (jga, tga), (jgi, tgi), (jla, tla), (jh0, th0) = pairs
+    if impl == "ref":
+        want_h, want_T = jref.rglru_scan(jx, jga, jgi, jla, jh0)
+    elif impl == "xla":
+        want_h, want_T = jops.rglru(jx, jga, jgi, jla, initial_state=jh0)
+    else:
+        want_h, want_T = rglru_pallas(jx, jga, jgi, jla, initial_state=jh0,
+                                      chunk=16)
+    h, hT = ops.rglru(tx, tga, tgi, tla, initial_state=th0)
+    assert h.dtype == tx.dtype and hT.dtype == torch.float32
+    tol = SCAN_TOL[dtype]
+    np.testing.assert_allclose(_np32(h), _np32(want_h), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np32(hT), _np32(want_T), rtol=tol, atol=tol)
+
+
+def test_rglru_decode_steps_match_the_scan():
+    """Decoding token by token equals the full-sequence scan, and the port's
+    step equals the JAX package's."""
+    rng = np.random.default_rng(310)
+    B, S, C = 2, 8, 12
+    pairs = _rglru_inputs(rng, B, S, C, "float32", init=True)
+    (jx, tx), (jga, tga), (jgi, tgi), (jla, tla), (jh, th) = pairs
+    want_h, want_T = ops.rglru(tx, tga, tgi, tla, initial_state=th)
+    hs = []
+    for t in range(S):
+        h_t, th = ops.rglru_decode_step(tx[:, t], tga[:, t], tgi[:, t], tla,
+                                        th)
+        jh_t, jh = jops.rglru_decode_step(jx[:, t], jga[:, t], jgi[:, t],
+                                          jla, jh)
+        np.testing.assert_allclose(_np32(h_t), _np32(jh_t), rtol=1e-4,
+                                   atol=1e-4)
+        hs.append(h_t)
+    torch.testing.assert_close(torch.stack(hs, 1), want_h, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(th, want_T, rtol=1e-4, atol=1e-4)
+
+
+ZERO_COUNTS = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+               "rglru_scan": 0}
+
+
 def test_cpu_calls_leave_launch_counters_at_zero():
     ops.reset_launch_counts()
     rng = np.random.default_rng(9)
@@ -135,8 +300,10 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     k = torch.from_numpy(rng.standard_normal((1, 8, 2, 16), dtype=np.float32))
     ops.flash_attention(q, k, k)
     ops.decode_attention(q[:, 0], k, k, torch.tensor([3], dtype=torch.int32))
-    assert ops.launch_counts() == {"flash_attention": 0,
-                                   "decode_attention": 0}
+    ops.ssd(*(t for _, t in _ssd_inputs(rng, 1, 8, 2, 4, 1, 8,
+                                        "float32")[:5]), chunk=4)
+    ops.rglru(*(t for _, t in _rglru_inputs(rng, 1, 8, 4, "float32")[:4]))
+    assert ops.launch_counts() == ZERO_COUNTS
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -147,11 +314,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_cuda(q[:, 0], k, k,
                               torch.tensor([3], dtype=torch.int32))
-    assert ops.launch_counts() == {"flash_attention": 0,
-                                   "decode_attention": 0}
+    rng = np.random.default_rng(10)
+    x, dt, A, Bm, Cm, _ = (t for _, t in _ssd_inputs(rng, 1, 8, 2, 4, 1, 8,
+                                                     "bfloat16"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_cuda(x, dt, A, Bm, Cm, chunk=4)
+    x, ga, gi, la, _ = (t for _, t in _rglru_inputs(rng, 1, 8, 4,
+                                                    "bfloat16"))
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_cuda(x, ga.float(), gi.float(), la)
+    assert ops.launch_counts() == ZERO_COUNTS
 
 
 def test_unknown_backend_raises():
     q = torch.zeros((1, 2, 2, 8))
     with pytest.raises(ValueError, match="backend"):
         ops.flash_attention(q, q, q, backend="xla")
+    with pytest.raises(ValueError, match="backend"):
+        ops.rglru(q[0], q[0], q[0], q[0, 0, 0], backend="pallas")

@@ -1,7 +1,8 @@
 """The port's serving path and scheduler copy, on the CPU.
 
-* Serving jobs of reduced yi-6b run through the port's SchedulerService
-  under srtf and fifo, and through ``python -m repro_torch.launch.serve``.
+* Serving jobs of reduced yi-6b, and a mix of reduced mamba2-2.7b and
+  recurrentgemma-2b, run through the port's SchedulerService under srtf
+  and fifo, and through ``python -m repro_torch.launch.serve``.
 * The port's copies of the scheduler modules are held to the JAX
   package's: the files are identical, and both ``LaneExecutor``s produce
   the same trace and results for the same jobs under one fake clock.
@@ -83,6 +84,31 @@ def test_serve_cli_reduced_on_cpu(extra, blocks, capsys):
         assert run["peak_bytes"] is None
         assert sorted(r.blocks for r in run["results"]) == blocks
     assert "srtf vs fifo" in capsys.readouterr().out
+
+
+def test_serve_cli_mixes_recurrent_archs_on_cpu(capsys):
+    """The mixed tenants of the chip run, reduced: a pure-SSM model and the
+    RG-LRU / local-attention hybrid share the service."""
+    runs = serve.main(["--device", "cpu", "--reduced",
+                       "--jobs", "mamba2-2.7b:3,recurrentgemma-2b:2",
+                       "--policy", "srtf", "--compare-fifo",
+                       "--tokens-per-block", "4", "--prompt-len", "8",
+                       "--batch", "2", "--lanes", "2", "--stagger", "0"])
+    assert sorted(runs) == ["fifo", "srtf"]
+    for run in runs.values():
+        assert sorted((r.key.split("#")[0], r.blocks, r.cancelled)
+                      for r in run["results"]) == [
+            ("mamba2-2.7b", 3, False), ("recurrentgemma-2b", 2, False)]
+    out = capsys.readouterr().out
+    assert "tenant=mamba2-2.7b" in out and "tenant=recurrentgemma-2b" in out
+
+
+def test_serve_job_refuses_to_outgrow_the_local_window():
+    cfg = get_arch("recurrentgemma-2b").reduced()
+    job = make_serve_job(cfg, "long", blocks=20, tokens_per_block=4,
+                         batch=1, prompt_len=8, device="cpu")
+    with pytest.raises(ValueError, match="window"):
+        job.warmup_fn()
 
 
 # ------------------------------------------------- scheduler-copy parity
