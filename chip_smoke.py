@@ -30,8 +30,9 @@ ends the script with a non-zero exit and no result line:
               --batch 4 --prompt-len 1024 --tokens-per-block 8``; every job
               must finish and every kernel of the path must have run.
 
-The line before the last is a JSON object with one entry per kernel
-(launches summed over both serve paths); the last line is
+The line before the last is a JSON object with one entry per kernel and
+timed shape (flash: yi-6b's and recurrentgemma-2b's prefill; launches
+summed over both serve paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -200,15 +201,17 @@ def phase_build() -> None:
           flush=True)
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # ptxas -v: registers and spills of every kernel, and any wgmma
+            # it had to serialize (a kernel that lost its overlap).
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
     out = {}
     out.update(kernels_attention(gen))
-    out["ssd_scan"] = kernel_ssd(gen)
-    out["rglru_scan"] = kernel_rglru(gen)
+    out["ssd_scan"] = [kernel_ssd(gen)]
+    out["rglru_scan"] = [kernel_rglru(gen)]
     return out
 
 
@@ -244,15 +247,27 @@ def kernels_attention(gen: torch.Generator) -> dict:
         ("D256 ragged Sq77 Sk150 causal q_offset73", 1, 77, 150, 4, 2, 256,
          "causal", 0, 73),
         ("D256 window S300 w50", 2, 300, 300, 10, 1, 256, "window", 50, 0),
+        # Batch edge: B > 1 with Sq, Sk no multiple of 64; the tensor maps
+        # zero-fill each batch's ragged edge instead of reading the next.
+        ("batch edge B3 Sq150 Sk201 causal q_offset51", 3, 150, 201, 32, 4,
+         128, "causal", 0, 51),
+        ("D256 batch edge B3 Sq99 Sk99 causal", 3, 99, 99, 10, 1, 256,
+         "causal", 0, 0),
+        # Ring phase: the first visible key tile is odd (1, 2, 3 at D 128;
+        # 3, 5 at D 256), so the two-stage K/V ring starts off stage 0.
+        ("ring phase Sq300 Sk600 window150 q_offset300", 2, 300, 600, 32, 4,
+         128, "window", 150, 300),
+        ("D256 ring phase Sq200 Sk500 window100 q_offset300", 1, 200, 500,
+         10, 1, 256, "window", 100, 300),
     ]
-    errs = []
+    errs = {128: [], 256: []}
     for name, b, sq, sk, h, kv, d, kind, window, off in flash_cases:
         q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
         kw = dict(mask_kind=kind, window=window, q_offset=off)
         got = flash_attention_cuda(q, k, v, **kw)
         want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
-        errs.append(check_close(f"flash_attention {name}", got, want))
+        errs[d].append(check_close(f"flash_attention {name}", got, want))
 
     def time_flash(h, kv, d, kind, window, label):
         """Times at a serving path's prefill shape (S <= window, so the
@@ -272,13 +287,15 @@ def kernels_attention(gen: torch.Generator) -> dict:
               f" ms per call back to back), plain {plain_ms:.4f} ms, sdpa "
               f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
               f"{flops / 1e9:.2f} GFLOP)", flush=True)
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        return dict(shape=f"B{B} S{PROMPT} H{h} KV{kv} D{d} {kind}", ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
 
-    out["flash_attention"] = dict(
-        max_abs_err=max(errs),
-        **time_flash(32, 4, 128, "causal", 0, "yi-6b"))
-    time_flash(10, 1, 256, "window", 2048, "recurrentgemma-2b")
+    out["flash_attention"] = [
+        dict(max_abs_err=max(errs[128]),
+             **time_flash(32, 4, 128, "causal", 0, "yi-6b")),
+        dict(max_abs_err=max(errs[256]),
+             **time_flash(10, 1, 256, "window", 2048, "recurrentgemma-2b"))]
 
     # -- decode attention -------------------------------------------------
     errs = []
@@ -339,13 +356,14 @@ def kernels_attention(gen: torch.Generator) -> dict:
               f"({call_ms:.4f} ms per call back to back), plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}; {kv_bytes / 1e6:.2f} MB of K/V)", flush=True)
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        return dict(shape=f"B{B} S{slots} fill {fill} H{h} KV{kv} D{d}",
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
 
-    out["decode_attention"] = dict(
+    out["decode_attention"] = [dict(
         max_abs_err=max(errs),
         **time_decode(32, 4, 128, MAX_SEQ,
-                      PROMPT + LONGEST * TOKENS_PER_BLOCK // 2, "yi-6b"))
+                      PROMPT + LONGEST * TOKENS_PER_BLOCK // 2, "yi-6b"))]
     time_decode(10, 1, 256, 2048, PROMPT + TOKENS_PER_BLOCK,
                 "recurrentgemma-2b")
     return out
@@ -407,7 +425,8 @@ def kernel_ssd(gen: torch.Generator) -> dict:
           f"{chunk}: kernel {ms:.4f} ms on the device, plain {plain_ms:.4f} "
           f"ms, library none, bound {b_ms:.4f} ms ({b_by}; "
           f"{total / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+    return dict(shape=f"B{b} S{s} H{h} P{p} G{g} N{n} chunk {chunk}",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -459,8 +478,9 @@ def kernel_rglru(gen: torch.Generator) -> dict:
           f"the device, plain {plain_ms:.4f} ms (back to back), library "
           f"none, bound {b_ms:.4f} ms ({b_by}; {total / 1e6:.2f} MB)",
           flush=True)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return dict(shape=f"B{b} S{s} C{c}", max_abs_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 KINDS = {   # device-time classes of the profiler's kernel names
@@ -659,14 +679,17 @@ def main() -> None:
     }
     kernels = []
     for name, replaces in sources.items():
-        s = stats[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+        # One entry per timed shape; launches are the kernel's count over
+        # both serve paths, whatever the shape.
+        for s in stats[name]:
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                "shape": s["shape"]})
     print(json.dumps({"kernels": kernels}, allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

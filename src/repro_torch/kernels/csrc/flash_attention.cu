@@ -1,129 +1,142 @@
 // Flash attention forward (prefill) for Hopper (sm_90a), bf16 in and out.
 //
-// Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:109
 // (flash_attention_pallas, body _kernel): forward-only online-softmax GQA
 // attention with a causal, sliding-window or no mask and a static q_offset.
-// Scores are accumulated in fp32 and multiplied by `scale` in fp32; the
-// running max m, sum l and output accumulator are fp32; a row that no key
-// may attend to comes out 0 (the Pallas kernel's 1e-30 floor on l).
+// Scores are accumulated in fp32 and scaled in fp32; the running max m, sum
+// l and output accumulator are fp32; a row that no key may attend to comes
+// out 0 (the Pallas kernel's 1e-30 floor on l).
 //
-// What bounds it on the card: tensor-core operations.  At the prefill
-// shapes of the serving path (B 4, S 1024, 32 heads of 128) the causal
-// half of QK^T and PV is ~34 GFLOP against ~50 MB of Q/K/V/O traffic, far
-// above the H100's ~295 FLOP/byte balance point.  What the design does
-// about it: both products run on the tensor cores (WMMA bf16 16x16x16
-// fragments, fp32 accumulation) from bf16 tiles staged in shared memory,
-// and K/V tiles that the mask covers entirely are skipped, so the causal
-// case does half the work of the full one.  This is the simple version:
-// no wgmma, no TMA, no pipelining of the K/V loads, one query head per
-// CTA (the G heads of a KV group re-read its K/V tiles, mostly from L2).
+// What bounds it on the card: tensor-core operations.  At the serving
+// path's prefill shapes the causal half of QK^T and PV is 34.39 GFLOP
+// (yi-6b: B 4, S 1024, 32 heads / 4 KV of 128) and 21.50 GFLOP
+// (recurrentgemma-2b: 10 heads / 1 KV of 256), against ~50 MB of Q/K/V/O:
+// far above the H100's ~295 FLOP/byte balance point.  What the design does
+// about it:
+// - Both products run on wgmma, Hopper's warpgroup tensor-core
+//   instruction, fed from shared memory: S = Q K^T with both operands in
+//   shared memory, O += P V with P from registers.
+// - Copies go through TMA: Q once, K and V through a two-stage ring, each
+//   stage with its own "full" mbarrier for K and for V, so QK^T starts
+//   before V lands.  One thread issues the copies of tile t + 1 before the
+//   CTA computes on tile t; a CTA-wide barrier at the end of each tile
+//   frees its stage.  Rank-4 tensor maps (D, heads, seq, batch) let the
+//   hardware zero-fill the ragged sequence edge of each batch.
+// - The softmax runs on the accumulator registers: each thread holds rows
+//   r and r + 8 of its warp's 16, a row's max is two shuffles across the
+//   quad, the rescale of O happens in place, and P is packed to bf16 in
+//   the order of wgmma's A fragment.  Nothing of S, P or O goes through
+//   shared memory.
+// - K/V tiles that the mask covers entirely are skipped, and the mask is
+//   evaluated only on tiles that cross its edge; the heaviest query tiles
+//   of every head are scheduled first.
+// Left for later: a producer warp with setmaxnreg, ping-pong between the
+// two warpgroups (softmax of one beside the products of the other),
+// packing the G heads of a KV group into M, persistent CTAs.
 //
-// Head dims (D, Dv): (64, 64), (128, 128), (64, 128), (128, 64) and
-// (256, 256); at 256 the shared-memory tiles below take ~191 KB, inside
-// the 227 KB opt-in at one CTA per SM.
+// CTA: two warpgroups (256 threads), 64 query rows each (BM = 128) of one
+// head; key tiles of BN = 128 (BN = 64 when a head dim is 256).  Shared
+// memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB at D 128, Q 64 KB +
+// 2 x (K 32 KB + V 32 KB) = 192 KB at D 256: one CTA per SM.
 //
+// Head dims (D, Dv): (64, 64), (128, 128), (64, 128), (128, 64), (256, 256).
 // Layout: q [B, Sq, H, D], k [B, Sk, KV, D], v [B, Sk, KV, Dv], out
-// [B, Sq, H, Dv], all contiguous.  Grid (ceil(Sq/64), H, B); a CTA of four
-// warps owns 64 query rows (16 per warp) of one head and walks the K/V
-// tiles of 64 keys its rows can see.  Ragged Sq/Sk edges are masked here
-// (the Pallas version pads them outside the kernel).
+// [B, Sq, H, Dv], all contiguous.  Grid (H, B, ceil(Sq / 128)), the query
+// tile reversed along z so that the longest causal tiles start first.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 64;                  // query rows per CTA
-constexpr int BN = 64;                  // keys per K/V tile
-constexpr int WARPS = 4;                // 16 query rows each
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_INF = -1e30f;       // the Pallas kernel's mask value
+using namespace hopper;
+
+constexpr int BM = 128;                 // query rows per CTA
+constexpr int THREADS = 256;            // two warpgroups of 64 rows each
+constexpr int BOX = 64;                 // TMA box width: 64 bf16 = 128 bytes
 
 enum MaskKind { MASK_NONE = 0, MASK_CAUSAL = 1, MASK_WINDOW = 2 };
 
-// Shared-memory layout.  Rows are padded (8 bf16 / 4 fp32) against bank
-// conflicts; every section stays 32-byte aligned, as WMMA loads require.
 template <int D, int DV>
-struct Smem {
-    static constexpr int LDK = D + 8;    // Q and K tiles, bf16
-    static constexpr int LDV = DV + 8;   // V tile, bf16
-    static constexpr int LDS = BN + 4;   // scores, fp32
-    static constexpr int LDP = BN + 8;   // probabilities, bf16
-    static constexpr int LDO = DV + 4;   // output accumulator, fp32
-    static constexpr size_t q_off = 0;
-    static constexpr size_t k_off = q_off + sizeof(bf16) * BM * LDK;
-    static constexpr size_t v_off = k_off + sizeof(bf16) * BN * LDK;
-    static constexpr size_t s_off = v_off + sizeof(bf16) * BN * LDV;
-    static constexpr size_t p_off = s_off + sizeof(float) * BM * LDS;
-    static constexpr size_t o_off = p_off + sizeof(bf16) * BM * LDP;
-    static constexpr size_t corr_off = o_off + sizeof(float) * BM * LDO;
-    static constexpr size_t l_off = corr_off + sizeof(float) * BM;
-    static constexpr size_t bytes = l_off + sizeof(float) * BM;
+struct Tile {
+    static constexpr int BN = (D > 128 || DV > 128) ? 64 : 128;
+    // Every section is a whole number of 1024-byte swizzle atoms, so each
+    // stays 1024-byte aligned.  A tile of width W is W / 64 boxes of
+    // [rows][64] bf16, box after box.
+    static constexpr uint32_t q_bytes = BM * D * 2;
+    static constexpr uint32_t k_bytes = BN * D * 2;
+    static constexpr uint32_t v_bytes = BN * DV * 2;
+    static constexpr uint32_t q_off = 0;
+    static constexpr uint32_t k_off = q_off + q_bytes;          // 2 stages
+    static constexpr uint32_t v_off = k_off + 2 * k_bytes;      // 2 stages
+    static constexpr uint32_t bar_off = v_off + 2 * v_bytes;    // 5 barriers
+    static constexpr uint32_t bytes = bar_off + 64 + 1024;      // + alignment
 };
 
-// Copy `n_valid` rows of W bf16 (row `row0` on, `gstride` elements apart)
-// into a 64-row shared tile with leading dimension `ld`; rows past n_valid
-// are zero-filled so that masked products never meet stale data.
-template <int W>
-__device__ __forceinline__ void load_rows(bf16* smem, int ld, const bf16* gbase,
-                                          long long gstride, int row0,
-                                          int n_valid) {
-    constexpr int VPR = W / 8;           // 16-byte vectors per row
-    for (int i = threadIdx.x; i < 64 * VPR; i += THREADS) {
-        const int r = i / VPR;
-        const int c = (i % VPR) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < n_valid) {
-            val = *reinterpret_cast<const uint4*>(
-                gbase + (long long)(row0 + r) * gstride + c);
-        }
-        *reinterpret_cast<uint4*>(smem + r * ld + c) = val;
-    }
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+    if constexpr (N == 64) wgmma_ss_n64(d, a, b, accumulate);
+    else wgmma_ss_n128(d, a, b, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+    if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+    else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
+    else wgmma_rs_n256(d, a, b);
 }
 
 template <int D, int DV>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 int Sq, int Sk, int H, int KV, int mask_kind, int window,
-                 int q_offset, float scale) {
-    using L = Smem<D, DV>;
-    extern __shared__ __align__(128) unsigned char smem[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
-    bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
-    bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-    float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-    bf16* Ps = reinterpret_cast<bf16*>(smem + L::p_off);
-    float* Os = reinterpret_cast<float*>(smem + L::o_off);
-    float* corr_s = reinterpret_cast<float*>(smem + L::corr_off);
-    float* l_s = reinterpret_cast<float*>(smem + L::l_off);
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 bf16* __restrict__ out, int Sq, int Sk, int H, int KV,
+                 int mask_kind, int window, int q_offset, float scale_log2) {
+    using T = Tile<D, DV>;
+    constexpr int BN = T::BN;
+    extern __shared__ unsigned char smem_raw[];
+    // 128-byte swizzle wants 1024-byte aligned tiles.
+    unsigned char* smem =
+        smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    bf16* Qs = reinterpret_cast<bf16*>(smem + T::q_off);
+    bf16* Ks = reinterpret_cast<bf16*>(smem + T::k_off);
+    bf16* Vs = reinterpret_cast<bf16*>(smem + T::v_off);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + T::bar_off);
+    uint64_t* q_full = bars;
+    uint64_t* k_full = bars + 1;         // [2]
+    uint64_t* v_full = bars + 3;         // [2]
 
-    const int m0 = blockIdx.x * BM;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
+    const int h = blockIdx.x;
+    const int b = blockIdx.y;
+    const int m0 = (gridDim.z - 1 - blockIdx.z) * BM;
     const int hk = h / (H / KV);
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-
-    const bf16* qb = q + (long long)b * Sq * H * D + (long long)h * D;
-    const bf16* kb = k + (long long)b * Sk * KV * D + (long long)hk * D;
-    const bf16* vb = v + (long long)b * Sk * KV * DV + (long long)hk * DV;
-
-    load_rows<D>(Qs, L::LDK, qb, (long long)H * D, m0, min(BM, Sq - m0));
-    for (int i = threadIdx.x; i < BM * L::LDO; i += THREADS) Os[i] = 0.f;
-
-    // Two lanes own one query row: lane/2 picks the row inside the warp's
-    // 16, lane%2 the even or odd score columns.  Both keep the row's m, l.
-    const int half = lane & 1;
-    const int row = warp * 16 + (lane >> 1);
-    const int q_pos = q_offset + m0 + row;
-    float m_run = NEG_INF;
-    float l_run = 0.f;
+    const int tid = threadIdx.x;
+    const int wg = tid / 128;
+    const int lane = tid % 32;
+    // This thread's two rows (the accumulator layout in hopper.cuh).
+    const int row0 = m0 + 64 * wg + 16 * ((tid / 32) % 4) + lane / 4;
+    const int col_in = 2 * (lane % 4);
 
     // K/V tiles that any row of this CTA can see.
     int n_lo = 0;
@@ -133,134 +146,239 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (mask_kind == MASK_WINDOW) n_lo = max(0, q_offset + m0 - window + 1);
     }
     const int t_lo = n_lo / BN;
-    const int t_hi = n_hi > 0 ? (n_hi + BN - 1) / BN : 0;
-    __syncthreads();                     // Q tile and zeroed O are visible
+    const int n_tiles = max(0, (n_hi + BN - 1) / BN - t_lo);
 
-    for (int t = t_lo; t < t_hi; ++t) {
-        const int n0 = t * BN;
-        __syncthreads();                 // every warp is done with the last tile
-        load_rows<D>(Ks, L::LDK, kb, (long long)KV * D, n0, min(BN, Sk - n0));
-        load_rows<DV>(Vs, L::LDV, vb, (long long)KV * DV, n0, min(BN, Sk - n0));
-        __syncthreads();
-
-        // S = Q K^T for this warp's 16 rows: 16 x 64, fp32.
-        {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
-#pragma unroll
-            for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-            for (int kk = 0; kk < D; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-                wmma::load_matrix_sync(a, Qs + warp * 16 * L::LDK + kk, L::LDK);
-#pragma unroll
-                for (int j = 0; j < BN / 16; ++j) {
-                    // K^T as a col-major 16x16 operand: element (kk', n) at
-                    // Ks[(16j + n) * LDK + kk + kk'].
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-                    wmma::load_matrix_sync(bk, Ks + j * 16 * L::LDK + kk, L::LDK);
-                    wmma::mma_sync(acc[j], a, bk, acc[j]);
-                }
-            }
-#pragma unroll
-            for (int j = 0; j < BN / 16; ++j) {
-                wmma::store_matrix_sync(Ss + warp * 16 * L::LDS + j * 16, acc[j],
-                                        L::LDS, wmma::mem_row_major);
-            }
-        }
-        __syncwarp();
-
-        // Online softmax on the row: masked scores are NEG_INF and their
-        // probabilities exactly 0, as in the Pallas kernel.
-        {
-            const float* srow = Ss + row * L::LDS;
-            float sv[BN / 2];
-            uint32_t valid = 0u;
-            float mx = NEG_INF;
-#pragma unroll
-            for (int c = 0; c < BN / 2; ++c) {
-                const int col = 2 * c + half;
-                const int kpos = n0 + col;
-                bool ok = kpos < Sk;
-                if (mask_kind == MASK_CAUSAL) {
-                    ok = ok && kpos <= q_pos;
-                } else if (mask_kind == MASK_WINDOW) {
-                    ok = ok && kpos <= q_pos && kpos > q_pos - window;
-                }
-                const float s = ok ? srow[col] * scale : NEG_INF;
-                valid |= (ok ? 1u : 0u) << c;
-                sv[c] = s;
-                mx = fmaxf(mx, s);
-            }
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-            const float m_new = fmaxf(m_run, mx);
-            const float corr = __expf(m_run - m_new);
-            float psum = 0.f;
-            bf16* prow = Ps + row * L::LDP;
-#pragma unroll
-            for (int c = 0; c < BN / 2; ++c) {
-                const float p = ((valid >> c) & 1u) ? __expf(sv[c] - m_new) : 0.f;
-                psum += p;
-                prow[2 * c + half] = __float2bfloat16(p);
-            }
-            psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-            l_run = l_run * corr + psum;
-            m_run = m_new;
-            if (half == 0) corr_s[row] = corr;
-        }
-        __syncwarp();
-
-        // O = O * corr + P V for the warp's rows.
-        for (int i = lane; i < 16 * DV; i += 32) {
-            const int r = warp * 16 + i / DV;
-            Os[r * L::LDO + i % DV] *= corr_s[r];
-        }
-        __syncwarp();
-#pragma unroll
-        for (int j = 0; j < DV / 16; ++j) {
-            float* optr = Os + warp * 16 * L::LDO + j * 16;
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-            wmma::load_matrix_sync(o, optr, L::LDO, wmma::mem_row_major);
-#pragma unroll
-            for (int kk = 0; kk < BN; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-                wmma::load_matrix_sync(a, Ps + warp * 16 * L::LDP + kk, L::LDP);
-                wmma::load_matrix_sync(bv, Vs + kk * L::LDV + j * 16, L::LDV);
-                wmma::mma_sync(o, a, bv, o);
-            }
-            wmma::store_matrix_sync(optr, o, L::LDO, wmma::mem_row_major);
-        }
-        __syncwarp();
+    if (tid == 0) {
+        for (int i = 0; i < 5; ++i) mbar_init(bars + i, 1);
+        fence_barrier_init();
     }
+    __syncthreads();
 
-    if (half == 0) l_s[row] = l_run;
+    auto load_kv = [&](int stage, int tile) {
+        mbar_arrive_expect_tx(k_full + stage, T::k_bytes);
+#pragma unroll
+        for (int c = 0; c < D / BOX; ++c)
+            tma_load_4d(Ks + stage * BN * D + c * BN * BOX, &tk, k_full + stage,
+                        c * BOX, hk, tile * BN, b);
+        mbar_arrive_expect_tx(v_full + stage, T::v_bytes);
+#pragma unroll
+        for (int c = 0; c < DV / BOX; ++c)
+            tma_load_4d(Vs + stage * BN * DV + c * BN * BOX, &tv,
+                        v_full + stage, c * BOX, hk, tile * BN, b);
+    };
+
+    if (tid == 0 && n_tiles > 0) {
+        mbar_arrive_expect_tx(q_full, T::q_bytes);
+#pragma unroll
+        for (int c = 0; c < D / BOX; ++c)
+            tma_load_4d(Qs + c * BM * BOX, &tq, q_full, c * BOX, h, m0, b);
+        load_kv(0, t_lo);
+    }
     __syncwarp();
-    for (int i = lane; i < 16 * (DV / 2); i += 32) {
-        const int r = warp * 16 + i / (DV / 2);
-        const int c = (i % (DV / 2)) * 2;
-        if (m0 + r >= Sq) continue;
-        const float denom = fmaxf(l_s[r], 1e-30f);
-        const __nv_bfloat162 o2 = __floats2bfloat162_rn(
-            Os[r * L::LDO + c] / denom, Os[r * L::LDO + c + 1] / denom);
-        *reinterpret_cast<__nv_bfloat162*>(
-            out + ((long long)(b * Sq + m0 + r) * H + h) * DV + c) = o2;
+
+    float o[DV / 2];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};        // this thread's columns only
+    // The CTA's first and last query positions: a key tile needs the mask
+    // only where its edge crosses them.
+    const int q_first = q_offset + m0;
+    const int q_last = q_offset + m0 + BM - 1;
+
+    if (n_tiles > 0) mbar_wait(q_full, 0);
+    // This warpgroup's 64 rows of Q, box 0.
+    const bf16* q_wg = Qs + wg * 64 * BOX;
+
+    for (int i = 0; i < n_tiles; ++i) {
+        const int stage = i & 1;
+        const uint32_t parity = (i >> 1) & 1;  // each stage flips every 2nd tile
+        const int n0 = (t_lo + i) * BN;
+        if (tid == 0 && i + 1 < n_tiles) load_kv(stage ^ 1, t_lo + i + 1);
+        __syncwarp();
+
+        // S = Q K^T: 64 x BN per warpgroup, D / 16 steps of k16.
+        float s[BN / 2];
+        const bf16* k_st = Ks + stage * BN * D;
+        mbar_wait(k_full + stage, parity);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            const int box = kk / 4;
+            const int sub = (kk % 4) * 16;      // 32 bytes per k16 step
+            wgmma_ss<BN>(s,
+                         desc_sw128(q_wg + box * BM * BOX + sub, 0, 1024),
+                         desc_sw128(k_st + box * BN * BOX + sub, 0, 1024),
+                         kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<BN / 2>(s);
+
+        // Online softmax on the registers, in the log2 domain.
+#pragma unroll
+        for (int x = 0; x < BN / 2; ++x) s[x] *= scale_log2;
+        const bool edge = n0 + BN > Sk ||
+            (mask_kind != MASK_NONE && n0 + BN - 1 > q_first) ||
+            (mask_kind == MASK_WINDOW && n0 <= q_last - window);
+        if (edge) {
+#pragma unroll
+            for (int x = 0; x < BN / 2; ++x) {
+                const int col = n0 + 8 * (x / 4) + col_in + (x & 1);
+                const int qpos = q_offset + row0 + ((x & 2) ? 8 : 0);
+                bool ok = col < Sk;
+                if (mask_kind != MASK_NONE) ok = ok && col <= qpos;
+                if (mask_kind == MASK_WINDOW) ok = ok && col > qpos - window;
+                if (!ok) s[x] = -INFINITY;
+            }
+        }
+        float corr[2];
+        float base[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j)
+                mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m_run[r], mx);
+            // A row with no visible key so far keeps m = -inf; subtract 0
+            // then, so that exp2(-inf) = 0 everywhere instead of NaN.
+            base[r] = m_new == -INFINITY ? 0.f : m_new;
+            corr[r] = ex2(m_run[r] - base[r]);
+            m_run[r] = m_new;
+        }
+        float psum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int x = 0; x < BN / 2; ++x) {
+            const int r = (x >> 1) & 1;
+            s[x] = ex2(s[x] - base[r]);
+            psum[r] += s[x];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + psum[r];
+#pragma unroll
+        for (int x = 0; x < DV / 2; ++x) o[x] *= corr[(x >> 1) & 1];
+        // P as bf16 A fragments: k16 slice kk is S's 8-column blocks 2kk
+        // and 2kk + 1, i.e. s[8kk .. 8kk + 7] in order.
+        uint32_t p[BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+
+        // O += P V: V is [keys, Dv] with Dv contiguous, an MN-major B
+        // operand (transposed); atoms of 64 Dv columns are one box apart.
+        const bf16* v_st = Vs + stage * BN * DV;
+        mbar_wait(v_full + stage, parity);
+        fence_regs<DV / 2>(o);
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) fence_regs<4>(p[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+            wgmma_rs<DV>(o, p[kk],
+                         desc_sw128(v_st + kk * 16 * BOX, BN * BOX * 2, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<DV / 2>(o);
+        __syncthreads();                  // every warp is done with the stage
     }
+
+    // Epilogue: the quad's partial sums, then O / max(l, 1e-30) as bf16.
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float l = l_run[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        inv[r] = 1.f / fmaxf(l, 1e-30f);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= Sq) continue;
+        bf16* orow = out + ((long long)(b * Sq + row) * H + h) * DV + col_in;
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j) {
+            *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(
+                o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+        }
+    }
+}
+
+// ------------------------------------------------------------------- host
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+                   ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+    }();
+    return fn;
+}
+
+// Rank-4 map over a contiguous [batch, seq, heads, width] bf16 tensor,
+// boxes of 64 columns x `rows` positions of one head of one batch, 128-byte
+// swizzled; positions past `seq` read as zeros.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int width, int heads,
+                     int seq, int batch, int rows) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t e = sizeof(bf16);
+    const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
+                                (cuuint64_t)seq, (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {width * e, (cuuint64_t)heads * width * e,
+                                   (cuuint64_t)seq * heads * width * e};
+    const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
+    const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+    const CUresult r = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Sk, int H, int KV, int mask_kind,
                    int window, int q_offset, float scale, cudaStream_t stream) {
-    auto kern = flash_fwd_kernel<D, DV>;
-    const size_t bytes = Smem<D, DV>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    using T = Tile<D, DV>;
+    if (Sk == 0)   // no key anywhere: every row is 0
+        return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * DV * sizeof(bf16),
+                               stream);
+    CUtensorMap tq, tk, tv;
+    cudaError_t err = make_map(&tq, q, D, H, Sq, B, BM);
+    if (err == cudaSuccess) err = make_map(&tk, k, D, KV, Sk, B, T::BN);
+    if (err == cudaSuccess) err = make_map(&tv, v, DV, KV, Sk, B, T::BN);
     if (err != cudaSuccess) return err;
-    dim3 grid((Sq + BM - 1) / BM, H, B);
-    kern<<<grid, THREADS, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, KV,
-        mask_kind, window, q_offset, scale);
+    auto kern = flash_fwd_kernel<D, DV>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)T::bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid(H, B, (Sq + BM - 1) / BM);
+    kern<<<grid, THREADS, T::bytes, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(out), Sq, Sk, H, KV, mask_kind, window,
+        q_offset, scale * 1.4426950408889634f);
     return cudaGetLastError();
 }
 
@@ -286,7 +404,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     if (D == 64 && Dv == 128)
         return (int)launch<64, 128>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
                                     window, q_offset, scale, st);
-    if (D == 256 && Dv == 256)   // recurrentgemma; ~191 KB of shared memory
+    if (D == 256 && Dv == 256)   // recurrentgemma; 192 KB of shared memory
         return (int)launch<256, 256>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
                                      window, q_offset, scale, st);
     return (int)cudaErrorInvalidValue;

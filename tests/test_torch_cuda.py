@@ -66,6 +66,29 @@ FLASH = [
     (2, 130, 130, 10, 1, 256, 256, "window", 2048, 0),   # recurrentgemma
     (1, 77, 150, 4, 2, 256, 256, "causal", 0, 73),
     (1, 200, 200, 2, 1, 256, 256, "window", 50, 0),
+    # B > 1, Sq and Sk no multiple of 64: the tensor maps must zero-fill
+    # each batch's ragged edge, not read the next batch's rows.
+    (3, 77, 190, 4, 2, 64, 64, "none", 0, 0),
+    (2, 150, 201, 8, 2, 128, 128, "causal", 0, 51),
+    (3, 99, 99, 4, 1, 256, 256, "causal", 0, 0),
+    # Sq <= 64: the second warpgroup's rows all lie past Sq.
+    (2, 40, 300, 4, 2, 64, 64, "causal", 0, 260),
+    (2, 33, 33, 4, 4, 128, 128, "causal", 0, 0),
+    (2, 50, 100, 2, 1, 256, 256, "none", 0, 0),
+    # Sk = 1, and Sk = 0 (every row is 0).
+    (2, 5, 1, 4, 2, 64, 64, "none", 0, 0),
+    (2, 3, 1, 4, 4, 128, 128, "causal", 0, 0),
+    (1, 4, 1, 2, 1, 256, 256, "window", 4, 0),
+    (2, 5, 0, 4, 2, 64, 64, "none", 0, 0),
+    # G = 1 (H = KV).
+    (1, 130, 130, 3, 3, 64, 64, "window", 40, 0),
+    (2, 200, 200, 4, 4, 128, 128, "causal", 0, 0),
+    (1, 100, 100, 2, 2, 256, 256, "causal", 0, 0),
+    # A window whose first visible key tile is odd: the two-stage K/V ring
+    # starts away from stage 0 (first tiles 3 and 4; 1, 2 and 3; 3 and 5).
+    (1, 130, 1200, 2, 1, 64, 64, "window", 600, 1050),
+    (2, 300, 600, 4, 2, 128, 128, "window", 150, 300),
+    (1, 200, 500, 2, 1, 256, 256, "window", 100, 300),
 ]
 
 
@@ -76,9 +99,11 @@ def test_flash_kernel_matches_plain(case, gen):
         _randn(gen, B, Sk, KV, Dv)
     kw = dict(mask_kind=kind, window=window, q_offset=off)
     got = flash_attention_cuda(q, k, v, **kw)
+    again = flash_attention_cuda(q, k, v, **kw)
     want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     torch.cuda.synchronize()
     _close(got, want)
+    assert torch.equal(got, again), "two launches on one input differ"
 
 
 DECODE = [
