@@ -31,8 +31,8 @@ ends the script with a non-zero exit and no result line:
               must finish and every kernel of the path must have run.
 
 The line before the last is a JSON object with one entry per kernel and
-timed shape (flash: yi-6b's and recurrentgemma-2b's prefill; launches
-summed over both serve paths); the last line is
+timed shape (flash: yi-6b's and recurrentgemma-2b's prefill; decode:
+their decode steps; launches summed over both serve paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -41,6 +41,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -205,6 +206,11 @@ def phase_build() -> None:
             # it had to serialize (a kernel that lost its overlap).
             if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+            # Decode attention keeps q and acc of 8 heads in registers: a
+            # spill would put them in local memory on every key.
+            if name == "decode_attention" and "bytes spill" in line \
+                    and any(int(w) for w in line.split() if w.isdigit()):
+                fail(f"decode_attention spills registers: {line.strip()}")
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
@@ -298,25 +304,40 @@ def kernels_attention(gen: torch.Generator) -> dict:
              **time_flash(10, 1, 256, "window", 2048, "recurrentgemma-2b"))]
 
     # -- decode attention -------------------------------------------------
-    errs = []
+    from repro_torch.kernels.decode_attention import counters
+
+    errs = {128: [], 256: []}
     decode_cases = [
-        # name, H, KV, D, cache slots, lengths
-        ("decode B4 mixed lengths", 32, 4, 128, MAX_SEQ,
+        # name, B, H, KV, D, cache slots, lengths
+        ("decode B4 mixed lengths", B, 32, 4, 128, MAX_SEQ,
          [1, 300, 777, MAX_SEQ]),
-        ("decode B4 short lengths", 32, 4, 128, MAX_SEQ, [1, 2, 63, 65]),
-        ("D256 G10 ring of 2048 mixed lengths", 10, 1, 256, 2048,
+        ("decode B4 short lengths", B, 32, 4, 128, MAX_SEQ, [1, 2, 63, 65]),
+        # B * KV = 64 (b, kv head) counters.
+        ("decode B8 KV8", 8, 64, 8, 128, MAX_SEQ,
+         [1, 37, 64, 100, 555, 1000, 1095, MAX_SEQ]),
+        ("D256 G10 ring of 2048 mixed lengths", B, 10, 1, 256, 2048,
          [1, PROMPT, MAX_SEQ, 2048]),
+        # Lengths below the 33 splits: CTAs with no keys reach the combine.
+        ("D256 G10 ring of 2048 lengths below n_split", B, 10, 1, 256, 2048,
+         [1, 2, 3, 0]),
     ]
-    for name, h, kv, d, slots, lens in decode_cases:
-        q = randn(B, h, d)
-        kc, vc = randn(B, slots, kv, d), randn(B, slots, kv, d)
+    for name, b, h, kv, d, slots, lens in decode_cases:
+        q = randn(b, h, d)
+        kc, vc = randn(b, slots, kv, d), randn(b, slots, kv, d)
         length = torch.tensor(lens, dtype=torch.int32, device=dev)
         got = decode_attention_cuda(q, kc, vc, length)
+        again = decode_attention_cuda(q, kc, vc, length)
         want = decode_attention_plain(q.float(), kc.float(), vc.float(),
                                       length)
         torch.cuda.synchronize()
-        errs.append(check_close(f"decode_attention {name} {lens}", got,
-                                want))
+        errs[d].append(check_close(f"decode_attention {name} {lens}", got,
+                                   want))
+        if not torch.equal(got, again):
+            fail(f"decode_attention {name}: two launches on one input differ")
+        if bool(counters(dev).any()):
+            fail(f"decode_attention {name}: counters left non-zero")
+    print("[kernels] decode_attention: two launches bitwise equal, counters "
+          "zero after every call", flush=True)
     q, kc, vc = randn(B, 32, 128), randn(B, MAX_SEQ, 4, 128), \
         randn(B, MAX_SEQ, 4, 128)
     zero = torch.tensor([0, 5, 0, 9], dtype=torch.int32, device=dev)
@@ -360,12 +381,14 @@ def kernels_attention(gen: torch.Generator) -> dict:
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
 
-    out["decode_attention"] = [dict(
-        max_abs_err=max(errs),
-        **time_decode(32, 4, 128, MAX_SEQ,
-                      PROMPT + LONGEST * TOKENS_PER_BLOCK // 2, "yi-6b"))]
-    time_decode(10, 1, 256, 2048, PROMPT + TOKENS_PER_BLOCK,
-                "recurrentgemma-2b")
+    out["decode_attention"] = [
+        dict(max_abs_err=max(errs[128]),
+             **time_decode(32, 4, 128, MAX_SEQ,
+                           PROMPT + LONGEST * TOKENS_PER_BLOCK // 2,
+                           "yi-6b")),
+        dict(max_abs_err=max(errs[256]),
+             **time_decode(10, 1, 256, 2048, PROMPT + TOKENS_PER_BLOCK,
+                           "recurrentgemma-2b"))]
     return out
 
 
@@ -484,8 +507,7 @@ def kernel_rglru(gen: torch.Generator) -> dict:
 
 
 KINDS = {   # device-time classes of the profiler's kernel names
-    "attention kernels": ("flash_fwd_kernel", "decode_split_kernel",
-                          "decode_combine_kernel"),
+    "attention kernels": ("flash_fwd_kernel", "decode_attention_kernel"),
     "scan kernels": ("ssd_chunk_scan_kernel", "rglru_scan_kernel"),
     "matmuls": ("gemm", "xmma", "cutlass", "nvjet"),
 }
@@ -503,10 +525,14 @@ def profile(fn, n: int, what: str) -> None:
         torch.cuda.synchronize()
     kinds = {kind: 0.0 for kind in list(KINDS) + ["other"]}
     first, last = math.inf, -math.inf
+    attention = set()
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = e.name.lower()
+        named = re.search(r"(decode|flash)\w*kernel(<[^>]*>)?", e.name)
+        if named:
+            attention.add(named.group(0))
         kind = next((k for k, tags in KINDS.items()
                      if any(t in name for t in tags)), "other")
         kinds[kind] += e.time_range.elapsed_us()
@@ -522,7 +548,8 @@ def profile(fn, n: int, what: str) -> None:
           f"{busy / 1e3 / n:.3f} ms per call ({parts}); device idle "
           f"{1 - busy / (last - first):.1%} of the "
           f"{(last - first) / 1e3 / n:.3f} ms per call between first and "
-          f"last kernel", flush=True)
+          f"last kernel; attention kernels by name: "
+          f"{sorted(attention) or 'none'}", flush=True)
 
 
 def _to_float32(tree):

@@ -1,7 +1,7 @@
-// Small PTX helpers for Hopper (sm_90a) kernels: mbarriers, TMA tensor
-// loads, wgmma shared-memory descriptors and the wgmma products in the
-// widths the port's kernels use.  Device code only; include after
-// <cuda.h> (for CUtensorMap).
+// Small PTX helpers for Hopper (sm_90a) kernels: mbarriers, asynchronous
+// copies, TMA tensor loads, ldmatrix and mma.sync, wgmma shared-memory
+// descriptors and the wgmma products in the widths the port's kernels use.
+// Device code only; include after <cuda.h> (for CUtensorMap).
 //
 // Conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
 // - A 64 x N wgmma accumulator is spread over a warpgroup's 128 threads as
@@ -69,6 +69,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     }
 }
 
+// ------------------------------------------------- asynchronous copies
+// Copy 16 bytes from global to shared memory, asynchronously (both
+// addresses 16-byte aligned), caching in L2 only.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src))
+                 : "memory");
+}
+
+// Wait until all of this thread's cp.async copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed;
+// the barrier's count must include this arrival (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
 // --------------------------------------------------------------------- TMA
 // Copy one box of a rank-4 tensor map, at coordinates (c0, c1, c2, c3)
 // (innermost first), into shared memory; completes `bytes` on `bar`.
@@ -82,6 +103,33 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
+}
+
+// -------------------------------------------------------- ldmatrix, mma.sync
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8, and r[i] receives matrix i in the mma
+// fragment layout (row l / 4, columns 2 (l % 4) + {0, 1}).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)) : "memory");
+}
+
+// The same, each matrix transposed.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)) : "memory");
+}
+
+// D[16 x 8] += A[16 x 16] * B[16 x 8], bf16 in, fp32 accumulate, one warp.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------------------------- wgmma

@@ -13,13 +13,18 @@ the bf16 tolerance of ``tests/test_kernels.py``, 2e-2 for attention and
 3e-2 for the scans.
 """
 
+import ctypes
+
 import pytest
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (
+    _lib as decode_lib,
+    counters as decode_counters,
     decode_attention_cuda,
     decode_attention_plain,
+    plan as decode_plan,
 )
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
@@ -113,6 +118,13 @@ DECODE = [
     (3, 200, 8, 8, 128, 128, [64, 65, 129]),
     (2, 70, 16, 1, 64, 128, [0, 70]),
     (4, 2048, 10, 1, 256, 256, [1, 1024, 1096, 2048]),   # recurrentgemma
+    # Lengths shorter than n_split (33 here): CTAs with no keys arrive at
+    # the combine with l = 0; a row of length 0 is zeros.
+    (4, 2048, 10, 1, 256, 256, [1, 2, 3, 0]),
+    # B * KV = 64: more (b, kv head) counters than one block's worth.
+    (8, 300, 64, 8, 128, 128, [1, 37, 64, 100, 150, 200, 299, 300]),
+    # G = 5: passes of 4 heads and of 1.
+    (2, 500, 5, 1, 128, 128, [499, 33]),
 ]
 
 
@@ -123,9 +135,38 @@ def test_decode_kernel_matches_plain(case, gen):
     kc, vc = _randn(gen, B, S, KV, D), _randn(gen, B, S, KV, Dv)
     length = torch.tensor(lens, dtype=torch.int32, device="cuda")
     got = decode_attention_cuda(q, kc, vc, length)
+    again = decode_attention_cuda(q, kc, vc, length)
     want = decode_attention_plain(q.float(), kc.float(), vc.float(), length)
     torch.cuda.synchronize()
     _close(got, want)
+    assert torch.equal(got, again), "two launches on one input differ"
+    assert not decode_counters(q.device).any(), "counters left non-zero"
+
+
+def test_decode_plan_matches_the_kernel_shared_memory(gen):
+    lib = decode_lib()
+    lib.decode_attention_smem.restype = ctypes.c_longlong
+    for S, D, Dv, G, bkv in [(1096, 128, 128, 8, 16), (2048, 256, 256, 10, 4),
+                             (70, 64, 128, 16, 2), (300, 128, 128, 8, 64),
+                             (8, 64, 64, 1, 1)]:
+        n_split, smem = decode_plan(S, D, Dv, G, bkv, 132)
+        assert lib.decode_attention_smem(S, D, Dv, G, n_split) == smem
+
+
+def test_decode_refuses_views_that_are_not_16_byte_aligned(gen):
+    q = _randn(gen, 2, 4, 64)
+    flat = _randn(gen, 2 * 16 * 2 * 64 + 2)
+    k = flat[2:].view(2, 16, 2, 64)            # 4 bytes past the allocation
+    assert k.is_contiguous() and k.data_ptr() % 16
+    length = torch.tensor([5, 16], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention_cuda(q, k, k.clone(), length)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention_cuda(flat[2:2 + 2 * 4 * 64].view(2, 4, 64),
+                              k.clone(), k.clone(), length)
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attention_cuda(_randn(gen, 2, 4, 96), _randn(gen, 2, 16, 2, 96),
+                              _randn(gen, 2, 16, 2, 96), length)
 
 
 SSD = [

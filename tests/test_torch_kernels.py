@@ -20,7 +20,12 @@ from repro.kernels.rglru_scan import rglru_pallas
 from repro.kernels.ssd_scan import ssd_pallas
 from repro.models.layers import causal_mask, window_mask
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import (
+    HEAD_DIMS,
+    KV_SMEM,
+    decode_attention_cuda,
+    plan as decode_plan,
+)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rglru_scan import rglru_cuda
 from repro_torch.kernels.ssd_scan import ssd_cuda
@@ -287,6 +292,27 @@ def test_rglru_decode_steps_match_the_scan():
     torch.testing.assert_close(torch.stack(hs, 1), want_h, rtol=1e-4,
                                atol=1e-4)
     torch.testing.assert_close(th, want_T, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dims", HEAD_DIMS, ids=str)
+def test_decode_split_plan_covers_the_cache_within_shared_memory(dims):
+    D, Dv = dims
+    cap = KV_SMEM // (2 * (D + Dv))       # keys whose K and V fit at once
+    for S in (1, 7, 63, 200, 1096, 2048, 4096, 32768):
+        for G in (1, 5, 8, 10, 16):
+            for bkv in (1, 4, 16, 64):
+                n_split, smem = decode_plan(S, D, Dv, G, bkv, 132)
+                assert 1 <= n_split <= S
+                assert n_split * cap >= S
+                assert smem <= 227 * 1024
+
+
+def test_decode_split_plan_fills_the_card_at_the_serve_shapes():
+    # yi-6b: B 4 x 4 KV heads, 1096 slots; recurrentgemma-2b: B 4 x 1 KV
+    # head, a 2048-slot ring, head dim 256.
+    for S, D, G, bkv in ((1096, 128, 8, 16), (2048, 256, 10, 4)):
+        n_split, _ = decode_plan(S, D, D, G, bkv, 132)
+        assert n_split * bkv >= 132
 
 
 ZERO_COUNTS = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
