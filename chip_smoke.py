@@ -10,7 +10,9 @@ ends the script with a non-zero exit and no result line:
               ``nvcc`` per source, all at once) and print the build time.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
               the serving paths' shapes and at ragged, windowed, grouped,
-              resumed and mixed-length ones: bf16 inputs (fp32 dt, A, gates
+              resumed, mixed-length and (SSD) strongly decaying ones, two
+              launches of decode and SSD on one input bitwise equal: bf16
+              inputs (fp32 dt, A, gates
               and states for the scans), plain version in float32, stated
               tolerance; times of kernel, plain version and
               ``F.scaled_dot_product_attention`` where it computes the same
@@ -206,11 +208,13 @@ def phase_build() -> None:
             # it had to serialize (a kernel that lost its overlap).
             if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
-            # Decode attention keeps q and acc of 8 heads in registers: a
-            # spill would put them in local memory on every key.
-            if name == "decode_attention" and "bytes spill" in line \
+            # Decode attention keeps its fragments and the SSD scan its
+            # fp32 state in registers: a spill would put them in local
+            # memory on every key or chunk.
+            if name in ("decode_attention", "ssd_scan") \
+                    and "bytes spill" in line \
                     and any(int(w) for w in line.split() if w.isdigit()):
-                fail(f"decode_attention spills registers: {line.strip()}")
+                fail(f"{name} spills registers: {line.strip()}")
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
@@ -403,17 +407,20 @@ def kernel_ssd(gen: torch.Generator) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    def inputs(b, s, h, p, g, n, init):
+    def inputs(b, s, h, p, g, n, init, decay=1.0):
         return ((randn(b, s, h, p) * 0.5).to(torch.bfloat16),
-                F.softplus(randn(b, s, h)), -torch.exp(randn(h)),
+                F.softplus(randn(b, s, h)), -torch.exp(randn(h)) * decay,
                 (randn(b, s, g, n) * 0.3).to(torch.bfloat16),
                 (randn(b, s, g, n) * 0.3).to(torch.bfloat16),
                 randn(b, h, p, n) * 0.2 if init else None)
 
     serve = (B, PROMPT, 80, 64, 1, 128, 128, False)
     cases = [
-        # name, (B, S, H, P, G, N, chunk, initial_state)
+        # name, (B, S, H, P, G, N, chunk, initial_state[, decay])
         ("serve B4 S1024 H80 P64 G1 N128 chunk128", serve),
+        # A dt << 0: exp(cum) underflows within a step or two.
+        ("strong decay A*300 S256 with initial_state",
+         (2, 256, 4, 64, 1, 128, 128, True, 300.0)),
         ("G2 S=chunk=64", (2, 64, 8, 32, 2, 64, 64, False)),
         ("G4 S320 chunk64 with initial_state", (3, 320, 8, 64, 4, 128, 64,
                                                 True)),
@@ -423,9 +430,10 @@ def kernel_ssd(gen: torch.Generator) -> dict:
          (1, 96, 3, 24, 1, 40, 48, True)),
     ]
     errs = []
-    for name, (b, s, h, p, g, n, chunk, init) in cases:
-        x, dt, A, Bm, Cm, h0 = inputs(b, s, h, p, g, n, init)
+    for name, (b, s, h, p, g, n, chunk, init, *decay) in cases:
+        x, dt, A, Bm, Cm, h0 = inputs(b, s, h, p, g, n, init, *decay)
         y, state = ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)
+        again = ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)
         want_y, want_state = ssd_plain(x.float(), dt, A, Bm.float(),
                                        Cm.float(), chunk=chunk,
                                        initial_state=h0)
@@ -433,6 +441,10 @@ def kernel_ssd(gen: torch.Generator) -> dict:
         errs.append(check_close(f"ssd_scan {name} y", y, want_y, SCAN_TOL))
         errs.append(check_close(f"ssd_scan {name} state", state, want_state,
                                 SCAN_TOL))
+        if not (torch.equal(y, again[0]) and torch.equal(state, again[1])):
+            fail(f"ssd_scan {name}: two launches on one input differ")
+    print("[kernels] ssd_scan: two launches bitwise equal in every case",
+          flush=True)
 
     b, s, h, p, g, n, chunk, _ = serve
     x, dt, A, Bm, Cm, _ = inputs(b, s, h, p, g, n, False)
@@ -508,7 +520,7 @@ def kernel_rglru(gen: torch.Generator) -> dict:
 
 KINDS = {   # device-time classes of the profiler's kernel names
     "attention kernels": ("flash_fwd_kernel", "decode_attention_kernel"),
-    "scan kernels": ("ssd_chunk_scan_kernel", "rglru_scan_kernel"),
+    "scan kernels": ("ssd_scan_kernel", "rglru_scan_kernel"),
     "matmuls": ("gemm", "xmma", "cutlass", "nvjet"),
 }
 

@@ -1,7 +1,10 @@
 """Mamba-2 SSD scan: the CUDA kernel's wrapper and its plain version.
 
 The kernel (``csrc/ssd_scan.cu``) replaces the Pallas TPU kernel
-``repro.kernels.ssd_scan.ssd_pallas``.  Its wrapper takes CUDA tensors in
+``repro.kernels.ssd_scan.ssd_pallas``: one CTA per (batch, head) walks the
+chunks with the products on the tensor cores and the fp32 state in
+registers; :func:`smem_bytes` and :func:`state_tiles_per_warp` mirror its
+shared-memory layout and its state tiling.  Its wrapper takes CUDA tensors in
 the JAX package's layout (x ``[B, S, H, P]`` bf16, dt ``[B, S, H]`` fp32,
 A ``[H]`` fp32, B/C ``[B, S, G, N]`` bf16, optional initial state ``[B, H,
 P, N]`` fp32), checks them, allocates y (bf16) and the final state (fp32)
@@ -22,6 +25,41 @@ from . import _build
 
 #: Dynamic shared memory one CTA may use on an H100 (227 KB opt-in).
 MAX_SMEM = 232448
+# The kernel's block: 8 warps; chunk rows up to 256 (two 16-row tiles per
+# warp), P up to 128 (its y accumulator), at most 16 n8 tiles of the state
+# per warp (its registers); bf16 rows padded by 8 elements.
+_WARPS, _MAX_Q, _MAX_P, _MAX_STATE_TILES, _PAD = 8, 256, 128, 16, 8
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def smem_bytes(Q: int, P: int, N: int) -> int:
+    """Shared memory of one CTA for chunk ``Q``, head dim ``P`` and state
+    dim ``N``, each padded to a multiple of 16: two staging buffers of x
+    ``[Q][P + 8]``, B and C ``[Q][N + 8]`` (bf16) and dt ``[Q]`` (fp32);
+    the bf16 state ``[P][N + 8]``; cum and w ``[Q]`` (fp32); the partial y
+    tiles warps hand over ``[4][16 P]`` (fp32); each warp's outgoing y tile
+    ``[16][P + 8]`` (bf16); two 8-byte mbarriers.  Mirrors ``Layout`` in
+    ``csrc/ssd_scan.cu``."""
+    Qp, Pp, Np = _round16(Q), _round16(P), _round16(N)
+    stage = 2 * Qp * (Pp + _PAD) + 2 * 2 * Qp * (Np + _PAD) + 4 * Qp
+    return (2 * stage + 2 * Pp * (Np + _PAD) + 2 * 4 * Qp
+            + 4 * (_WARPS // 2) * 16 * Pp + 2 * _WARPS * 16 * (Pp + _PAD)
+            + 16)
+
+
+def state_tiles_per_warp(P: int, N: int) -> int:
+    """n8 tiles of the fp32 state each warp holds in registers: the warps
+    form a grid over P's 16-row tiles (a power of two) and N's n8 tiles.
+    Mirrors ``Tiling`` in ``csrc/ssd_scan.cu``."""
+    wm = 1
+    while wm < _round16(P) // 16:
+        wm *= 2
+    wn = max(1, _WARPS // wm)
+    nw = -(-(_round16(N) // 8) // wn)
+    return nw + nw % 2
 
 
 def _chunk_len(S: int, chunk: int) -> int:
@@ -118,12 +156,20 @@ def ssd_cuda(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
     if G == 0 or H % G:
         raise ValueError(f"n_heads {H} is not a multiple of n_groups {G}")
     Q = _chunk_len(S, chunk)
-    lib = _lib()
-    smem = lib.ssd_scan_smem_bytes(Q, P, N)
+    smem = smem_bytes(Q, P, N)
     if smem > MAX_SMEM:
         raise ValueError(f"chunk {Q}, head dim {P}, state dim {N} need "
                          f"{smem} bytes of shared memory (at most "
                          f"{MAX_SMEM})")
+    if Q > _MAX_Q or P > _MAX_P or P == 0 or N == 0:
+        raise ValueError(f"the kernel takes chunks of at most {_MAX_Q} and "
+                         f"head dims 1..{_MAX_P}, got chunk {Q}, P {P}, "
+                         f"N {N}")
+    if state_tiles_per_warp(P, N) > _MAX_STATE_TILES:
+        raise ValueError(f"a [{P}, {N}] state does not fit the kernel's "
+                         f"registers (at most {_MAX_STATE_TILES} n8 tiles "
+                         f"per warp)")
+    lib = _lib()
     y = torch.empty_like(x)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     if Bsz == 0 or H == 0:

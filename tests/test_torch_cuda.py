@@ -31,7 +31,12 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain,
 )
 from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
-from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
+from repro_torch.kernels.ssd_scan import (
+    _lib as ssd_lib,
+    smem_bytes as ssd_smem_bytes,
+    ssd_cuda,
+    ssd_plain,
+)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -175,16 +180,26 @@ SSD = [
     (3, 320, 8, 64, 4, 128, 64, True),       # several chunks, resumed
     (1, 96, 3, 24, 1, 40, 48, True),         # ragged tiles
     (2, 256, 4, 64, 1, 128, 128, False),     # the mamba2-2.7b head shape
+    (4, 1024, 80, 64, 1, 128, 128, False),   # mamba2-2.7b's serve prefill
+    # P and N no multiple of 8 (plain loads, not 16-byte copies); P odd.
+    (2, 96, 3, 21, 1, 35, 48, True),
+    # Q no multiple of 16; Q > 128 (two row tiles for some warps); Q 256.
+    (1, 80, 2, 32, 1, 48, 40, True),
+    (1, 400, 2, 64, 1, 64, 200, True),
+    (1, 512, 2, 32, 1, 32, 256, False),
+    # The widest states the registers take: 16 n8 tiles a warp; P 128.
+    (1, 128, 2, 64, 1, 256, 64, True),
+    (1, 128, 2, 128, 1, 64, 64, True),
 ]
 
 
-def _ssd_inputs(gen, B, S, H, P, G, N, init):
+def _ssd_inputs(gen, B, S, H, P, G, N, init, decay=1.0):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
     x = (randn(B, S, H, P) * 0.5).to(torch.bfloat16)
     dt = torch.nn.functional.softplus(randn(B, S, H))
-    A = -torch.exp(randn(H))
+    A = -torch.exp(randn(H)) * decay
     Bm = (randn(B, S, G, N) * 0.3).to(torch.bfloat16)
     Cm = (randn(B, S, G, N) * 0.3).to(torch.bfloat16)
     h0 = randn(B, H, P, N) * 0.2 if init else None
@@ -196,11 +211,36 @@ def test_ssd_kernel_matches_plain(case, gen):
     B, S, H, P, G, N, chunk, init = case
     x, dt, A, Bm, Cm, h0 = _ssd_inputs(gen, B, S, H, P, G, N, init)
     y, state = ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)
+    again = ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)
     want_y, want_state = ssd_plain(x.float(), dt, A, Bm.float(), Cm.float(),
                                    chunk=chunk, initial_state=h0)
     torch.cuda.synchronize()
     _close(y, want_y, SCAN_TOL)
     _close(state, want_state, SCAN_TOL)
+    assert torch.equal(y, again[0]) and torch.equal(state, again[1]), \
+        "two launches on one input differ"
+
+
+def test_ssd_kernel_survives_strong_decay(gen):
+    """A dt << 0: exp(cum) underflows to 0 within a few steps, and the
+    masked exponents above the diagonal would overflow; no NaN may come of
+    either."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(gen, 2, 256, 4, 64, 1, 128, True,
+                                       decay=300.0)
+    y, state = ssd_cuda(x, dt, A, Bm, Cm, chunk=128, initial_state=h0)
+    want_y, want_state = ssd_plain(x.float(), dt, A, Bm.float(), Cm.float(),
+                                   chunk=128, initial_state=h0)
+    torch.cuda.synchronize()
+    assert not torch.isnan(y).any() and not torch.isnan(state).any()
+    _close(y, want_y, SCAN_TOL)
+    _close(state, want_state, SCAN_TOL)
+
+
+def test_ssd_smem_mirror_matches_the_kernel(gen):
+    lib = ssd_lib()
+    for Q, P, N in [(128, 64, 128), (48, 24, 40), (64, 32, 64), (16, 16, 16),
+                    (200, 64, 64), (256, 64, 256), (40, 21, 35)]:
+        assert lib.ssd_scan_smem_bytes(Q, P, N) == ssd_smem_bytes(Q, P, N)
 
 
 RGLRU = [
@@ -273,6 +313,12 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="shared memory"):
         ssd_cuda(*_ssd_inputs(gen, 1, 256, 1, 64, 1, 256, False)[:5],
                  chunk=256)
+    with pytest.raises(ValueError, match="registers"):
+        ssd_cuda(*_ssd_inputs(gen, 1, 16, 1, 64, 1, 512, False)[:5],
+                 chunk=16)
+    with pytest.raises(ValueError, match="head dims"):
+        ssd_cuda(*_ssd_inputs(gen, 1, 16, 1, 256, 1, 16, False)[:5],
+                 chunk=16)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_cuda(x.cpu(), dt, A, Bm, Cm, chunk=16)
     x, ga, gi, la, _ = _rglru_inputs(gen, 1, 8, 16, False)

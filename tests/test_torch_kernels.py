@@ -28,7 +28,12 @@ from repro_torch.kernels.decode_attention import (
 )
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rglru_scan import rglru_cuda
-from repro_torch.kernels.ssd_scan import ssd_cuda
+from repro_torch.kernels.ssd_scan import (
+    MAX_SMEM as SSD_MAX_SMEM,
+    smem_bytes as ssd_smem_bytes,
+    ssd_cuda,
+    state_tiles_per_warp,
+)
 
 # The sweeps of tests/test_kernels.py, dtypes by name.
 ATTN_SWEEP = [
@@ -313,6 +318,62 @@ def test_decode_split_plan_fills_the_card_at_the_serve_shapes():
     for S, D, G, bkv in ((1096, 128, 8, 16), (2048, 256, 10, 4)):
         n_split, _ = decode_plan(S, D, D, G, bkv, 132)
         assert n_split * bkv >= 132
+
+
+# (Q, P, N): mamba2-2.7b's serve shape, the ragged and grouped cases of
+# tests/test_torch_cuda.py, a chunk of 256, and the widest states taken.
+SSD_KERNEL_SHAPES = [(128, 64, 128), (48, 24, 40), (64, 32, 64), (16, 16, 16),
+                     (200, 64, 64), (256, 32, 32), (64, 64, 256),
+                     (64, 128, 64), (48, 21, 35)]
+
+
+@pytest.mark.parametrize("shape", SSD_KERNEL_SHAPES, ids=str)
+def test_ssd_smem_mirror_equals_the_kernel_layout(shape):
+    """``smem_bytes`` (what the wrapper checks) against the layout written
+    out region by region, as the note at the head of ``ssd_scan.cu`` gives
+    it; every taken shape fits an H100 CTA."""
+    Q, P, N = shape
+    Qp, Pp, Np = (-(-v // 16) * 16 for v in shape)
+    bf16, f32, warps = 2, 4, 8
+    x = Qp * (Pp + 8) * bf16
+    b_and_c = 2 * Qp * (Np + 8) * bf16
+    dt = Qp * f32
+    state = Pp * (Np + 8) * bf16
+    cum_and_w = 2 * Qp * f32
+    partials = warps // 2 * 16 * Pp * f32
+    y_out = warps * 16 * (Pp + 8) * bf16
+    mbarriers = 2 * 8
+    assert ssd_smem_bytes(Q, P, N) == 2 * (x + b_and_c + dt) + state \
+        + cum_and_w + partials + y_out + mbarriers
+    assert ssd_smem_bytes(Q, P, N) <= SSD_MAX_SMEM
+
+
+def test_ssd_smem_at_the_serve_shape_and_past_the_limit():
+    assert ssd_smem_bytes(128, 64, 128) == 230416
+    assert ssd_smem_bytes(256, 64, 256) > SSD_MAX_SMEM
+
+
+@pytest.mark.parametrize("shape", SSD_KERNEL_SHAPES, ids=str)
+def test_ssd_state_tiling_covers_the_state_once(shape):
+    """The kernel's warp grid over the state (``Tiling`` in the source):
+    every 16 x 8 tile of the padded [P, N] state has exactly one warp, and
+    no warp holds more than the 16 tiles its registers take."""
+    _, P, N = shape
+    mt, nt = -(-P // 16), -(-N // 16) * 2
+    wm = 1
+    while wm < mt:
+        wm *= 2
+    nw = state_tiles_per_warp(P, N)
+    assert nw % 2 == 0 and nw <= 16
+    owners = {}
+    for warp in range(8):
+        m, n0 = warp % wm, (warp // wm) * nw
+        if m >= mt:
+            continue
+        for n in range(n0, min(n0 + nw, nt)):
+            owners.setdefault((m, n), []).append(warp)
+    assert sorted(owners) == [(m, n) for m in range(mt) for n in range(nt)]
+    assert all(len(w) == 1 for w in owners.values())
 
 
 ZERO_COUNTS = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
