@@ -10,8 +10,9 @@ ends the script with a non-zero exit and no result line:
               ``nvcc`` per source, all at once) and print the build time.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
               the serving paths' shapes and at ragged, windowed, grouped,
-              resumed, mixed-length and (SSD) strongly decaying ones, two
-              launches of decode and SSD on one input bitwise equal: bf16
+              resumed, mixed-length and (scans) strongly decaying ones,
+              two launches of decode and the scans on one input bitwise
+              equal: bf16
               inputs (fp32 dt, A, gates
               and states for the scans), plain version in float32, stated
               tolerance; times of kernel, plain version and
@@ -34,7 +35,8 @@ ends the script with a non-zero exit and no result line:
 
 The line before the last is a JSON object with one entry per kernel and
 timed shape (flash: yi-6b's and recurrentgemma-2b's prefill; decode:
-their decode steps; launches summed over both serve paths); the last line is
+their decode steps; RG-LRU: recurrentgemma-2b's prefill at B 4 and at B 1;
+launches summed over both serve paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -208,10 +210,10 @@ def phase_build() -> None:
             # it had to serialize (a kernel that lost its overlap).
             if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
-            # Decode attention keeps its fragments and the SSD scan its
-            # fp32 state in registers: a spill would put them in local
-            # memory on every key or chunk.
-            if name in ("decode_attention", "ssd_scan") \
+            # Decode attention keeps its fragments, the SSD scan its fp32
+            # state and the RG-LRU scan its steps' maps in registers: a
+            # spill would put them in local memory on every key or chunk.
+            if name in ("decode_attention", "ssd_scan", "rglru_scan") \
                     and "bytes spill" in line \
                     and any(int(w) for w in line.split() if w.isdigit()):
                 fail(f"{name} spills registers: {line.strip()}")
@@ -221,7 +223,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     out = {}
     out.update(kernels_attention(gen))
     out["ssd_scan"] = [kernel_ssd(gen)]
-    out["rglru_scan"] = [kernel_rglru(gen)]
+    out["rglru_scan"] = kernel_rglru(gen)
     return out
 
 
@@ -465,57 +467,89 @@ def kernel_ssd(gen: torch.Generator) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def kernel_rglru(gen: torch.Generator) -> dict:
-    """The RG-LRU scan against its plain (sequential fp32) version; times
-    at the recurrentgemma-2b prefill shape.  No single PyTorch call
+def kernel_rglru(gen: torch.Generator) -> list:
+    """The RG-LRU scan against its plain (sequential fp32) version, two
+    launches on one input bitwise equal; times at the recurrentgemma-2b
+    prefill shape and at one request's (B 1).  No single PyTorch call
     computes the recurrence, so there is no library time."""
     from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    def inputs(b, s, c, init):
+    def inputs(b, s, c, init, decay=1.0, gate_a_scale=1.0):
         return ((randn(b, s, c) * 0.5).to(torch.bfloat16),
-                torch.sigmoid(randn(b, s, c)), torch.sigmoid(randn(b, s, c)),
-                -torch.nn.functional.softplus(randn(c)),
+                torch.sigmoid(randn(b, s, c)) * gate_a_scale,
+                torch.sigmoid(randn(b, s, c)),
+                -torch.nn.functional.softplus(randn(c)) * decay,
                 randn(b, c) if init else None)
 
-    serve = (B, PROMPT, 2560, False)
+    serve, single = (B, PROMPT, 2560, False), (1, PROMPT, 2560, False)
     cases = [
+        # name, (B, S, C, initial_state[, log_a scale[, gate_a scale]])
         ("serve B4 S1024 C2560", serve),
+        ("B1 S1024 C2560", single),
         ("S300 C384 with initial_state", (2, 300, 384, True)),
         ("S77 C100", (3, 77, 100, False)),
+        # TMA route, ragged: C a multiple of 8 but not of the 32-channel
+        # tile, S not a multiple of the 64-step chunk.
+        ("ragged S333 C200 with initial_state", (2, 333, 200, True)),
+        # log_a x 100: products of a (and a) underflow to 0.
+        ("strong decay log_a*100 S300 C256", (2, 300, 256, True, 100.0)),
+        # gate_a ~ 0: a ~ 1, beta ~ 0.
+        ("near one gate_a*1e-6 S300 C256", (2, 300, 256, True, 1.0, 1e-6)),
     ]
     errs = []
-    for name, (b, s, c, init) in cases:
-        x, ga, gi, la, h0 = inputs(b, s, c, init)
+    for name, (b, s, c, init, *scales) in cases:
+        x, ga, gi, la, h0 = inputs(b, s, c, init, *scales)
         h, state = rglru_cuda(x, ga, gi, la, initial_state=h0)
+        again = rglru_cuda(x, ga, gi, la, initial_state=h0)
         want_h, want_state = rglru_plain(x.float(), ga, gi, la,
                                          initial_state=h0)
         torch.cuda.synchronize()
         errs.append(check_close(f"rglru_scan {name} h", h, want_h, SCAN_TOL))
         errs.append(check_close(f"rglru_scan {name} state", state,
                                 want_state, SCAN_TOL))
-
-    b, s, c, _ = serve
-    x, ga, gi, la, _ = inputs(b, s, c, False)
-    h, state = rglru_cuda(x, ga, gi, la)
-    # per element: 2 exp, a sqrt and ~7 multiply-adds, in fp32
-    flops = 10.0 * b * s * c
-    total = nbytes(x, ga, gi, la, h, state)
-    b_ms, b_by = bound(flops, total, PEAK_FP32)
-    ms = device_ms(lambda: rglru_cuda(x, ga, gi, la), 20)
-    # The plain version is a Python loop over the 1024 steps, ~10k small
-    # operations: more than the launch queue holds behind device_ms's
-    # sleep, so it is timed back to back (host-paced, as it runs).
-    plain_ms = wall_ms(lambda: rglru_plain(x, ga, gi, la), 2)
-    print(f"[kernels] rglru_scan serve B{b} S{s} C{c}: kernel {ms:.4f} ms on "
-          f"the device, plain {plain_ms:.4f} ms (back to back), library "
-          f"none, bound {b_ms:.4f} ms ({b_by}; {total / 1e6:.2f} MB)",
+        if not (torch.equal(h, again[0]) and torch.equal(state, again[1])):
+            fail(f"rglru_scan {name}: two launches on one input differ")
+    print("[kernels] rglru_scan: two launches bitwise equal in every case",
           flush=True)
-    return dict(shape=f"B{b} S{s} C{c}", max_abs_err=max(errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+
+    def time_rglru(b, s, c, label):
+        """Times with input copies in turn, at least 100 MB of them, so the
+        50 MB L2 does not hold a launch's inputs (10 bytes an element: the
+        serve shape's 105 MB need one copy, B 1 four)."""
+        copies = [inputs(b, s, c, False)[:4]
+                  for _ in range(-(-100_000_000 // (b * s * c * 10)))]
+        turn = [0]
+
+        def run(fn):
+            args = copies[turn[0] % len(copies)]
+            turn[0] += 1
+            return fn(*args)
+
+        x, ga, gi, la = copies[0]
+        h, state = rglru_cuda(x, ga, gi, la)
+        # per element: 2 exp, a sqrt and ~7 multiply-adds, in fp32
+        flops = 10.0 * b * s * c
+        total = nbytes(x, ga, gi, la, h, state)
+        b_ms, b_by = bound(flops, total, PEAK_FP32)
+        ms = device_ms(lambda: run(rglru_cuda), 100)
+        # The plain version is a Python loop over the 1024 steps, ~10k small
+        # operations: more than the launch queue holds behind device_ms's
+        # sleep, so it is timed back to back (host-paced, as it runs).
+        plain_ms = wall_ms(lambda: run(rglru_plain), 2)
+        print(f"[kernels] rglru_scan {label} B{b} S{s} C{c}: kernel {ms:.4f} "
+              f"ms on the device, plain {plain_ms:.4f} ms (back to back), "
+              f"library none, bound {b_ms:.4f} ms ({b_by}; "
+              f"{total / 1e6:.2f} MB; kernel at {b_ms / ms:.1%} of it)",
+              flush=True)
+        return dict(shape=f"B{b} S{s} C{c}", max_abs_err=max(errs), ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None)
+
+    return [time_rglru(*serve[:3], "serve"),
+            time_rglru(*single[:3], "one request")]
 
 
 KINDS = {   # device-time classes of the profiler's kernel names

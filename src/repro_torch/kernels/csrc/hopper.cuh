@@ -1,5 +1,5 @@
 // Small PTX helpers for Hopper (sm_90a) kernels: mbarriers, asynchronous
-// copies, TMA tensor loads, ldmatrix and mma.sync, wgmma shared-memory
+// copies, TMA tensor loads and stores, ldmatrix and mma.sync, wgmma shared-memory
 // descriptors and the wgmma products in the widths the port's kernels use.
 // Device code only; include after <cuda.h> (for CUtensorMap).
 //
@@ -59,13 +59,15 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
 }
 
 // Wait until the phase with this parity has completed.  A copy that never
-// lands (a fault in the caller's byte count) traps after ~2^28 polls of a
-// few hundred nanoseconds each instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+// lands (a fault in the caller's byte count) traps after `max_polls` polls
+// (by default ~2^28, of a few hundred nanoseconds each) instead of hanging
+// the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity,
+                                          uint32_t max_polls = 1u << 28) {
     const uint32_t addr = smem_u32(bar);
     uint32_t polls = 0;
     while (!mbar_try_wait(addr, parity)) {
-        if (++polls == (1u << 28)) __trap();
+        if (++polls == max_polls) __trap();
     }
 }
 
@@ -91,6 +93,20 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 }
 
 // --------------------------------------------------------------------- TMA
+// Copy one box of a rank-3 tensor map, at coordinates (c0, c1, c2)
+// (innermost first), into shared memory; completes `bytes` on `bar`.
+// Elements outside the tensor are filled with zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
 // Copy one box of a rank-4 tensor map, at coordinates (c0, c1, c2, c3)
 // (innermost first), into shared memory; completes `bytes` on `bar`.
 // Elements outside the tensor are filled with zeros.
@@ -103,6 +119,39 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
+}
+
+// Copy a box from shared memory to a rank-3 tensor map at (c0, c1, c2),
+// in the caller's bulk-async group; the parts of the box outside the tensor
+// are not written.  Order the threads' earlier writes of `src` before it
+// with fence_proxy_async() and a barrier.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+        " [%0, {%2, %3, %4}], [%1];\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+           "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy (a
+// TMA store that reads them).
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Close this thread's bulk-async group of TMA stores.
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk-async groups still read their
+// shared-memory sources.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
 }
 
 // -------------------------------------------------------- ldmatrix, mma.sync

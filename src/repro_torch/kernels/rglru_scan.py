@@ -8,6 +8,11 @@ an optional fp32 initial state ``[B, C]`` -- checks them, allocates h
 (bf16) and the final state (fp32) and launches on PyTorch's current
 stream.  Unlike the Pallas kernel it takes ``initial_state`` itself.  It
 raises on anything the kernel does not take; it never falls back.
+
+The kernel's launch geometry, mirrored here from the source for the
+tests: a CTA per (batch, tile of ``TILE`` channels) walks chunks of
+``CHUNK`` steps, its ``WARPS`` warps scanning sub-segments of
+``CHUNK // WARPS`` steps.
 """
 
 from __future__ import annotations
@@ -19,6 +24,10 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, ref
+
+
+# csrc/rglru_scan.cu: T, TILE, WARPS.
+CHUNK, TILE, WARPS = 64, 32, 8
 
 
 def rglru_plain(x, gate_a, gate_i, log_a, *,

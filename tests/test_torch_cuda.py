@@ -249,16 +249,20 @@ RGLRU = [
     (2, 300, 384, True),      # S not a multiple of 256
     (3, 77, 100, False),      # C not a multiple of the block
     (4, 1024, 2560, False),   # the recurrentgemma-2b prefill shape
+    (1, 1024, 2560, False),   # one request's prefill at full width
+    # TMA route with ragged edges: C a multiple of 8 but not of the 32-
+    # channel tile, S not a multiple of the 64-step chunk.
+    (2, 333, 200, True),
 ]
 
 
-def _rglru_inputs(gen, B, S, C, init):
+def _rglru_inputs(gen, B, S, C, init, decay=1.0):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
     x = (randn(B, S, C) * 0.5).to(torch.bfloat16)
     ga, gi = torch.sigmoid(randn(B, S, C)), torch.sigmoid(randn(B, S, C))
-    la = -torch.nn.functional.softplus(randn(C))
+    la = -torch.nn.functional.softplus(randn(C)) * decay
     return x, ga, gi, la, randn(B, C) if init else None
 
 
@@ -266,10 +270,41 @@ def _rglru_inputs(gen, B, S, C, init):
 def test_rglru_kernel_matches_plain(case, gen):
     x, ga, gi, la, h0 = _rglru_inputs(gen, *case)
     h, state = rglru_cuda(x, ga, gi, la, initial_state=h0)
+    again = rglru_cuda(x, ga, gi, la, initial_state=h0)
     want_h, want_state = rglru_plain(x.float(), ga, gi, la, initial_state=h0)
     torch.cuda.synchronize()
     _close(h, want_h, SCAN_TOL)
     _close(state, want_state, SCAN_TOL)
+    assert torch.equal(h, again[0]) and torch.equal(state, again[1]), \
+        "two launches on one input differ"
+
+
+@pytest.mark.parametrize("kind", ["strong decay", "near one"])
+def test_rglru_kernel_survives_extreme_decays(kind, gen):
+    """log_a x 100: each sub-segment's product of a underflows to 0 (and a
+    itself); gate_a ~ 0: a ~ 1 and beta ~ 0.  No NaN may come of either."""
+    x, ga, gi, la, h0 = _rglru_inputs(gen, 2, 300, 256, True,
+                                      decay=100.0 if kind == "strong decay"
+                                      else 1.0)
+    if kind == "near one":
+        ga = ga * 1e-6
+    h, state = rglru_cuda(x, ga, gi, la, initial_state=h0)
+    want_h, want_state = rglru_plain(x.float(), ga, gi, la, initial_state=h0)
+    torch.cuda.synchronize()
+    assert not torch.isnan(h).any() and not torch.isnan(state).any()
+    _close(h, want_h, SCAN_TOL)
+    _close(state, want_state, SCAN_TOL)
+
+
+@pytest.mark.parametrize("C", [256, 100], ids=["C256", "C100"])
+def test_rglru_kernel_takes_an_empty_sequence(C, gen):
+    """S 0: h is empty and the state is the initial state, or zeros."""
+    x, ga, gi, la, h0 = _rglru_inputs(gen, 2, 0, C, True)
+    h, state = rglru_cuda(x, ga, gi, la, initial_state=h0)
+    _, zeros = rglru_cuda(x, ga, gi, la)
+    torch.cuda.synchronize()
+    assert h.shape == (2, 0, C)
+    assert torch.equal(state, h0) and not zeros.any()
 
 
 def test_ops_route_cuda_tensors_to_the_kernels(gen):

@@ -27,6 +27,7 @@ from repro_torch.kernels.decode_attention import (
     plan as decode_plan,
 )
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels import rglru_scan as rglru_mod
 from repro_torch.kernels.rglru_scan import rglru_cuda
 from repro_torch.kernels.ssd_scan import (
     MAX_SMEM as SSD_MAX_SMEM,
@@ -297,6 +298,109 @@ def test_rglru_decode_steps_match_the_scan():
     torch.testing.assert_close(torch.stack(hs, 1), want_h, rtol=1e-4,
                                atol=1e-4)
     torch.testing.assert_close(th, want_T, rtol=1e-4, atol=1e-4)
+
+
+def _rglru_by_chunks(x, ga, gi, la, h0, c=8.0):
+    """The CUDA kernel's order of arithmetic, in fp32 on the CPU: S and C
+    zero-padded to whole chunks and tiles (a zero row is the identity map
+    h -> 1 h + 0); per chunk, each warp's sub-segment composed into a map
+    (A, B); warp w's entering state the chunk's, through the maps of warps
+    0 .. w - 1 in that order; then its steps rescanned; the last warp's h
+    enters the next chunk."""
+    T, W = rglru_mod.CHUNK, rglru_mod.WARPS
+    sub = T // W
+    Bsz, S, C = x.shape
+    nc, Cp = -(-S // T), -(-C // rglru_mod.TILE) * rglru_mod.TILE
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, Cp - C, 0, nc * T - S))
+
+    xp, gap, gip = pad(x), pad(ga), pad(gi)
+    lap = torch.nn.functional.pad(la, (0, Cp - C)) * c
+    h = (torch.nn.functional.pad(h0, (0, Cp - C)) if h0 is not None
+         else torch.zeros((Bsz, Cp)))
+    out = torch.zeros((Bsz, nc * T, Cp))
+    for chunk in range(nc):
+        rows = slice(chunk * T, (chunk + 1) * T)
+        log_at = lap * gap[:, rows]
+        a = torch.exp(log_at)
+        b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_at), min=0.0)) \
+            * (gip[:, rows] * xp[:, rows])
+        a, b = a.view(Bsz, W, sub, Cp), b.view(Bsz, W, sub, Cp)
+        maps_a, maps_b = torch.ones((Bsz, W, Cp)), torch.zeros((Bsz, W, Cp))
+        for k in range(sub):
+            maps_a = a[:, :, k] * maps_a
+            maps_b = a[:, :, k] * maps_b + b[:, :, k]
+        for w in range(W):
+            hw = h
+            for j in range(w):
+                hw = maps_a[:, j] * hw + maps_b[:, j]
+            for k in range(sub):
+                hw = a[:, w, k] * hw + b[:, w, k]
+                out[:, chunk * T + w * sub + k] = hw
+        h = hw
+    return out[:, :S, :C], h[:, :C]
+
+
+RGLRU_CHUNKED = [
+    # (B, S, C, decay, initial_state): ragged S and C; one whole chunk and
+    # tile; S 0; decay 10 makes each sub-segment's product of a underflow
+    # to 0 while every a stays above 0, decay 100 every a itself.
+    (2, 300, 100, 1.0, True),
+    (1, 77, 40, 1.0, False),
+    (1, 64, 32, 1.0, True),
+    (3, 130, 33, 10.0, True),
+    (2, 200, 72, 100.0, True),
+    (2, 0, 40, 1.0, True),
+]
+
+
+@pytest.mark.parametrize("case", RGLRU_CHUNKED, ids=str)
+def test_rglru_chunked_composition_matches_the_sequential_scan(case):
+    B, S, C, decay, init = case
+    rng = np.random.default_rng(320 + RGLRU_CHUNKED.index(case))
+    f32 = np.float32
+
+    def sigmoid(a):
+        return 1.0 / (1.0 + np.exp(-a))
+
+    x = torch.from_numpy(rng.standard_normal((B, S, C), dtype=f32) * 0.5)
+    ga = torch.from_numpy(sigmoid(rng.standard_normal((B, S, C), dtype=f32)))
+    gi = torch.from_numpy(sigmoid(rng.standard_normal((B, S, C), dtype=f32)))
+    la = torch.from_numpy(
+        -np.log1p(np.exp(rng.standard_normal((C,), dtype=f32))) * decay)
+    h0 = torch.from_numpy(rng.standard_normal((B, C), dtype=f32)) \
+        if init else None
+    got_h, got_T = _rglru_by_chunks(x, ga, gi, la, h0)
+    want_h, want_T = ref.rglru_scan(x, ga, gi, la, h0)
+    assert torch.isfinite(got_h).all() and torch.isfinite(got_T).all()
+    torch.testing.assert_close(got_h, want_h, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_T, want_T, rtol=1e-5, atol=1e-5)
+    if decay > 1.0:
+        # The decay really underflows: in the first sub-segment, some
+        # channel's product of a is 0 (decay 10: with every a above 0).
+        a = torch.exp(8.0 * la * ga[:, :rglru_mod.CHUNK // rglru_mod.WARPS])
+        gone = a.prod(dim=1) == 0
+        if decay == 10.0:
+            gone &= (a > 0).all(dim=1)
+        assert bool(gone.any())
+
+
+def test_rglru_geometry_mirrors_the_kernel_source():
+    """``CHUNK``, ``TILE`` and ``WARPS`` (what the test above composes by)
+    equal the constants of ``csrc/rglru_scan.cu``."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "rglru_scan.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert (const("T"), const("TILE"), const("WARPS")) == \
+        (rglru_mod.CHUNK, rglru_mod.TILE, rglru_mod.WARPS)
+    assert rglru_mod.CHUNK % rglru_mod.WARPS == 0
 
 
 @pytest.mark.parametrize("dims", HEAD_DIMS, ids=str)
