@@ -19,24 +19,31 @@ ends the script with a non-zero exit and no result line:
               ``F.scaled_dot_product_attention`` where it computes the same
               function (a yardstick the port never calls) with CUDA events,
               and the least time the card could take for the same work.
-4. model   -- full-width yi-6b, mamba2-2.7b and recurrentgemma-2b in bf16
-              (random weights from a seed): prefill and 4 decode steps
-              through the kernels against the same weights through the
-              plain versions; relative L2 error of the logits against a
-              stated bound, argmax agreement; prefill and decode-step times
-              and where a decode step's device time goes.
-5. serve   -- the serving entry point at full width on two paths, each with
-              the kernels' launch counters set to 0 just before and read
-              just after: ``--jobs yi-6b:8,yi-6b:2`` (flash and decode
-              attention) and ``--jobs mamba2-2.7b:8,recurrentgemma-2b:2``
-              (all four kernels), both ``--policy srtf --compare-fifo
-              --batch 4 --prompt-len 1024 --tokens-per-block 8``; every job
-              must finish and every kernel of the path must have run.
+4. model   -- full-width yi-6b, mamba2-2.7b, recurrentgemma-2b, minicpm3-4b
+              and deepseek-v2-lite-16b in bf16 (random weights from a
+              seed): prefill and 4 decode steps through the kernels against
+              the same weights through the plain versions; relative L2
+              error of the logits against a stated bound, argmax agreement
+              (in the MoE model the plain runs take the kernel run's
+              experts, and the share of tokens they would have routed
+              elsewhere is printed); prefill and decode-step times and
+              where a decode step's device time goes.
+5. serve   -- the serving entry point at full width on three paths, each
+              with the kernels' launch counters set to 0 just before and
+              read just after: ``--jobs yi-6b:8,yi-6b:2`` (flash and decode
+              attention), ``--jobs mamba2-2.7b:8,recurrentgemma-2b:2`` (all
+              four kernels) and ``--jobs minicpm3-4b:8,deepseek-v2-lite-16b:2``
+              (flash at MLA's head dims; MLA decodes with plain matrix
+              products, as in the JAX package), all ``--policy srtf
+              --compare-fifo --batch 4 --prompt-len 1024 --tokens-per-block
+              8``; every job must finish and every kernel of the path must
+              have run.
 
 The line before the last is a JSON object with one entry per kernel and
-timed shape (flash: yi-6b's and recurrentgemma-2b's prefill; decode:
-their decode steps; RG-LRU: recurrentgemma-2b's prefill at B 4 and at B 1;
-launches summed over both serve paths); the last line is
+timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's and
+deepseek-v2-lite's prefill; decode: yi-6b's and recurrentgemma-2b's decode
+steps; RG-LRU: recurrentgemma-2b's prefill at B 4 and at B 1; launches
+summed over the serve paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -81,7 +88,12 @@ SCAN_TOL = 3e-2
 # it: the floor is the error of the plain path in bf16 against the plain
 # path in fp32 on the same (bf16-valued) weights.  Two paths with
 # independent roundings of that size differ by ~1.4 floor; the bound is
-# twice the floor, and never below the 5e-2 that yi-6b was held to.
+# twice the floor, and never below the 5e-2 that yi-6b was held to.  In a
+# MoE model a rounding can also tip a near tie in the router and send a
+# token to another expert, a difference that would swamp the kernels' own;
+# so the plain runs take the kernel run's experts (gates from their own
+# probabilities), and the run reports the share of tokens each would have
+# sent elsewhere.
 MODEL_REL_L2 = 5e-2
 
 B, PROMPT, TOKENS_PER_BLOCK, LONGEST = 4, 1024, 8, 8
@@ -94,8 +106,10 @@ SERVE_PATHS = [
     ("yi-6b:8,yi-6b:2", ("flash_attention", "decode_attention")),
     ("mamba2-2.7b:8,recurrentgemma-2b:2",
      ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")),
+    ("minicpm3-4b:8,deepseek-v2-lite-16b:2", ("flash_attention",)),
 ]
-MODELS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b")
+MODELS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b", "minicpm3-4b",
+          "deepseek-v2-lite-16b")
 SLEEP_CYCLES = 200_000_000            # device sleep before a timed run
 
 
@@ -155,13 +169,14 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def sdpa(q, k, v, mask=None, causal=False):
+def sdpa(q, k, v, mask=None, causal=False, scale=None):
     """F.scaled_dot_product_attention on the port's layout (the yardstick)."""
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                          is_causal=causal, enable_gqa=True)
+                                          is_causal=causal, scale=scale,
+                                          enable_gqa=True)
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -206,15 +221,16 @@ def phase_build() -> None:
           flush=True)
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            # ptxas -v: registers and spills of every kernel, and any wgmma
-            # it had to serialize (a kernel that lost its overlap).
-            if "registers" in line or "spill" in line or "wgmma" in line:
+            # ptxas -v: each kernel's name, registers and spills, and any
+            # wgmma it had to serialize (a kernel that lost its overlap).
+            if any(w in line for w in ("Function properties", "registers",
+                                       "spill", "wgmma")):
                 print(f"[build] {name}: {line.strip()}", flush=True)
-            # Decode attention keeps its fragments, the SSD scan its fp32
-            # state and the RG-LRU scan its steps' maps in registers: a
-            # spill would put them in local memory on every key or chunk.
-            if name in ("decode_attention", "ssd_scan", "rglru_scan") \
-                    and "bytes spill" in line \
+            # Flash keeps its scores and output rows, decode attention its
+            # fragments, the SSD scan its fp32 state and the RG-LRU scan
+            # its steps' maps in registers: a spill would put them in
+            # local memory on every key tile, key or chunk.
+            if "bytes spill" in line \
                     and any(int(w) for w in line.split() if w.isdigit()):
                 fail(f"{name} spills registers: {line.strip()}")
 
@@ -237,6 +253,7 @@ def kernels_attention(gen: torch.Generator) -> dict:
         flash_attention_cuda,
         flash_attention_plain,
     )
+    from repro_torch.models.mla import padded_qk_dim
 
     dev = torch.device("cuda")
 
@@ -247,67 +264,125 @@ def kernels_attention(gen: torch.Generator) -> dict:
 
     # -- flash attention (prefill) ---------------------------------------
     flash_cases = [
-        # name, B, Sq, Sk, H, KV, D, mask, window, q_offset
-        ("prefill B4 S1024 causal", B, PROMPT, PROMPT, 32, 4, 128, "causal",
-         0, 0),
-        ("ragged Sq200 Sk333 causal q_offset133", 2, 200, 333, 32, 4, 128,
-         "causal", 0, 133),
-        ("ragged Sq77 Sk150 none", 3, 77, 150, 32, 4, 128, "none", 0, 0),
-        ("window S700 w128", 2, 700, 700, 32, 4, 128, "window", 128, 0),
+        # name, B, Sq, Sk, H, KV, (D, Dv), mask, window, q_offset
+        ("prefill B4 S1024 causal", B, PROMPT, PROMPT, 32, 4, (128, 128),
+         "causal", 0, 0),
+        ("ragged Sq200 Sk333 causal q_offset133", 2, 200, 333, 32, 4,
+         (128, 128), "causal", 0, 133),
+        ("ragged Sq77 Sk150 none", 3, 77, 150, 32, 4, (128, 128), "none", 0,
+         0),
+        ("window S700 w128", 2, 700, 700, 32, 4, (128, 128), "window", 128,
+         0),
         ("D256 prefill B4 S1024 H10 KV1 window2048", B, PROMPT, PROMPT, 10,
-         1, 256, "window", 2048, 0),
-        ("D256 ragged Sq77 Sk150 causal q_offset73", 1, 77, 150, 4, 2, 256,
-         "causal", 0, 73),
-        ("D256 window S300 w50", 2, 300, 300, 10, 1, 256, "window", 50, 0),
+         1, (256, 256), "window", 2048, 0),
+        ("D256 ragged Sq77 Sk150 causal q_offset73", 1, 77, 150, 4, 2,
+         (256, 256), "causal", 0, 73),
+        ("D256 window S300 w50", 2, 300, 300, 10, 1, (256, 256), "window",
+         50, 0),
         # Batch edge: B > 1 with Sq, Sk no multiple of 64; the tensor maps
         # zero-fill each batch's ragged edge instead of reading the next.
         ("batch edge B3 Sq150 Sk201 causal q_offset51", 3, 150, 201, 32, 4,
-         128, "causal", 0, 51),
-        ("D256 batch edge B3 Sq99 Sk99 causal", 3, 99, 99, 10, 1, 256,
-         "causal", 0, 0),
+         (128, 128), "causal", 0, 51),
+        ("D256 batch edge B3 Sq99 Sk99 causal", 3, 99, 99, 10, 1,
+         (256, 256), "causal", 0, 0),
         # Ring phase: the first visible key tile is odd (1, 2, 3 at D 128;
         # 3, 5 at D 256), so the two-stage K/V ring starts off stage 0.
         ("ring phase Sq300 Sk600 window150 q_offset300", 2, 300, 600, 32, 4,
-         128, "window", 150, 300),
+         (128, 128), "window", 150, 300),
         ("D256 ring phase Sq200 Sk500 window100 q_offset300", 1, 200, 500,
-         10, 1, 256, "window", 100, 300),
+         10, 1, (256, 256), "window", 100, 300),
+        # MLA: deepseek-v2-lite's (192, 128), three TMA boxes of D, and
+        # minicpm3-4b's qk 96 zero-padded to (128, 64); both with the scale
+        # of the true qk dim, as the model calls them.
+        ("MLA D192 Dv128 prefill B4 S1024 H16 KV16 causal", B, PROMPT,
+         PROMPT, 16, 16, (192, 128), "causal", 0, 0),
+        ("MLA D96 padded to 128 Dv64 prefill B4 S1024 H40 KV40 causal", B,
+         PROMPT, PROMPT, 40, 40, (96, 64), "causal", 0, 0),
+        ("MLA D192 Dv128 ragged S1000 causal", 2, 1000, 1000, 16, 16,
+         (192, 128), "causal", 0, 0),
+        ("MLA D192 Dv128 window S700 w128", 2, 700, 700, 16, 16,
+         (192, 128), "window", 128, 0),
+        ("MLA D192 Dv128 Sq200 Sk333 causal q_offset133", 3, 200, 333, 16,
+         16, (192, 128), "causal", 0, 133),
+        ("MLA D192 Dv128 ring phase Sq200 Sk500 window100 q_offset300", 1,
+         200, 500, 16, 16, (192, 128), "window", 100, 300),
+        ("MLA D96 padded to 128 Dv64 ragged S1000 causal", 2, 1000, 1000,
+         40, 40, (96, 64), "causal", 0, 0),
+        ("MLA D96 padded to 128 Dv64 Sq200 Sk333 causal q_offset133", 3,
+         200, 333, 40, 40, (96, 64), "causal", 0, 133),
+        ("MLA D96 padded to 128 Dv64 window S300 w50", 2, 300, 300, 40, 40,
+         (96, 64), "window", 50, 0),
     ]
-    errs = {128: [], 256: []}
-    for name, b, sq, sk, h, kv, d, kind, window, off in flash_cases:
-        q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
-        kw = dict(mask_kind=kind, window=window, q_offset=off)
-        got = flash_attention_cuda(q, k, v, **kw)
+
+    def padded(q, k, dv):
+        """q, k zero-padded along D to a pair the kernel takes, as the MLA
+        layer pads them (``models.mla``); the callers pass the scale of
+        the true width, which padding leaves right."""
+        pad = padded_qk_dim(q.shape[-1], dv) - q.shape[-1]
+        return tuple(torch.cat([t, t.new_zeros(t.shape[:-1] + (pad,))], -1)
+                     for t in (q, k))
+
+    errs = {}
+    for name, b, sq, sk, h, kv, (d, dv), kind, window, off in flash_cases:
+        q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), \
+            randn(b, sk, kv, dv)
+        qp, kp = padded(q, k, dv)
+        kw = dict(mask_kind=kind, window=window, q_offset=off,
+                  scale=d ** -0.5)
+        got = flash_attention_cuda(qp, kp, v, **kw)
+        again = flash_attention_cuda(qp, kp, v, **kw)
         want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
-        errs[d].append(check_close(f"flash_attention {name}", got, want))
+        errs[name] = check_close(f"flash_attention {name}", got, want)
+        if not torch.equal(got, again):
+            fail(f"flash_attention {name}: two launches on one input differ")
+    print("[kernels] flash_attention: two launches bitwise equal in every "
+          "case", flush=True)
 
-    def time_flash(h, kv, d, kind, window, label):
+    def time_flash(case, h, kv, d, dv, kind, window, label):
         """Times at a serving path's prefill shape (S <= window, so the
-        window mask is the causal one and SDPA's is_causal matches it)."""
+        window mask is the causal one and SDPA's is_causal matches it),
+        with the error of ``case``, the check at that shape.  At
+        minicpm3's qk 96 the kernel runs on q, k padded to 128; the bound
+        counts the true work, and the padded work is printed beside it."""
         q, k, v = randn(B, PROMPT, h, d), randn(B, PROMPT, kv, d), \
-            randn(B, PROMPT, kv, d)
+            randn(B, PROMPT, kv, dv)
+        qp, kp = padded(q, k, dv)
+        scale = d ** -0.5
         pairs = int(ref.causal_mask(PROMPT, PROMPT, 0, dev).sum())
-        flops = 2.0 * B * h * pairs * (d + d)
-        b_ms, b_by = bound(flops, nbytes(q, k, v, q))
-        kw = dict(mask_kind=kind, window=window)
-        ms = device_ms(lambda: flash_attention_cuda(q, k, v, **kw), 20)
-        call_ms = wall_ms(lambda: flash_attention_cuda(q, k, v, **kw), 20)
+        flops = 2.0 * B * h * pairs * (d + dv)
+        out_bytes = B * PROMPT * h * dv * 2
+        b_ms, b_by = bound(flops, nbytes(q, k, v) + out_bytes)
+        pad_ms, _ = bound(2.0 * B * h * pairs * (qp.shape[-1] + dv),
+                          nbytes(qp, kp, v) + out_bytes)
+        kw = dict(mask_kind=kind, window=window, scale=scale)
+        ms = device_ms(lambda: flash_attention_cuda(qp, kp, v, **kw), 20)
+        call_ms = wall_ms(lambda: flash_attention_cuda(qp, kp, v, **kw), 20)
         plain_ms = device_ms(lambda: flash_attention_plain(q, k, v, **kw), 5)
-        lib_ms = device_ms(lambda: sdpa(q, k, v, causal=True), 20)
-        print(f"[kernels] flash_attention {label} B{B} S{PROMPT} H{h} KV{kv} "
-              f"D{d} {kind}: kernel {ms:.4f} ms on the device ({call_ms:.4f}"
-              f" ms per call back to back), plain {plain_ms:.4f} ms, sdpa "
-              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-              f"{flops / 1e9:.2f} GFLOP)", flush=True)
-        return dict(shape=f"B{B} S{PROMPT} H{h} KV{kv} D{d} {kind}", ms=ms,
+        # SDPA on the unpadded q, k: it takes Dv != D
+        lib_ms = device_ms(lambda: sdpa(q, k, v, causal=True, scale=scale),
+                           20)
+        shape = f"B{B} S{PROMPT} H{h} KV{kv} D{d} Dv{dv} {kind}"
+        if qp.shape[-1] != d:
+            shape += f" (q, k padded to D{qp.shape[-1]})"
+        print(f"[kernels] flash_attention {label} {shape}: kernel {ms:.4f} "
+              f"ms on the device ({call_ms:.4f} ms per call back to back), "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP; "
+              f"{pad_ms:.4f} ms for the work as padded)", flush=True)
+        return dict(shape=shape, max_abs_err=errs[case], ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
 
     out["flash_attention"] = [
-        dict(max_abs_err=max(errs[128]),
-             **time_flash(32, 4, 128, "causal", 0, "yi-6b")),
-        dict(max_abs_err=max(errs[256]),
-             **time_flash(10, 1, 256, "window", 2048, "recurrentgemma-2b"))]
+        time_flash("prefill B4 S1024 causal", 32, 4, 128, 128, "causal", 0,
+                   "yi-6b"),
+        time_flash("D256 prefill B4 S1024 H10 KV1 window2048", 10, 1, 256,
+                   256, "window", 2048, "recurrentgemma-2b"),
+        time_flash("MLA D96 padded to 128 Dv64 prefill B4 S1024 H40 KV40 "
+                   "causal", 40, 40, 96, 64, "causal", 0, "minicpm3-4b"),
+        time_flash("MLA D192 Dv128 prefill B4 S1024 H16 KV16 causal", 16, 16,
+                   192, 128, "causal", 0, "deepseek-v2-lite-16b")]
 
     # -- decode attention -------------------------------------------------
     from repro_torch.kernels.decode_attention import counters
@@ -598,13 +673,46 @@ def profile(fn, n: int, what: str) -> None:
           f"{sorted(attention) or 'none'}", flush=True)
 
 
-def _to_float32(tree):
-    """A copy of a parameter tree in float32 (exact: bf16 values fit)."""
-    if isinstance(tree, dict):
-        return {k: _to_float32(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_float32(v) for v in tree]
-    return tree.float()
+class Routes:
+    """Within ``with``: the experts every MoE layer picks, call by call
+    (``models.moe.route`` wrapped).  Given ``replay``, another run's
+    picks, each call routes to the replayed experts instead, with gates
+    renormalised from this run's probabilities, and still records the
+    experts it would have picked."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.picks, self._route = [], moe.route
+
+        def route(*args, **kwargs):
+            probs, gate, idx = self._route(*args, **kwargs)
+            self.picks.append(idx)
+            if self.replay is not None:
+                idx = self.replay[len(self.picks) - 1]
+                gate = probs.gather(-1, idx)
+                gate = gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                          min=1e-9)
+            return probs, gate, idx
+
+        moe.route = route
+        return self.picks
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+
+
+def rerouted(a, b) -> str:
+    """Share of (layer, token) routings whose set of experts differs."""
+    diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+    total = sum(x[..., 0].numel() for x in a)
+    return f"{diff}/{total} = {diff / max(total, 1):.3%}"
 
 
 def phase_model(gen: torch.Generator, arch: str) -> None:
@@ -624,14 +732,15 @@ def phase_model(gen: torch.Generator, arch: str) -> None:
     steps = torch.randint(0, cfg.vocab_size, (4, B), generator=gen,
                           device="cuda")
 
-    def run(backend, p=params, dtype=torch.bfloat16):
-        logits, caches = lm.prefill(cfg, p, prompt, max_seq=MAX_SEQ,
+    def run(backend, dtype=torch.bfloat16):
+        logits, caches = lm.prefill(cfg, params, prompt, max_seq=MAX_SEQ,
                                     backend=backend, dtype=dtype)
         out = [logits.float()]
         lengths = torch.full((B,), PROMPT, dtype=torch.int32, device="cuda")
         for tok in steps:
-            logits, caches = lm.decode_step(cfg, p, tok, caches, lengths,
-                                            backend=backend, dtype=dtype)
+            logits, caches = lm.decode_step(cfg, params, tok, caches,
+                                            lengths, backend=backend,
+                                            dtype=dtype)
             out.append(logits.float())
             lengths = lengths + 1
         torch.cuda.synchronize()
@@ -641,7 +750,11 @@ def phase_model(gen: torch.Generator, arch: str) -> None:
         return max(float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
                    for g, w in zip(got, want))
 
-    got, want = run("kernel"), run("ref")
+    # The plain runs route as the kernel run did (see MODEL_REL_L2).
+    with Routes() as routes_kernel:
+        got = run("kernel")
+    with Routes(routes_kernel) as routes_plain:
+        want = run("ref")
     agree, total = 0, 0
     for i, (g, w) in enumerate(zip(got, want)):
         if g.shape != (B, cfg.padded_vocab) or not torch.isfinite(g).all():
@@ -650,7 +763,13 @@ def phase_model(gen: torch.Generator, arch: str) -> None:
         agree += int((g.argmax(-1) == w.argmax(-1)).sum())
         total += B
     worst = rel_l2(got, want)
-    truth = run("ref", _to_float32(params), torch.float32)
+    # The fp32 run reads the bf16 weights and casts each at use (exact: bf16
+    # values fit), so no float32 copy of the weights is made.
+    with Routes(routes_kernel) as routes_truth:
+        truth = run("ref", torch.float32)
+    if not len(routes_kernel) == len(routes_plain) == len(routes_truth):
+        fail(f"{arch}: the runs made {len(routes_kernel)}, "
+             f"{len(routes_plain)} and {len(routes_truth)} routing calls")
     floor, kernel_to_truth = rel_l2(want, truth), rel_l2(got, truth)
     limit = max(MODEL_REL_L2, 2 * floor)
     print(f"[model] {arch} prefill + 4 decode steps, kernels vs plain: max "
@@ -658,10 +777,17 @@ def phase_model(gen: torch.Generator, arch: str) -> None:
           f"max({MODEL_REL_L2}, 2 x floor)), argmax agreement "
           f"{agree}/{total}; floor (plain bf16 vs plain fp32) {floor:.3e}, "
           f"kernels bf16 vs plain fp32 {kernel_to_truth:.3e}", flush=True)
+    if routes_plain:
+        print(f"[model] {arch} MoE tokens the plain runs would have routed "
+              f"to another set of experts (all three runs take the kernel "
+              f"run's): plain bf16 vs kernels "
+              f"{rerouted(routes_kernel, routes_plain)}, plain fp32 vs "
+              f"plain bf16 {rerouted(routes_plain, routes_truth)}",
+              flush=True)
     if not worst < limit:
         fail(f"{arch}: full-width logits through the kernels disagree with "
              f"the plain versions")
-    del truth
+    del truth, routes_kernel, routes_plain, routes_truth
 
     # Where a serving step's time goes: prefill and decode-step wall time
     # (back to back, as the serving loop runs them), then the profiler.
@@ -753,7 +879,7 @@ def main() -> None:
     kernels = []
     for name, replaces in sources.items():
         # One entry per timed shape; launches are the kernel's count over
-        # both serve paths, whatever the shape.
+        # the serve paths, whatever the shape.
         for s in stats[name]:
             kernels.append({
                 "name": name, "route": "cuda",

@@ -6,7 +6,7 @@ against its live cache (attention KV caches, Mamba-2 and RG-LRU states,
 whatever the arch's plan keeps); the first block runs the prefill too.
 Blocks are homogeneous, the structural property the paper's predictor
 exploits.  Nothing here depends on the arch: any config the port's model
-runs (dense GQA, Mamba-2, the RG-LRU hybrid) makes a job.
+runs (dense GQA, MLA, MoE, Mamba-2, the RG-LRU hybrid) makes a job.
 """
 
 from __future__ import annotations

@@ -35,11 +35,14 @@
 // packing the G heads of a KV group into M, persistent CTAs.
 //
 // CTA: two warpgroups (256 threads), 64 query rows each (BM = 128) of one
-// head; key tiles of BN = 128 (BN = 64 when a head dim is 256).  Shared
-// memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB at D 128, Q 64 KB +
+// head; key tiles of BN = 128 (BN = 64 when a head dim exceeds 128).
+// Shared memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB at D 128,
+// Q 48 KB + 2 x (K 24 KB + V 16 KB) = 128 KB at (192, 128), Q 64 KB +
 // 2 x (K 32 KB + V 32 KB) = 192 KB at D 256: one CTA per SM.
 //
-// Head dims (D, Dv): (64, 64), (128, 128), (64, 128), (128, 64), (256, 256).
+// Head dims (D, Dv): (64, 64), (128, 128), (64, 128), (128, 64), (192, 128)
+// (MLA, deepseek-v2-lite: qk 128 + 64 rope, v 128; D is three TMA boxes),
+// (256, 256).
 // Layout: q [B, Sq, H, D], k [B, Sk, KV, D], v [B, Sk, KV, Dv], out
 // [B, Sq, H, Dv], all contiguous.  Grid (H, B, ceil(Sq / 128)), the query
 // tile reversed along z so that the longest causal tiles start first.
@@ -404,6 +407,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     if (D == 64 && Dv == 128)
         return (int)launch<64, 128>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
                                     window, q_offset, scale, st);
+    if (D == 192 && Dv == 128)   // MLA (deepseek-v2-lite); 128 KB
+        return (int)launch<192, 128>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
+                                     window, q_offset, scale, st);
     if (D == 256 && Dv == 256)   // recurrentgemma; 192 KB of shared memory
         return (int)launch<256, 256>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
                                      window, q_offset, scale, st);

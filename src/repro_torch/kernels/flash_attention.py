@@ -20,7 +20,8 @@ from . import _build, ref
 
 MASK_KINDS = {"none": 0, "causal": 1, "window": 2}
 #: (D, Dv) pairs the kernel is built for.
-HEAD_DIMS = ((64, 64), (128, 128), (64, 128), (128, 64), (256, 256))
+HEAD_DIMS = ((64, 64), (128, 128), (64, 128), (128, 64), (192, 128),
+             (256, 256))
 
 
 def flash_attention_plain(q, k, v, *, mask_kind: str = "causal",

@@ -1,13 +1,15 @@
 """Ops used by the model, with the JAX package's signatures
 (``repro.kernels.ops``: ``flash_attention``, ``decode_attention``, ``ssd``,
-``ssd_decode_step``, ``rglru``, ``rglru_decode_step``).
+``ssd_decode_step``, ``rglru``, ``rglru_decode_step``, ``moe_dispatch``,
+``moe_combine``, ``moe_apply``).
 
 ``backend="kernel"`` (the default) routes by where the tensors lie: a CUDA
 tensor goes to the hand-written CUDA kernel, which launches or raises; a
 CPU tensor goes to the kernel's plain version.  ``backend="ref"`` asks for
 the plain version on any device, as ``backend="ref"`` does in the JAX
 package; comparisons with the kernels use it.  The single-token decode
-steps are plain tensor code, as in the JAX package.
+steps and the MoE dispatch are plain tensor code, as in the JAX package
+(which leaves the MoE's sort, scatter and products to XLA).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
@@ -127,6 +130,102 @@ def rglru_decode_step(x, gate_a, gate_i, log_a, state, c: float = 8.0):
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_at), min=0.0))
     h = at * state + beta * (gate_i.float() * x.float())
     return h.to(x.dtype), h
+
+
+# ===================================================================== MoE
+# The JAX package dispatches one batch row at a time (``jax.vmap`` over
+# ``ops.moe_apply``), so capacity is per (row, expert).  Here every function
+# takes the rows as a leading axis and is written without a loop over them.
+def moe_dispatch(
+    x: torch.Tensor,          # [B, T, D]
+    topk_idx: torch.Tensor,   # [B, T, K] int64
+    topk_gate: torch.Tensor,  # [B, T, K]
+    n_experts: int,
+    capacity: int,
+) -> tuple:
+    """Sort each row's tokens into per-expert capacity buffers.
+
+    Returns (buf [B, E, C, D], meta) where meta lets :func:`moe_combine`
+    bring expert outputs back to token order.  As in the JAX package, the
+    (token, rank) entries of a row are sorted by expert with a stable sort,
+    so within an expert they keep token-major, rank-minor order, and an
+    entry past its expert's ``capacity`` is dropped.  Each buffer slot is
+    gathered from the entry that fills it (no scatter: the result does not
+    depend on the order of writes); unfilled slots are zero.
+    """
+    B, T, D = x.shape
+    K = topk_idx.shape[-1]
+    TK = T * K
+    dev = x.device
+    # Each token's ranks in ascending expert order first: within an expert
+    # the entries stay in token order (so the same ones are dropped), and
+    # meta lists each token's contributions in the order the JAX package's
+    # scatter-add visits them.
+    topk_idx, by_expert = torch.sort(topk_idx, dim=-1, stable=True)
+    topk_gate = topk_gate.gather(-1, by_expert)
+    se, order = torch.sort(topk_idx.reshape(B, TK), dim=-1, stable=True)
+    experts = torch.arange(n_experts, device=dev).expand(B, n_experts) \
+        .contiguous()
+    starts = torch.searchsorted(se, experts, side="left")
+    counts = torch.searchsorted(se, experts, side="right") - starts
+    pos = torch.arange(TK, device=dev) - starts.gather(1, se)
+    c = torch.arange(capacity, device=dev)
+    src = (starts[..., None] + c).clamp_(max=TK - 1).reshape(B, -1)
+    filled = (c < counts[..., None]).reshape(B, -1, 1)
+    token = (order // K).gather(1, src)                    # [B, E*C]
+    rows = x.gather(1, token[..., None].expand(-1, -1, D))
+    buf = torch.where(filled, rows, x.new_zeros(()))
+    # meta, in (token, rank) order: the entry's slot (0 when dropped, as the
+    # JAX package reads y[0, 0] for it) and its weight (0 when dropped).
+    pos = torch.empty_like(pos).scatter_(1, order, pos).view(B, T, K)
+    keep = pos < capacity
+    slot = torch.where(keep, topk_idx * capacity + pos, 0)
+    weight = (topk_gate * keep).to(x.dtype)
+    return buf.view(B, n_experts, capacity, D), (slot, weight)
+
+
+def moe_combine(y: torch.Tensor, meta) -> torch.Tensor:
+    """Inverse of :func:`moe_dispatch`: ``y`` [B, E, C, D] weighted back to
+    [B, T, D].  Each token's K contributions are summed one after another
+    in ascending expert order, rounding to ``y``'s dtype after each add as
+    the JAX package's scatter-add does; no atomics, so the result is the
+    same on every run and device."""
+    slot, weight = meta
+    B, T, K = slot.shape
+    D = y.shape[-1]
+    got = y.reshape(B, -1, D).gather(
+        1, slot.reshape(B, -1, 1).expand(-1, -1, D)).view(B, T, K, D)
+    contrib = got * weight[..., None]
+    out = contrib[:, :, 0]
+    for k in range(1, K):
+        out = out + contrib[:, :, k]
+    return out
+
+
+def moe_apply(
+    x: torch.Tensor,          # [B, T, D]
+    gate_w: torch.Tensor,     # [E, D, F]
+    up_w: torch.Tensor,       # [E, D, F]
+    down_w: torch.Tensor,     # [E, F, D]
+    topk_idx: torch.Tensor,   # [B, T, K] int64
+    topk_gate: torch.Tensor,  # [B, T, K]
+    capacity: int,
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Capacity-based sort-dispatch MoE with SwiGLU experts, each row of
+    the batch dispatched on its own.  The expert products run for every
+    row at once: one batched matrix product per expert weight."""
+    B, T, D = x.shape
+    E = gate_w.shape[0]
+    buf, meta = moe_dispatch(x, topk_idx, topk_gate, E, capacity)
+    be = buf.transpose(0, 1).reshape(E, B * capacity, D)
+    h = torch.bmm(be, gate_w.to(dtype))
+    u = torch.bmm(be, up_w.to(dtype))
+    h = F.silu(h.float()).to(dtype) * u
+    y = torch.bmm(h, down_w.to(dtype))                     # [E, B*C, D]
+    y = y.view(E, B, capacity, D).transpose(0, 1)
+    return moe_combine(y, meta).to(x.dtype)
 
 
 def reset_launch_counts() -> None:

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the oracles (``repro.kernels.ref``).
 
-Simple (quadratic attention, sequential scans), computed in float32: the
-semantic ground truth that the kernels' plain versions and the CUDA
-kernels are held to.  The attention oracles are also the path the
-attention wrappers take for tensors that lie on the CPU.
+Simple (quadratic attention, sequential scans, every token through every
+expert), computed in float32: the semantic ground truth that the kernels'
+plain versions and the CUDA kernels are held to.  The attention oracles
+are also the path the attention wrappers take for tensors that lie on the
+CPU; the MoE oracle is the tests' check of ``ops.moe_apply``.
 """
 
 from __future__ import annotations
@@ -136,3 +137,23 @@ def rglru_scan(
         hs.append(h)
     out = torch.stack(hs, dim=1) if hs else xf.new_zeros((Bsz, 0, C))
     return out.to(x.dtype), h
+
+
+def moe_dense(
+    x: torch.Tensor,          # [T, D] tokens
+    gate_w: torch.Tensor,     # [E, D, F]
+    up_w: torch.Tensor,       # [E, D, F]
+    down_w: torch.Tensor,     # [E, F, D]
+    probs: torch.Tensor,      # [T, E] routing weights (0 where unrouted)
+) -> torch.Tensor:
+    """Dense-einsum MoE oracle: every token through every expert, weighted.
+
+    O(T*E*D*F) -- only usable at test sizes; the efficient path uses
+    capacity-based dispatch (``ops.moe_apply``).
+    """
+    xf = x.float()
+    h = torch.einsum("td,edf->tef", xf, gate_w.float())
+    u = torch.einsum("td,edf->tef", xf, up_w.float())
+    h = torch.nn.functional.silu(h) * u
+    y = torch.einsum("tef,efd->ted", h, down_w.float())
+    return torch.einsum("ted,te->td", y, probs.float()).to(x.dtype)

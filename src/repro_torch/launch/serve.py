@@ -21,20 +21,26 @@ unless ``--device cpu`` is.  The scenario-driven options of the JAX driver
 need the scenario registry and sweep cache, which the port has not taken
 over yet.
 
-The archs served are those the port's model runs: the dense GQA ones
-(yi-6b, yi-34b, mistral-nemo-12b), mamba2-2.7b and recurrentgemma-2b, in
-any mix.  recurrentgemma's local-attention cache holds exactly its window
-(2048 positions at full width, 64 reduced), so prompt plus generated
-tokens must fit in it.
+The archs served are those the port's model runs, in any mix: the dense
+GQA ones (yi-6b, yi-34b, mistral-nemo-12b), minicpm3-4b (MLA),
+deepseek-v2-lite-16b (MLA + MoE), mamba2-2.7b and recurrentgemma-2b; and
+dbrx-132b (GQA + MoE) only with ``--reduced``, since its ~132 B parameters
+(264 GB in bf16) do not fit one card.  recurrentgemma's local-attention
+cache holds exactly its window (2048 positions at full width, 64 reduced),
+so prompt plus generated tokens must fit in it.
 
-Example::
+Examples (the reference's default mix; a recurrent pair; MLA beside MoE
+on the CPU)::
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --policy srtf \
+        --compare-fifo --batch 4 --prompt-len 1024 --tokens-per-block 8
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --jobs mamba2-2.7b:8,recurrentgemma-2b:2 --policy srtf \
         --compare-fifo --batch 4 --prompt-len 1024 --tokens-per-block 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-        --reduced --jobs mamba2-2.7b:8,recurrentgemma-2b:2 --policy srtf \
-        --compare-fifo --tokens-per-block 4 --prompt-len 8 --batch 1
+        --reduced --jobs minicpm3-4b:4,deepseek-v2-lite-16b:2 \
+        --policy srtf --compare-fifo --tokens-per-block 4 --prompt-len 8 \
+        --batch 1
 """
 
 from __future__ import annotations
@@ -210,7 +216,7 @@ def _run(args, policy: str, solo) -> Tuple[object, list, Optional[int]]:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--jobs", default="yi-6b:24,yi-6b:6",
+    ap.add_argument("--jobs", default="yi-6b:24,minicpm3-4b:6",
                     help="arch:decode_blocks,...")
     ap.add_argument("--policy", default="srtf")
     ap.add_argument("--predictor", default="simple-slicing",

@@ -1,8 +1,11 @@
 """The language model of the port (``repro.models.lm``).
 
-``build_plan`` is the JAX package's.  The port runs three of its plans:
+``build_plan`` is the JAX package's.  The port runs these of its plans:
 dense GQA ``Stage((LayerSpec("gqa", "dense"),), n_layers)`` (yi-6b,
-yi-34b, mistral-nemo and pixtral's text path), the Mamba-2 plan
+yi-34b, mistral-nemo and pixtral's text path), the same with the MLA
+mixer (minicpm3-4b), MoE plans with either mixer and an optional leading
+dense stage (deepseek-v2-lite: one dense layer of width 10944, then 26 MLA
++ MoE layers; dbrx: GQA + MoE), the Mamba-2 plan
 ``Stage((LayerSpec("ssd", "none"),), n_layers)`` (mamba2-2.7b) and the
 Griffin hybrid of RG-LRU and local-attention layers (recurrentgemma-2b:
 8 repeats of (rglru, rglru, local) and a second stage of (rglru, rglru)).
@@ -16,7 +19,8 @@ per-layer dicts of stage 0's unit 0, other leaves are as in the JAX
 package (``params["embed"]["table"]`` and so on).  Caches keep the JAX
 package's structure, one dict of stacked ``[L, ...]`` leaves per unit:
 ``{"k", "v"}`` ``[L, B, slots, KV, hd]`` for attention (``max_seq`` slots,
-or exactly ``window`` for a local layer), ``{"ssm" [L, B, H, P, N] fp32,
+or exactly ``window`` for a local layer), ``{"c_kv" [L, B, max_seq, R],
+"k_rope" [L, B, max_seq, r]}`` for MLA, ``{"ssm" [L, B, H, P, N] fp32,
 "conv_x"/"conv_b"/"conv_c" [L, B, W-1, C]}`` for Mamba-2 and ``{"h" [L, B,
 C] fp32, "conv" [L, B, W-1, C]}`` for RG-LRU.  :func:`decode_step` updates
 them in place.
@@ -33,6 +37,8 @@ import torch
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import mla as mla_mod
+from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import (
@@ -84,9 +90,6 @@ def build_plan(cfg: ArchConfig) -> Tuple[Stage, ...]:
 
 
 _LATER = {
-    "mla": "the MLA mixer (minicpm3-4b, deepseek-v2-lite) comes with the "
-           "MLA slice",
-    "moe": "the MoE FFN (dbrx, deepseek-v2-lite) comes with the MoE slice",
     "cross": "the encoder and cross attention (whisper) come with the "
              "encoder-decoder slice",
 }
@@ -181,7 +184,41 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
                 "a_param": (L + (W,), "a_param"),
                 "out": (L + (W, d), 1.0 / math.sqrt(W))}
 
-    mixers = {"gqa": attention, "local": attention, "ssd": mamba2,
+    def mla(L: Tuple[int, ...]) -> Dict:              # mla.mla_init
+        m = cfg.mla
+        R, qk = m.kv_lora_rank, m.qk_nope_dim + m.qk_rope_dim
+        out = {}
+        if m.q_lora_rank:
+            out["wdq"] = (L + (d, m.q_lora_rank), s_in)
+            out["q_norm/scale"] = (L + (m.q_lora_rank,), "ones")
+            out["wuq"] = (L + (m.q_lora_rank, H, qk),
+                          1.0 / math.sqrt(m.q_lora_rank))
+        else:
+            out["wq"] = (L + (d, H, qk), s_in)
+        out.update(wdkv=(L + (d, R), s_in), wkr=(L + (d, m.qk_rope_dim), s_in),
+                   wuk=(L + (R, H, m.qk_nope_dim), 1.0 / math.sqrt(R)),
+                   wuv=(L + (R, H, m.v_head_dim), 1.0 / math.sqrt(R)),
+                   wo=(L + (H, m.v_head_dim, d),
+                       1.0 / math.sqrt(H * m.v_head_dim)))
+        out["kv_norm/scale"] = (L + (R,), "ones")
+        return out
+
+    def swiglu(L: Tuple[int, ...], ff: int) -> Dict:  # layers.mlp_init
+        return {"gate/w": (L + (d, ff), s_in), "up/w": (L + (d, ff), s_in),
+                "down/w": (L + (ff, d), 1.0 / math.sqrt(ff))}
+
+    def moe(L: Tuple[int, ...]) -> Dict:              # moe.moe_init
+        E, ff = cfg.moe.n_experts, cfg.d_ff
+        out = {"router": (L + (d, E), s_in),
+               "gate_w": (L + (E, d, ff), s_in),
+               "up_w": (L + (E, d, ff), s_in),
+               "down_w": (L + (E, ff, d), 1.0 / math.sqrt(ff))}
+        if cfg.moe.n_shared:
+            for key, val in swiglu(L, cfg.moe.n_shared * ff).items():
+                out[f"shared/{key}"] = val
+        return out
+
+    mixers = {"gqa": attention, "local": attention, "mla": mla, "ssd": mamba2,
               "rglru": rglru}
     shapes: Dict[str, Tuple[Tuple[int, ...], Init]] = {
         "embed/table": ((V, d), 0.02)}
@@ -195,21 +232,21 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
             shapes.update(norm(f"{pre}/norm1", L))
             for key, val in mixers[spec.mixer](L).items():
                 shapes[f"{pre}/mixer/{key}"] = val
-            if spec.ffn != "dense":
+            if spec.ffn == "none":
                 continue
             ff = spec.d_ff or cfg.d_ff
             shapes.update(norm(f"{pre}/norm2", L))
-            if cfg.act in ("swiglu", "geglu"):
-                shapes[f"{pre}/ffn/gate/w"] = (L + (d, ff), s_in)
-                shapes[f"{pre}/ffn/up/w"] = (L + (d, ff), s_in)
-                shapes[f"{pre}/ffn/down/w"] = (L + (ff, d),
-                                               1.0 / math.sqrt(ff))
+            if spec.ffn == "moe":
+                ffn = moe(L)
+            elif cfg.act in ("swiglu", "geglu"):
+                ffn = swiglu(L, ff)
             else:
-                shapes[f"{pre}/ffn/up/w"] = (L + (d, ff), s_in)
-                shapes[f"{pre}/ffn/up/b"] = (L + (ff,), "zeros")
-                shapes[f"{pre}/ffn/down/w"] = (L + (ff, d),
-                                               1.0 / math.sqrt(ff))
-                shapes[f"{pre}/ffn/down/b"] = (L + (d,), "zeros")
+                ffn = {"up/w": (L + (d, ff), s_in),
+                       "up/b": (L + (ff,), "zeros"),
+                       "down/w": (L + (ff, d), 1.0 / math.sqrt(ff)),
+                       "down/b": (L + (d,), "zeros")}
+            for key, val in ffn.items():
+                shapes[f"{pre}/ffn/{key}"] = val
     return shapes
 
 
@@ -219,7 +256,7 @@ def init(cfg: ArchConfig, *, seed: int = 0, device=None,
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (so they
     are not the JAX package's numbers; tests share weights through
     :func:`repro_torch.models.bridge.params_from_numpy`)."""
-    from .bridge import params_from_numpy
+    from .bridge import leaf_dtype, params_from_numpy
 
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -229,9 +266,15 @@ def init(cfg: ArchConfig, *, seed: int = 0, device=None,
         if isinstance(how, str):
             flat[key] = _fixed_init(how, shape[-1]).to(device).expand(
                 shape).clone()
-        else:
-            flat[key] = torch.randn(shape, generator=gen, device=device
-                                    ).mul_(how).to(dtype)
+            continue
+        # A stacked stage leaf is drawn one repeat at a time, so the float32
+        # transient is one layer's (deepseek-v2-lite's expert weights are
+        # 4.8 G elements per leaf).
+        t = torch.empty(shape, dtype=leaf_dtype(key, dtype), device=device)
+        for part in (t if key.startswith("stage") else [t]):
+            part.copy_(torch.randn(part.shape, generator=gen,
+                                   device=device).mul_(how))
+        flat[key] = t
     return params_from_numpy(cfg, flat, device=device, dtype=dtype)
 
 
@@ -254,6 +297,16 @@ def _head(cfg: ArchConfig, params: Dict, x: torch.Tensor, dtype):
     if cfg.tie_embeddings:
         return unembed(params["embed"], x, dtype)
     return x @ cast(params["lm_head"]["w"], dtype)
+
+
+def _ffn(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
+         dtype) -> torch.Tensor:
+    """The layer's dense or MoE FFN on ``x`` [B, S, D].  The MoE's aux loss
+    is not needed when serving and is dropped."""
+    h = apply_norm(p["norm2"], x, cfg.norm)
+    if spec.ffn == "moe":
+        return moe_mod.moe_apply(p["ffn"], h, cfg.moe, dtype=dtype)[0]
+    return apply_mlp(p["ffn"], h, cfg.act, dtype)
 
 
 def _store(unit_c: Dict, entry: Dict, r: int, reps: int,
@@ -314,6 +367,11 @@ def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             # S <= max_seq <= window: the JAX package's ring of `window`
             # slots holds position t at slot t, as the padded cache does
             _store(unit_c, kv, r, reps, slots=window or max_seq)
+        elif spec.mixer == "mla":
+            mix, kv = mla_mod.mla_apply(
+                p["mixer"], h, cfg.mla, rope_theta=cfg.rope_theta,
+                positions=positions, backend=backend, dtype=dtype)
+            _store(unit_c, kv, r, reps, slots=max_seq)
         elif spec.mixer == "ssd":
             mix, state = ssm_mod.mamba2_apply(p["mixer"], h, cfg.ssm,
                                               backend=backend, dtype=dtype)
@@ -323,9 +381,8 @@ def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
                 p["mixer"], h, cfg.rglru, backend=backend, dtype=dtype)
             _store(unit_c, state, r, reps)
         x = x + mix
-        if spec.ffn == "dense":
-            x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
-                              cfg.act, dtype)
+        if spec.ffn != "none":
+            x = x + _ffn(cfg, spec, p, x, dtype)
     # the head is applied to the last position only, as in the JAX package
     last = apply_norm(params["final_norm"], x[:, -1, :], cfg.norm)
     return _head(cfg, params, last, dtype), caches
@@ -349,6 +406,11 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
                 p["mixer"], h, {"k": c["k"][r], "v": c["v"][r]}, lengths,
                 rope_theta=cfg.rope_theta, window=_window(cfg, spec),
                 backend=backend, dtype=dtype)
+        elif spec.mixer == "mla":
+            mix, _ = mla_mod.mla_decode(
+                p["mixer"], h, {"c_kv": c["c_kv"][r],
+                                "k_rope": c["k_rope"][r]}, lengths, cfg.mla,
+                rope_theta=cfg.rope_theta, dtype=dtype)
         else:
             state = {name: t[r] for name, t in c.items()}
             if spec.mixer == "ssd":
@@ -360,8 +422,8 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
             for name, t in new.items():
                 state[name].copy_(t)
         x = x + mix
-        if spec.ffn == "dense":
-            x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
-                              cfg.act, dtype)
+        if spec.ffn != "none":
+            # one token a row: the MoE dispatches it as a sequence of one
+            x = x + _ffn(cfg, spec, p, x[:, None, :], dtype)[:, 0]
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _head(cfg, params, x, dtype), caches

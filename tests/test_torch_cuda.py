@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card; also
+the MLA layer through flash at full width against its plain route, and
+the MoE dispatch and combine on the card bitwise equal to the CPU's.
 
 Marked ``cuda``; each test skips where there is no CUDA device.  On a
 GPU machine::
@@ -18,6 +20,7 @@ import ctypes
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (
     _lib as decode_lib,
@@ -37,6 +40,7 @@ from repro_torch.kernels.ssd_scan import (
     ssd_cuda,
     ssd_plain,
 )
+from repro_torch.models import lm, mla
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -99,6 +103,13 @@ FLASH = [
     (1, 130, 1200, 2, 1, 64, 64, "window", 600, 1050),
     (2, 300, 600, 4, 2, 128, 128, "window", 150, 300),
     (1, 200, 500, 2, 1, 256, 256, "window", 100, 300),
+    # MLA, deepseek-v2-lite's (192, 128): D is three TMA boxes.  Full
+    # heads, ragged S, q_offset, a window, the ring phase, Sk = 1.
+    (2, 1000, 1000, 16, 16, 192, 128, "causal", 0, 0),
+    (1, 200, 333, 16, 16, 192, 128, "causal", 0, 133),
+    (2, 300, 300, 4, 4, 192, 128, "window", 50, 0),
+    (1, 200, 500, 2, 1, 192, 128, "window", 100, 300),
+    (2, 5, 1, 4, 4, 192, 128, "none", 0, 0),
 ]
 
 
@@ -363,3 +374,97 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(gen):
         rglru_cuda(x.float(), ga, gi, la)
     with pytest.raises(ValueError, match="log_a"):
         rglru_cuda(x, ga, gi, la[:1])
+
+
+# ------------------------------------------------------------------- MLA
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, q_offset, mask_kind, window): minicpm3-4b's 40 heads,
+    # qk 96 zero-padded to 128, v 64, the scale of qk 96
+    (2, 1000, 1000, 0, "causal", 0),
+    (3, 200, 333, 133, "causal", 0),
+    (2, 300, 300, 0, "window", 50),
+], ids=str)
+def test_flash_kernel_takes_minicpm3_padded_heads(case, gen):
+    B, Sq, Sk, off, kind, window = case
+    q, k, v = _randn(gen, B, Sq, 40, 96), _randn(gen, B, Sk, 40, 96), \
+        _randn(gen, B, Sk, 40, 64)
+    assert mla.padded_qk_dim(96, 64) == 128
+    pad = [t.new_zeros(t.shape[:-1] + (32,)) for t in (q, k)]
+    qp, kp = torch.cat([q, pad[0]], -1), torch.cat([k, pad[1]], -1)
+    kw = dict(mask_kind=kind, window=window, q_offset=off, scale=96 ** -0.5)
+    got = flash_attention_cuda(qp, kp, v, **kw)
+    again = flash_attention_cuda(qp, kp, v, **kw)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    _close(got, want)
+    assert torch.equal(got, again), "two launches on one input differ"
+
+
+def _mla_layer(arch, gen, reduced=False):
+    """One MLA layer's parameters at the arch's dims (random, bf16) and
+    its config."""
+    cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
+    shapes = lm.param_shapes(cfg)
+    p = {}
+    for key, (shape, how) in shapes.items():
+        if not key.startswith("stage0/u0/mixer/"):
+            continue
+        name = key[len("stage0/u0/mixer/"):]
+        if isinstance(how, str):            # the norms' scales
+            p[name.split("/")[0]] = {"scale": torch.ones(
+                shape[1:], device="cuda")}
+        else:
+            p[name] = (torch.randn(shape[1:], generator=gen, device="cuda")
+                       * how).to(torch.bfloat16)
+    return cfg, p
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-lite-16b"])
+def test_mla_layer_through_the_kernel_matches_its_plain_route(arch, gen):
+    """Full-width MLA prefill (flash at (128, 64) padded, or (192, 128))
+    against the same layer through the plain attention; relative L2 of
+    the output within the attention tolerance.  The cache does not pass
+    through the kernel and is equal."""
+    cfg, p = _mla_layer(arch, gen)
+    x = _randn(gen, 2, 300, cfg.d_model)
+    ops.reset_launch_counts()
+    got, got_c = mla.mla_apply(p, x, cfg.mla, rope_theta=cfg.rope_theta)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want, want_c = mla.mla_apply(p, x, cfg.mla, rope_theta=cfg.rope_theta,
+                                 backend="ref")
+    torch.cuda.synchronize()
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert torch.isfinite(got).all() and rel < TOL, rel
+    for name in ("c_kv", "k_rope"):
+        assert torch.equal(got_c[name], want_c[name])
+
+
+def test_mla_reduced_dims_raise_on_the_card(gen):
+    """The reduced configs' qk 48 / v 32 has no kernel pair: on the card
+    the layer raises instead of taking the plain attention."""
+    cfg, p = _mla_layer("minicpm3-4b", gen, reduced=True)
+    with pytest.raises(ValueError, match="head dims"):
+        mla.mla_apply(p, _randn(gen, 1, 8, cfg.d_model), cfg.mla,
+                      rope_theta=cfg.rope_theta)
+
+
+# ------------------------------------------------------------------- MoE
+def test_moe_dispatch_and_combine_on_the_card_equal_the_cpu(gen):
+    """The dispatch and the combine are gathers and in-order sums: the card
+    gives the CPU's bits, run after run (deepseek-v2-lite's routing at
+    B 2, S 300, with drops)."""
+    B, T, D, E, K, cap = 2, 300, 256, 64, 6, 20
+    x = _randn(gen, B, T, D)
+    scores = torch.rand((B, T, E), generator=gen, device="cuda")
+    idx = scores.argsort(dim=-1)[..., :K]
+    gate = torch.rand((B, T, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    buf, meta = ops.moe_dispatch(x, idx, gate, E, cap)
+    cbuf, cmeta = ops.moe_dispatch(x.cpu(), idx.cpu(), gate.cpu(), E, cap)
+    assert torch.equal(buf.cpu(), cbuf)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(meta, cmeta))
+    y = _randn(gen, B, E, cap, D)
+    out = ops.moe_combine(y, meta)
+    again = ops.moe_combine(y, meta)
+    assert torch.equal(out, again)
+    assert torch.equal(out.cpu(), ops.moe_combine(y.cpu(), cmeta))

@@ -403,6 +403,27 @@ def test_rglru_geometry_mirrors_the_kernel_source():
     assert rglru_mod.CHUNK % rglru_mod.WARPS == 0
 
 
+def test_flash_head_dims_mirror_the_kernel_dispatch():
+    """Every (D, Dv) the flash wrapper lets through has a launch in
+    ``csrc/flash_attention.cu``'s dispatch, and no other pair has one, so
+    a pair the wrapper accepts never reaches the C entry's error return;
+    each fits the kernel's two-stage shared memory (BN 64 past 128)."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS as FLASH_DIMS
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    cases = re.findall(r"if \(D == (\d+) && Dv == (\d+)\).*\n\s+return "
+                       r"\(int\)launch<(\d+), (\d+)>", src)
+    assert all((d, dv) == (d2, dv2) for d, dv, d2, dv2 in cases)
+    assert sorted((int(d), int(dv)) for d, dv, _, _ in cases) == \
+        sorted(FLASH_DIMS)
+    for d, dv in FLASH_DIMS:
+        bn = 64 if max(d, dv) > 128 else 128
+        assert 128 * d * 2 + 2 * bn * (d + dv) * 2 + 64 + 1024 <= 232448
+
+
 @pytest.mark.parametrize("dims", HEAD_DIMS, ids=str)
 def test_decode_split_plan_covers_the_cache_within_shared_memory(dims):
     D, Dv = dims

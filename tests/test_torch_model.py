@@ -3,8 +3,11 @@
 Weights come from the JAX package's ``lm.init`` on reduced configs --
 yi-6b (2 layers, d 128, 4 heads, 2 KV heads), mamba2-2.7b (4 SSD layers,
 d_inner 256, state 32, chunk 16), recurrentgemma-2b (one (rec, rec, attn)
-unit, window 64) and recurrentgemma-2b with 5 layers, whose plan has a
-second stage (rec, rec) -- flattened as the checkpointer does and loaded
+unit, window 64), recurrentgemma-2b with 5 layers, whose plan has a
+second stage (rec, rec), minicpm3-4b (3 MLA layers, q LoRA 64, KV LoRA 64,
+qk 32 + 16, v 32), deepseek-v2-lite-16b (a dense MLA layer, then an MLA +
+MoE layer of 4 experts top-2 and a shared one) and dbrx-132b (2 GQA + MoE
+layers) -- flattened as the checkpointer does and loaded
 through ``params_from_numpy``; prompts and decode tokens are numpy arrays
 from ``default_rng``.  Both packages then run prefill and four decode
 steps, and their logits are compared (logits, not argmax tokens, so a
@@ -38,6 +41,7 @@ F32_TOL = 1e-4
 BF16_REL_L2 = 3e-2
 RECURRENT = [("mamba2-2.7b", {}), ("recurrentgemma-2b", {}),
              ("recurrentgemma-2b", {"n_layers": 5})]
+LATENT_MOE = ["minicpm3-4b", "deepseek-v2-lite-16b", "dbrx-132b"]
 
 
 @pytest.fixture(scope="module")
@@ -160,8 +164,7 @@ def test_prefill_cache_matches_jax(model):
                                    rtol=F32_TOL, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "dbrx-132b",
-                                  "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3"])
 def test_later_slices_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         lm.init(t_get_arch(arch).reduced(), device="cpu")
@@ -373,3 +376,130 @@ def test_reference_decode_past_the_window_departs_from_its_forward():
     assert inside and past
     assert max(inside) < F32_TOL, errors
     assert min(past) > 100 * F32_TOL, errors
+
+
+# ------------------------------------------------- MLA and MoE models
+@pytest.fixture(scope="module", params=LATENT_MOE)
+def latent(request):
+    arch = request.param
+    cfg, tcfg = get_arch(arch).reduced(), t_get_arch(arch).reduced()
+    params = jlm.init(cfg, jax.random.PRNGKey(2))
+    flat = _flatten(params)
+    rng = np.random.default_rng(13)
+    prompt = rng.integers(0, cfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    steps = rng.integers(0, cfg.vocab_size, (STEPS, B)).astype(np.int32)
+    return cfg, tcfg, params, flat, prompt, steps
+
+
+def test_latent_moe_prefill_and_decode_match_jax_float32(latent):
+    """Logits of prefill and four decode steps, and the caches ({c_kv,
+    k_rope} after ``_pad_mla`` for MLA, {k, v} for dbrx) after the prefill
+    and after the last step."""
+    cfg, tcfg, params, flat, prompt, steps = latent
+    want, want_c0, want_c = _jax_run(cfg, params, prompt, steps, jnp.float32)
+    tparams = params_from_numpy(tcfg, flat, device="cpu",
+                                dtype=torch.float32)
+    got, got_c0, got_c = _torch_run(tcfg, tparams, prompt, steps,
+                                    torch.float32)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, rtol=F32_TOL, atol=F32_TOL)
+    _assert_same_caches(got_c0, want_c0, F32_TOL)
+    _assert_same_caches(got_c, want_c, F32_TOL)
+
+
+def test_latent_moe_prefill_and_decode_match_jax_bfloat16(latent):
+    cfg, tcfg, params, flat, prompt, steps = latent
+    want, _, _ = _jax_run(cfg, params, prompt, steps, jnp.bfloat16)
+    tparams = params_from_numpy(tcfg, flat, device="cpu",
+                                dtype=torch.bfloat16)
+    got, _, _ = _torch_run(tcfg, tparams, prompt, steps, torch.bfloat16)
+    for w, g in zip(want, got):
+        rel = np.linalg.norm(g - w, axis=-1) / np.linalg.norm(w, axis=-1)
+        assert rel.max() < BF16_REL_L2, rel
+
+
+def test_latent_moe_prefill_matches_jax_pallas_backend(latent):
+    """JAX through its Pallas flash kernel (interpret mode), which takes
+    MLA's qk 48 / v 32 as it is, vs the port."""
+    cfg, tcfg, params, flat, prompt, _ = latent
+    want, want_c = jlm.prefill(cfg, params, jnp.asarray(prompt),
+                               max_seq=MAX_SEQ, backend="pallas",
+                               dtype=jnp.float32)
+    tparams = params_from_numpy(tcfg, flat, device="cpu",
+                                dtype=torch.float32)
+    got, got_c = lm.prefill(tcfg, tparams, torch.from_numpy(prompt).long(),
+                            max_seq=MAX_SEQ, dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+    _assert_same_caches(got_c, want_c, F32_TOL)
+
+
+def test_latent_moe_random_init_and_bridge_dtypes(latent):
+    """``lm.init`` has the JAX package's leaves and shapes; the bridge
+    keeps the MLA norms' scales float32 (the JAX package multiplies by
+    them in float32) and casts the attention, router, expert and shared
+    expert weights to bf16 (it casts them at use)."""
+    _, tcfg, _, flat, _, _ = latent
+    shapes = lm.param_shapes(tcfg)
+    assert sorted(k.replace("/", "_") for k in shapes) == sorted(flat)
+    for key, (shape, _) in shapes.items():
+        assert flat[key.replace("/", "_")].shape == shape, key
+    tparams = lm.init(tcfg, seed=4, device="cpu")
+    for si in range(len(lm.ported_plan(tcfg))):
+        layer = tparams[f"stage{si}"]["u0"][0]
+        for name, t in layer["mixer"].items():
+            if name.endswith("_norm"):
+                assert t["scale"].dtype == torch.float32, name
+            else:
+                assert t.dtype == torch.bfloat16, name
+        assert all(w.dtype == torch.bfloat16
+                   for w in _leaves(layer["ffn"]))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def test_deepseek_first_stage_is_dense_at_its_own_width():
+    """deepseek-v2-lite's first layer keeps a dense FFN of d_ff_dense
+    (10944 at full width), the rest are MoE of 64 experts of 1408."""
+    cfg = t_get_arch("deepseek-v2-lite-16b")
+    shapes = lm.param_shapes(cfg)
+    assert shapes["stage0/u0/ffn/gate/w"][0] == (1, 2048, 10944)
+    assert shapes["stage1/u0/ffn/gate_w"][0] == (26, 64, 2048, 1408)
+    assert shapes["stage1/u0/ffn/shared/down/w"][0] == (26, 2816, 2048)
+    assert shapes["stage0/u0/mixer/wq"][0] == (1, 2048, 16, 192)
+    total = sum(int(np.prod(s)) for s, _ in shapes.values())
+    assert 15.5e9 < total < 15.9e9
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-2.7b", "recurrentgemma-2b",
+                                  "minicpm3-4b", "deepseek-v2-lite-16b",
+                                  "dbrx-132b"])
+def test_float32_compute_on_bf16_weights_equals_a_float32_copy(arch):
+    """Every weight is cast at its use, so float32 compute on the bf16
+    weights is the same float32 arithmetic on the same values as on their
+    float32 copy (exact casts; 1e-6 leaves room only for a matrix product
+    that blocks differently at another alignment): the chip run's float32
+    floor needs no float32 copy of the weights."""
+    cfg = t_get_arch(arch).reduced()
+    params = lm.init(cfg, seed=5, device="cpu")
+
+    def to32(tree):
+        if isinstance(tree, dict):
+            return {k: to32(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to32(v) for v in tree]
+        return tree.float()
+
+    rng = np.random.default_rng(14)
+    prompt = rng.integers(0, cfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    steps = rng.integers(0, cfg.vocab_size, (STEPS, B)).astype(np.int32)
+    got, _, _ = _torch_run(cfg, params, prompt, steps, torch.float32)
+    want, _, _ = _torch_run(cfg, to32(params), prompt, steps, torch.float32)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)

@@ -1,8 +1,10 @@
 """The port's serving path and scheduler copy, on the CPU.
 
-* Serving jobs of reduced yi-6b, and a mix of reduced mamba2-2.7b and
-  recurrentgemma-2b, run through the port's SchedulerService under srtf
-  and fifo, and through ``python -m repro_torch.launch.serve``.
+* Serving jobs of reduced yi-6b, a mix of reduced mamba2-2.7b and
+  recurrentgemma-2b, and one of reduced minicpm3-4b (MLA) and
+  deepseek-v2-lite-16b (MLA + MoE), run through the port's
+  SchedulerService under srtf and fifo, and through ``python -m
+  repro_torch.launch.serve``, whose default mix is the JAX package's.
 * The port's copies of the scheduler modules are held to the JAX
   package's: the files are identical, and both ``LaneExecutor``s produce
   the same trace and results for the same jobs under one fake clock.
@@ -101,6 +103,40 @@ def test_serve_cli_mixes_recurrent_archs_on_cpu(capsys):
             ("mamba2-2.7b", 3, False), ("recurrentgemma-2b", 2, False)]
     out = capsys.readouterr().out
     assert "tenant=mamba2-2.7b" in out and "tenant=recurrentgemma-2b" in out
+
+
+def test_serve_cli_mixes_mla_and_moe_archs_on_cpu(capsys):
+    """The MLA / MoE tenants of the chip run, reduced."""
+    runs = serve.main(["--device", "cpu", "--reduced",
+                       "--jobs", "minicpm3-4b:4,deepseek-v2-lite-16b:2",
+                       "--policy", "srtf", "--compare-fifo",
+                       "--tokens-per-block", "4", "--prompt-len", "8",
+                       "--batch", "1", "--lanes", "2", "--stagger", "0"])
+    for run in runs.values():
+        assert sorted((r.key.split("#")[0], r.blocks, r.cancelled)
+                      for r in run["results"]) == [
+            ("deepseek-v2-lite-16b", 2, False), ("minicpm3-4b", 4, False)]
+    out = capsys.readouterr().out
+    assert "tenant=minicpm3-4b" in out and "tenant=deepseek-v2-lite-16b" in out
+
+
+def test_serve_default_mix_is_the_references():
+    """``--jobs`` defaults to ``repro.launch.serve``'s mix,
+    ``yi-6b:24,minicpm3-4b:6`` (read from its source, which builds its
+    parser inside ``main``), and that mix runs, reduced, on the CPU."""
+    tree = ast.parse((ROOT / "src" / "repro" / "launch" / "serve.py")
+                     .read_text())
+    want = next(kw.value.value for node in ast.walk(tree)
+                if isinstance(node, ast.Call) and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value == "--jobs"
+                for kw in node.keywords if kw.arg == "default")
+    assert want == "yi-6b:24,minicpm3-4b:6"
+    assert serve.build_parser().get_default("jobs") == want
+    runs = serve.main(["--device", "cpu", "--reduced", "--policy", "fifo",
+                       "--tokens-per-block", "1", "--prompt-len", "4",
+                       "--batch", "1", "--stagger", "0"])
+    assert sorted(r.blocks for r in runs["fifo"]["results"]) == [6, 24]
 
 
 def test_serve_job_refuses_to_outgrow_the_local_window():
