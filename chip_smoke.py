@@ -37,7 +37,22 @@ ends the script with a non-zero exit and no result line:
               products, as in the JAX package), all ``--policy srtf
               --compare-fifo --batch 4 --prompt-len 1024 --tokens-per-block
               8``; every job must finish and every kernel of the path must
-              have run.
+              have run.  A fourth path serves
+              ``--jobs yi-6b:8,minicpm3-4b:4,yi-6b:8`` with ``--scenario
+              poisson-open --time-scale 1e-6 --seed 0`` (Poisson
+              arrivals from the scenario registry), submitting at the
+              offsets 0, 0.1068 and 0.1875 s or failing.
+6. scenario kernels -- ``--scenario poisson-open --scenario-kernels
+              --time-scale 1e-6 --max-blocks 16``: the scenario's first
+              workload (8 arrivals) as jobs of synthetic blocks on the
+              card, solo baselines through a sweep cache in a temporary
+              directory; run twice, the second run must measure no
+              baseline.  Prints each job's turnaround and, per block
+              shape, the median wall ms of one block (launches plus the
+              synchronize the executor times) and its device ms.
+7. executor sweep -- ``repro_torch.benchmarks.executor_policies`` on the
+              card (four policies and SRTF under EWMA over two long+short
+              pairs, ``jobs=1``), printing its rows.
 
 The line before the last is a JSON object with one entry per kernel and
 timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's and
@@ -101,13 +116,21 @@ MAX_SEQ = PROMPT + LONGEST * TOKENS_PER_BLOCK + 8   # make_serve_job's max_seq
 SERVE_COMMON = ["--policy", "srtf", "--compare-fifo", "--batch", str(B),
                 "--prompt-len", str(PROMPT), "--tokens-per-block",
                 str(TOKENS_PER_BLOCK)]
-# The serving paths, each with the kernels it must launch.
+# The serving paths, each with the kernels it must launch and its pacing.
+POISSON = ["--scenario", "poisson-open", "--time-scale", "1e-6", "--seed",
+           "0"]
 SERVE_PATHS = [
-    ("yi-6b:8,yi-6b:2", ("flash_attention", "decode_attention")),
+    ("yi-6b:8,yi-6b:2", ("flash_attention", "decode_attention"), []),
     ("mamba2-2.7b:8,recurrentgemma-2b:2",
-     ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")),
-    ("minicpm3-4b:8,deepseek-v2-lite-16b:2", ("flash_attention",)),
+     ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan"), []),
+    ("minicpm3-4b:8,deepseek-v2-lite-16b:2", ("flash_attention",), []),
+    # the reference serve docstring's mix, under Poisson arrivals
+    ("yi-6b:8,minicpm3-4b:4,yi-6b:8", ("flash_attention", "decode_attention"),
+     POISSON),
 ]
+# submission_offsets("poisson-open", 3, time_scale=1e-6, seed=0) of the JAX
+# package, to 4 decimals: the scenario path must submit at these.
+POISSON_OFFSETS = (0.0, 0.1068, 0.1875)
 MODELS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b", "minicpm3-4b",
           "deepseek-v2-lite-16b")
 SLEEP_CYCLES = 200_000_000            # device sleep before a timed run
@@ -820,13 +843,21 @@ def phase_model(gen: torch.Generator, arch: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(jobs: str, path_kernels) -> dict:
+def phase_serve(jobs: str, path_kernels, pacing) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    args = ["--jobs", jobs] + SERVE_COMMON
+    args = ["--jobs", jobs] + SERVE_COMMON + pacing
     print(f"[serve] python -m repro_torch.launch.serve {' '.join(args)}",
           flush=True)
+    schedule = serve.submission_schedule(serve.build_parser().parse_args(args))
+    print(f"[serve] submission offsets (s): {schedule}", flush=True)
+    if pacing == POISSON and not (
+            len(schedule) == len(POISSON_OFFSETS)
+            and all(abs(got - want) < 5e-5
+                    for got, want in zip(schedule, POISSON_OFFSETS))):
+        fail(f"serve --scenario poisson-open submits at {schedule}, not at "
+             f"the reference's {POISSON_OFFSETS}")
     ops.reset_launch_counts()
     runs = serve.main(args)
     launches = ops.launch_counts()
@@ -850,6 +881,145 @@ def phase_serve(jobs: str, path_kernels) -> dict:
     return launches
 
 
+def phase_scenario_kernels() -> None:
+    """The scenario's own arrivals as synthetic jobs on the card, twice:
+    the second run must read every solo baseline from the sweep cache."""
+    import statistics
+    import tempfile
+
+    from repro_torch.core import sweep
+    from repro_torch.core.scenarios import (
+        _synthetic_block,
+        _synthetic_shape,
+        executor_job,
+    )
+    from repro_torch.launch import serve
+
+    measured = []
+    real = sweep._measure_executor_solo
+
+    def counted(payload):
+        measured.append(payload["spec"].name)
+        return real(payload)
+
+    with tempfile.TemporaryDirectory() as cache:
+        args = ["--scenario", "poisson-open", "--scenario-kernels",
+                "--time-scale", "1e-6", "--max-blocks", "16", "--cache-dir",
+                cache, "--policy", "srtf", "--compare-fifo", "--seed", "0"]
+        print(f"[scenario] python -m repro_torch.launch.serve "
+              f"{' '.join(args)}", flush=True)
+        arrivals = serve.scenario_arrivals(
+            serve.build_parser().parse_args(args))
+        for a in arrivals:
+            print(f"[scenario] arrival {a.uid} at {a.time * 1e-6:.4f} s: "
+                  f"{a.spec.num_blocks} blocks of shape "
+                  f"{_synthetic_shape(a.spec)}", flush=True)
+        n_specs = len({a.spec for a in arrivals})
+        want = sorted((a.uid, a.spec.num_blocks) for a in arrivals)
+        sweep._measure_executor_solo = counted
+        try:
+            for attempt in ("cold cache", "warm cache"):
+                measured.clear()
+                runs = serve.main(args)
+                for policy, run in runs.items():
+                    got = sorted((r.key, r.blocks) for r in run["results"])
+                    if got != want or any(r.cancelled
+                                          for r in run["results"]):
+                        fail(f"scenario kernels {policy}: finished {got}, "
+                             f"expected {want}")
+                    m = run["metrics"]
+                    print(f"[scenario] {attempt} {policy}: STP={m.stp:.4f} "
+                          f"ANTT={m.antt:.4f} fairness={m.fairness:.4f}, "
+                          f"every job finished; turnaround (s): " + ", ".join(
+                              f"{r.key} {r.turnaround:.6f}" for r in sorted(
+                                  run["results"], key=lambda r: r.key)),
+                          flush=True)
+                print(f"[scenario] {attempt}: {len(measured)} solo "
+                      f"baselines measured", flush=True)
+                if attempt == "cold cache" and len(measured) != n_specs:
+                    fail(f"cold run measured {len(measured)} solo "
+                         f"baselines for {n_specs} specs")
+                if attempt == "warm cache" and measured:
+                    fail(f"warm run re-measured solo baselines {measured}")
+        finally:
+            sweep._measure_executor_solo = real
+
+    dev = torch.device("cuda")
+    for dim, reps in sorted({_synthetic_shape(a.spec) for a in arrivals}):
+        a = next(a for a in arrivals if _synthetic_shape(a.spec) == (dim,
+                                                                   reps))
+        job = executor_job(a, device="cuda")
+        job.warmup_fn()
+        block = job.make_block_fn(1)
+        walls = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            block()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        # 20 calls: 4 launches a repetition, and the launch queue holds
+        # ~1000 behind device_ms's sleep before the host has to wait.
+        step, x0 = _synthetic_block(dim, reps, dev)
+        dev_ms = device_ms(lambda: step(x0), 20)
+        print(f"[scenario] synthetic block ({dim}, {reps}): median "
+              f"{statistics.median(walls):.4f} ms wall per block (200 "
+              f"blocks, each ending in a synchronize; p10 "
+              f"{statistics.quantiles(walls, n=10)[0]:.4f}, p90 "
+              f"{statistics.quantiles(walls, n=10)[-1]:.4f}), "
+              f"{dev_ms:.4f} ms on the device", flush=True)
+
+
+def phase_executor_sweep() -> None:
+    """The executor benchmark on the card.  It asserts what a run can
+    show: every cell's jobs finish on the card, the main sweep measures
+    each distinct spec's solo baseline once and the EWMA sweep reads them
+    all from the cache.  How many cells overlap their jobs in lane time
+    is printed, not checked: only those can rank the policies."""
+    import tempfile
+
+    from repro_torch.benchmarks import executor_policies
+    from repro_torch.core import sweep
+
+    measured = []
+    real = sweep._measure_executor_solo
+
+    def counted(payload):
+        measured.append(payload["spec"].name)
+        return real(payload)
+
+    sweep._measure_executor_solo = counted
+    try:
+        with tempfile.TemporaryDirectory() as cache:
+            result, ewma_result = executor_policies.sweeps(
+                device="cuda", jobs=1, cache_dir=cache)
+    finally:
+        sweep._measure_executor_solo = real
+    for name, derived in executor_policies.rows(result, ewma_result):
+        print(f"[sweep] {name},{derived}", flush=True)
+    cells = list(result.cells) + list(ewma_result.cells)
+    want = 2 * len(executor_policies.POLICY_NAMES) + 2
+    if len(cells) != want:
+        fail(f"executor sweep gave {len(cells)} cells, expected {want}")
+    for c in cells:
+        if (not c.measured or c.unfinished
+                or c.window.n_finished != len(c.arrival)):
+            fail(f"executor cell {c.workload}/{c.policy}/{c.predictor}: "
+                 f"{c.window.n_finished} of {len(c.arrival)} jobs finished, "
+                 f"unfinished {c.unfinished}")
+        print(f"[sweep] {c.workload} {c.policy}+{c.predictor}: arrival (s) "
+              + ", ".join(f"{k} {c.arrival[k]:.6f}" for k in sorted(
+                  c.arrival, key=c.arrival.get))
+              + "; finish (s) " + ", ".join(
+                  f"{k} {v:.6f}" for k, v in sorted(c.finish.items(),
+                                                     key=lambda kv: kv[1]))
+              + f"; overlap {executor_policies.overlaps(c)}", flush=True)
+    specs = sorted(executor_policies.SPECS)
+    print(f"[sweep] solo baselines measured: {sorted(measured)}", flush=True)
+    if sorted(measured) != specs:
+        fail(f"the sweeps measured solo baselines {sorted(measured)}, "
+             f"expected each of {specs} once (the EWMA sweep reads the "
+             f"cache)")
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     result = fn(*args)
@@ -866,10 +1036,12 @@ def main() -> None:
     for arch in MODELS:
         timed("model", phase_model, gen, arch)
     launches = {}
-    for jobs, path_kernels in SERVE_PATHS:
-        counts = timed("serve", phase_serve, jobs, path_kernels)
+    for jobs, path_kernels, pacing in SERVE_PATHS:
+        counts = timed("serve", phase_serve, jobs, path_kernels, pacing)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
+    timed("scenario", phase_scenario_kernels)
+    timed("sweep", phase_executor_sweep)
     sources = {
         "flash_attention": "src/repro/kernels/flash_attention.py:109",
         "decode_attention": "src/repro/kernels/decode_attention.py:84",

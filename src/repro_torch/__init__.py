@@ -11,18 +11,23 @@ without a card they raise rather than fall back (:func:`resolve_device`).
 
 from __future__ import annotations
 
-from typing import Union
+from typing import TYPE_CHECKING, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 
-def resolve_device(device: Union[str, torch.device, None] = None
-                   ) -> torch.device:
+def resolve_device(device: Union[str, "torch.device", None] = None
+                   ) -> "torch.device":
     """The device an entry point runs on: ``cuda`` unless asked otherwise.
 
     Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
-    default) and this process has no CUDA device.
+    default) and this process has no CUDA device.  torch is imported here,
+    not with the package, so the port's DES and sweep modules (and their
+    fork pools) run without loading it.
     """
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -16,10 +16,21 @@ measured once per distinct (arch, blocks) item.
 
 Unlike the JAX driver, which always serves reduced configs, the model runs
 at its full published width unless ``--reduced`` is given, on ``cuda``
-unless ``--device cpu`` is.  The scenario-driven options of the JAX driver
-(``--scenario``, ``--scenario-kernels``, ``--cache-dir``, ``--max-blocks``)
-need the scenario registry and sweep cache, which the port has not taken
-over yet.
+unless ``--device cpu`` is.
+
+Submission pacing comes from the scenario registry
+(:mod:`repro_torch.core.scenarios`) when ``--scenario`` is given: the
+named open-loop arrival process (``poisson-open``, ``bursty``, ...) is
+sampled at ``--seed`` and its first workload's arrival times, scaled by
+``--time-scale`` seconds a cycle, pace the submissions.  With
+``--scenario-kernels`` the scenario supplies the jobs too: its first
+workload's arrivals, grids capped at ``--max-blocks``, are bridged to jobs
+of synthetic blocks on ``--device``
+(:func:`repro_torch.core.scenarios.executor_job`, the bridge executor
+sweeps use), and their solo baselines go through the content-addressed
+sweep cache in ``--cache-dir``
+(:func:`repro_torch.core.sweep.solo_runtime_executor_cached`, keyed by
+spec, lane count and device), so a second run measures none.
 
 The archs served are those the port's model runs, in any mix: the dense
 GQA ones (yi-6b, yi-34b, mistral-nemo-12b), minicpm3-4b (MLA),
@@ -29,14 +40,21 @@ dbrx-132b (GQA + MoE) only with ``--reduced``, since its ~132 B parameters
 cache holds exactly its window (2048 positions at full width, 64 reduced),
 so prompt plus generated tokens must fit in it.
 
-Examples (the reference's default mix; a recurrent pair; MLA beside MoE
-on the CPU)::
+Examples (the reference's default mix; a recurrent pair; Poisson
+arrivals; scenario kernels; MLA beside MoE on the CPU)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --policy srtf \
         --compare-fifo --batch 4 --prompt-len 1024 --tokens-per-block 8
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --jobs mamba2-2.7b:8,recurrentgemma-2b:2 --policy srtf \
         --compare-fifo --batch 4 --prompt-len 1024 --tokens-per-block 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --jobs yi-6b:8,minicpm3-4b:4,yi-6b:8 --scenario poisson-open \
+        --time-scale 1e-6 --policy srtf --compare-fifo --batch 4 \
+        --prompt-len 1024 --tokens-per-block 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --scenario poisson-open --scenario-kernels --time-scale 1e-6 \
+        --policy srtf --compare-fifo
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --reduced --jobs minicpm3-4b:4,deepseek-v2-lite-16b:2 \
         --policy srtf --compare-fifo --tokens-per-block 4 --prompt-len 8 \
@@ -49,7 +67,7 @@ import argparse
 import asyncio
 import gc
 import itertools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +78,15 @@ from ..core.executor import LaneExecutor
 from ..core.jobs import make_serve_job
 from ..core.metrics import evaluate, evaluate_queueing
 from ..core.policies import make_policy
+from ..core.scenarios import (
+    executor_job,
+    make_scenario,
+    open_loop_names,
+    submission_offsets,
+)
 from ..core.scheduler_service import SchedulerService
+from ..core.sweep import solo_runtime_executor_cached
+from ..core.workload import Arrival, scaled_spec
 
 
 def parse_jobs(args) -> List[Tuple[str, int]]:
@@ -91,10 +117,39 @@ def release_device_memory(device: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
-def measure_solo(args) -> Dict[Tuple[str, int], float]:
+def scenario_arrivals(args) -> List[Arrival]:
+    """First-workload arrivals of the ``--scenario`` arrival process, grids
+    capped at ``--max-blocks`` (0: uncapped).  Scenario specs declare
+    simulator-scale grids (thousands of blocks) and every bridged block is
+    a real measured execution; the cap rescales ``num_blocks`` only."""
+    scn = make_scenario(args.scenario, seed=args.seed)
+    workloads = scn.workloads()
+    if not workloads:
+        raise ValueError(f"scenario {scn.name!r} produced no workloads")
+    arrivals = workloads[0][1]
+    cap = args.max_blocks
+    if cap:
+        arrivals = [
+            Arrival(scaled_spec(a.spec,
+                                num_blocks=min(a.spec.num_blocks, cap)),
+                    a.time, uid=a.uid)
+            for a in arrivals
+        ]
+    return arrivals
+
+
+def measure_solo(args) -> Dict[object, float]:
     """Measured isolated runtime per distinct (arch, blocks) item — the
-    STP/ANTT baseline, measured once and reused by every policy run."""
-    solo: Dict[Tuple[str, int], float] = {}
+    STP/ANTT baseline, measured once and reused by every policy run.
+
+    With ``--scenario-kernels`` the baselines are keyed by the scenario's
+    kernel specs and go through the sweep cache on ``--device``."""
+    if args.scenario_kernels:
+        return {a.spec: solo_runtime_executor_cached(
+                    a.spec, n_lanes=args.lanes, cache_dir=args.cache_dir,
+                    device=str(args.device))
+                for a in scenario_arrivals(args)}
+    solo: Dict[object, float] = {}
     for arch_id, blocks in parse_jobs(args):
         if (arch_id, blocks) in solo:
             continue                  # one baseline per distinct item
@@ -115,25 +170,59 @@ def print_tenant_report(service: SchedulerService) -> None:
                   f"STP={tm['stp']:.3f} ANTT={tm['antt']:.3f}")
 
 
-async def run_service(args, policy: str, solo: Dict[Tuple[str, int], float]):
-    """One policy run: staggered async submissions against a live service.
+def submission_schedule(args) -> List[float]:
+    """Per-job submission offsets (seconds since the first submission): a
+    fixed ``--stagger`` gap, or with ``--scenario`` the named arrival
+    process's first-workload times scaled by ``--time-scale``."""
+    n = len(parse_jobs(args))
+    if not args.scenario:
+        return [i * args.stagger for i in range(n)]
+    return submission_offsets(args.scenario, n, time_scale=args.time_scale,
+                              seed=args.seed)
+
+
+def submission_plan(args, solo: Dict[object, float]
+                    ) -> List[Tuple[float, Callable, str, float]]:
+    """Per-submission ``(offset_s, job_factory, tenant, solo_runtime)``:
+    model jobs from ``--jobs``, or with ``--scenario-kernels`` the
+    scenario's arrivals bridged to synthetic jobs on ``--device``."""
+    if args.scenario_kernels:
+        return [
+            (a.time * args.time_scale,
+             lambda a=a: executor_job(a, n_lanes=args.lanes,
+                                      time_scale=args.time_scale,
+                                      device=args.device),
+             a.spec.name, solo[a.spec])
+            for a in scenario_arrivals(args)
+        ]
+    offsets = submission_schedule(args)
+    return [
+        (offsets[i],
+         lambda arch_id=arch_id, blocks=blocks, i=i: build_job(
+             args, arch_id, blocks, args.seed + i),
+         arch_id, solo[(arch_id, blocks)])
+        for i, (arch_id, blocks) in enumerate(parse_jobs(args))
+    ]
+
+
+async def run_service(args, policy: str, solo: Dict[object, float]):
+    """One policy run: paced async submissions against a live service.
     Returns (metrics, job results)."""
     service = SchedulerService(n_lanes=args.lanes, policy=policy,
                                predictor=args.predictor)
-    items = parse_jobs(args)
+    plan = submission_plan(args, solo)
     try:
         handles = []
         solo_by_key: Dict[str, float] = {}
         loop = asyncio.get_running_loop()
         t0 = loop.time()
-        for i, (arch_id, blocks) in enumerate(items):
-            delay = t0 + i * args.stagger - loop.time()
+        for offset, job_factory, tenant, solo_rt in plan:
+            delay = t0 + offset - loop.time()
             if delay > 0:
                 await asyncio.sleep(delay)  # late arrival, busy machine
-            handle = service.submit(
-                build_job(args, arch_id, blocks, args.seed + i),
-                tenant=arch_id, solo_runtime=solo[(arch_id, blocks)])
-            solo_by_key[handle.key] = solo[(arch_id, blocks)]
+            handle = service.submit(job_factory(), tenant=tenant,
+                                    solo_runtime=solo_rt)
+            solo_by_key[handle.key] = solo_rt
             handles.append(handle)
         results = [await h.result() for h in handles]
     finally:
@@ -149,13 +238,34 @@ async def run_service(args, policy: str, solo: Dict[Tuple[str, int], float]):
     return m, results
 
 
+def closed_loop_items(args, solo: Dict[object, float]):
+    """The job menu closed-loop clients cycle through: per item
+    ``(make(i) -> job, tenant, solo_runtime)``.  Pacing comes from
+    completions (and ``--think``), so scenario-kernel jobs are bridged at
+    arrival time 0."""
+    if args.scenario_kernels:
+        return [
+            (lambda i, a=a: executor_job(
+                Arrival(a.spec, 0.0), n_lanes=args.lanes,
+                time_scale=args.time_scale, device=args.device),
+             a.spec.name, solo[a.spec])
+            for a in scenario_arrivals(args)
+        ]
+    return [
+        (lambda i, arch_id=arch_id, blocks=blocks: build_job(
+            args, arch_id, blocks, args.seed + i),
+         arch_id, solo[(arch_id, blocks)])
+        for arch_id, blocks in parse_jobs(args)
+    ]
+
+
 async def run_service_closed_loop(args, policy: str,
-                                  solo: Dict[Tuple[str, int], float]):
+                                  solo: Dict[object, float]):
     """One closed-loop policy run: ``--closed-loop`` concurrent clients,
     each looping submit -> await -> think, against a live service."""
     service = SchedulerService(n_lanes=args.lanes, policy=policy,
                                predictor=args.predictor)
-    items = parse_jobs(args)
+    items = closed_loop_items(args, solo)
     counter = itertools.count()
     results = []
     solo_by_key: Dict[str, float] = {}
@@ -168,11 +278,10 @@ async def run_service_closed_loop(args, policy: str,
                 return
             if args.think > 0.0:
                 await asyncio.sleep(float(rng.exponential(args.think)))
-            arch_id, blocks = items[i % len(items)]
-            handle = service.submit(
-                build_job(args, arch_id, blocks, args.seed + i),
-                tenant=arch_id, solo_runtime=solo[(arch_id, blocks)])
-            solo_by_key[handle.key] = solo[(arch_id, blocks)]
+            make, tenant, solo_rt = items[i % len(items)]
+            handle = service.submit(make(i), tenant=tenant,
+                                    solo_runtime=solo_rt)
+            solo_by_key[handle.key] = solo_rt
             results.append(await handle.result())
 
     try:
@@ -240,6 +349,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--warmup-frac", type=float, default=0.0,
                     help="fraction of the closed-loop window trimmed "
                          "before computing queueing metrics")
+    # trace-replay needs a trace the CLI does not take; closed-loop
+    # scenarios are left out because this flag paces a fixed submission
+    # stream (closed-loop serving is --closed-loop).
+    ap.add_argument("--scenario", default=None,
+                    choices=sorted(set(open_loop_names()) - {"trace-replay"}),
+                    help="draw submission offsets from this registered "
+                         "arrival process instead of a fixed stagger "
+                         "(e.g. poisson-open, bursty)")
+    ap.add_argument("--time-scale", type=float, default=1e-6,
+                    help="seconds of wall time per scenario cycle "
+                         "(with --scenario)")
+    ap.add_argument("--scenario-kernels", action="store_true",
+                    help="with --scenario: take the jobs themselves from "
+                         "the scenario via the executor bridge (synthetic "
+                         "blocks on --device) instead of --jobs archs")
+    ap.add_argument("--cache-dir", default="artifacts/sweep_cache",
+                    help="sweep cache for --scenario-kernels solo "
+                         "baselines (shared with jobs=1 executor sweeps)")
+    ap.add_argument("--max-blocks", type=int, default=16,
+                    help="cap scenario grids at this many real blocks per "
+                         "job (with --scenario-kernels; 0 = uncapped)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda unless asked; no fallback)")
@@ -252,7 +382,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     """Run the driver; returns ``{policy: {"metrics", "results",
     "peak_bytes"}}`` for callers that check the run."""
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.scenario_kernels and not args.scenario:
+        ap.error("--scenario-kernels requires --scenario")
     args.device = resolve_device(args.device)
     solo = measure_solo(args)
     runs: Dict[str, dict] = {}

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card; also
-the MLA layer through flash at full width against its plain route, and
-the MoE dispatch and combine on the card bitwise equal to the CPU's.
+the MLA layer through flash at full width against its plain route, the
+MoE dispatch and combine on the card bitwise equal to the CPU's, one
+executor-sweep cell, and the serving example at its full-width default.
 
 Marked ``cuda``; each test skips where there is no CUDA device.  On a
 GPU machine::
@@ -468,3 +469,64 @@ def test_moe_dispatch_and_combine_on_the_card_equal_the_cpu(gen):
     again = ops.moe_combine(y, meta)
     assert torch.equal(out, again)
     assert torch.equal(out.cpu(), ops.moe_combine(y.cpu(), cmeta))
+
+
+# ------------------------------------------------------- executor bridge
+def test_executor_cell_runs_on_the_card(gen, tmp_path):
+    """One executor-sweep cell with no device given: its synthetic blocks
+    run on the card, every job finishes, and the solo baselines are keyed
+    by the device."""
+    from repro_torch.core import scenarios, sweep
+    from repro_torch.core.workload import ERCBENCH, scaled_spec
+
+    specs = {"SAD": scaled_spec(ERCBENCH["SAD"], num_blocks=8,
+                                mean_t=30_000.0),
+             "JPEG-d": scaled_spec(ERCBENCH["JPEG-d"], num_blocks=4,
+                                   mean_t=900.0)}
+    scn = scenarios.TraceReplay(trace=[{"kernel": "SAD", "time": 0.0},
+                                       {"kernel": "JPEG-d", "time": 100.0}],
+                                specs=specs, name="card")
+    spec = sweep.SweepSpec(scenarios=(scn,), policies=("srtf",),
+                           machine="executor", n_sm=3)
+    assert spec.device == "cuda"
+    cell, = sweep.run_sweep(spec, cache_dir=tmp_path).cells
+    assert cell.measured and not cell.unfinished
+    assert cell.window.n_finished == 2 and cell.metrics.stp > 0.0
+    key = sweep._executor_solo_key(specs["SAD"], 3, 1, "cuda")
+    assert (tmp_path / f"{key}.json").exists()
+    step, x0 = scenarios._synthetic_block(61, 4, torch.device("cuda"))
+    assert step(x0).is_cuda
+
+
+# -------------------------------------------------------- serving example
+def test_concurrent_serving_example_at_full_width_on_the_card(gen,
+                                                              monkeypatch):
+    """The example's default: full-width minicpm3-4b and yi-6b on the
+    card (16-token prompts, flash and decode at those shapes); every job
+    of every run finishes all its blocks."""
+    from repro_torch.core.executor import LaneExecutor
+    from repro_torch.examples import concurrent_serving
+
+    runs = []
+
+    class Recording(LaneExecutor):
+        def run(self, *args, **kwargs):
+            results = super().run(*args, **kwargs)
+            runs.append({k: (r.blocks, r.cancelled)
+                         for k, r in results.items()})
+            return results
+
+    monkeypatch.setattr(concurrent_serving, "LaneExecutor", Recording)
+    ops.reset_launch_counts()
+    out = concurrent_serving.main([])
+    assert sorted(out) == ["fifo", "srtf", "srtf-adaptive"]
+    assert all(m.stp > 0 and m.antt > 0 for m in out.values())
+    # Two solo runs, then one run of both jobs per policy.
+    assert [len(r) for r in runs] == [1, 1, 2, 2, 2]
+    for r in runs:
+        for key, (blocks, cancelled) in r.items():
+            assert blocks == (40 if key.startswith("long-job") else 5)
+            assert not cancelled
+    launches = ops.launch_counts()
+    assert launches["flash_attention"] > 0
+    assert launches["decode_attention"] > 0
