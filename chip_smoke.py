@@ -19,6 +19,13 @@ ends the script with a non-zero exit and no result line:
               ``F.scaled_dot_product_attention`` where it computes the same
               function (a yardstick the port never calls) with CUDA events,
               and the least time the card could take for the same work.
+              The flash backward against its plain formula (fp32) at
+              yi-6b's training shape, the 100M example's, a ragged S, a
+              window with q_offset and no mask with Sq != Sk: relative L2
+              of dq, dk, dv within max(2e-2, 2 x the plain formula's bf16
+              floor), two launches bitwise equal, the forward's lse within
+              1e-3 of the plain lse and its out unchanged by asking for
+              lse; times against SDPA's backward.
 4. model   -- full-width yi-6b, mamba2-2.7b, recurrentgemma-2b, minicpm3-4b
               and deepseek-v2-lite-16b in bf16 (random weights from a
               seed): prefill and 4 decode steps through the kernels against
@@ -42,7 +49,23 @@ ends the script with a non-zero exit and no result line:
               poisson-open --time-scale 1e-6 --seed 0`` (Poisson
               arrivals from the scenario registry), submitting at the
               offsets 0, 0.1068 and 0.1875 s or failing.
-6. scenario kernels -- ``--scenario poisson-open --scenario-kernels
+6. train   -- ``python -m repro_torch.launch.train --arch yi-6b
+              --n-layers 12 --steps 6 --batch 4 --seq 1024`` (full width,
+              depth cut so that fp32 weights, gradients and AdamW moments
+              fit): every loss finite, one flash forward and backward
+              launch per layer and step; each step's wall ms, the
+              predictor's estimate and the peak memory; where a step's
+              device time goes (torch.profiler).  The same at 2
+              layers with a checkpoint every 3 steps, then resumed from
+              the step-3 checkpoint: the resumed steps bitwise equal to
+              the uninterrupted ones (the three checkpoints these runs
+              write would take 93 GB at 12 layers, 31 GB at 2).  Then
+              ``--jobs yi-6b:8,yi-6b:2 --n-layers 2`` under SRTF and FIFO,
+              every job finishing.  Then one step's gradients at 12 layers
+              through the kernels against the plain versions, each stacked
+              leaf within max(5e-2, 2 x floor) relative L2 (floor: plain
+              bf16 vs plain fp32).
+7. scenario kernels -- ``--scenario poisson-open --scenario-kernels
               --time-scale 1e-6 --max-blocks 16``: the scenario's first
               workload (8 arrivals) as jobs of synthetic blocks on the
               card, solo baselines through a sweep cache in a temporary
@@ -50,15 +73,16 @@ ends the script with a non-zero exit and no result line:
               baseline.  Prints each job's turnaround and, per block
               shape, the median wall ms of one block (launches plus the
               synchronize the executor times) and its device ms.
-7. executor sweep -- ``repro_torch.benchmarks.executor_policies`` on the
+8. executor sweep -- ``repro_torch.benchmarks.executor_policies`` on the
               card (four policies and SRTF under EWMA over two long+short
               pairs, ``jobs=1``), printing its rows.
 
 The line before the last is a JSON object with one entry per kernel and
 timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's and
-deepseek-v2-lite's prefill; decode: yi-6b's and recurrentgemma-2b's decode
-steps; RG-LRU: recurrentgemma-2b's prefill at B 4 and at B 1; launches
-summed over the serve paths); the last line is
+deepseek-v2-lite's prefill; the flash backward: yi-6b's training shape;
+decode: yi-6b's and recurrentgemma-2b's decode steps; RG-LRU:
+recurrentgemma-2b's prefill at B 4 and at B 1; launches summed over the
+serve and train paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -110,6 +134,14 @@ SCAN_TOL = 3e-2
 # probabilities), and the run reports the share of tokens each would have
 # sent elsewhere.
 MODEL_REL_L2 = 5e-2
+# Flash backward, kernel vs the plain formula in fp32 on the same bf16
+# inputs: relative L2 of each gradient within max(BWD_REL_L2, 2 x floor),
+# the floor the plain formula in bf16 against it in fp32 (the kernel rounds
+# P and dS to bf16 before its products, as the bf16 formula does); the
+# forward's lse within LSE_TOL absolute of the plain lse (fp32 sums in
+# another order and ex2.approx).
+BWD_REL_L2 = 2e-2
+LSE_TOL = 1e-3
 
 B, PROMPT, TOKENS_PER_BLOCK, LONGEST = 4, 1024, 8, 8
 MAX_SEQ = PROMPT + LONGEST * TOKENS_PER_BLOCK + 8   # make_serve_job's max_seq
@@ -133,6 +165,13 @@ SERVE_PATHS = [
 POISSON_OFFSETS = (0.0, 0.1068, 0.1875)
 MODELS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b", "minicpm3-4b",
           "deepseek-v2-lite-16b")
+# Training: full-width yi-6b cut to 12 layers (fp32 weights, gradients and
+# AdamW moments, 16 bytes a parameter: 2.6 B parameters, 41.6 GB; the 32
+# layers' 97 GB do not fit the card), B 4 x 1024 tokens.
+TRAIN_LAYERS, TRAIN_STEPS = 12, 6
+# Checkpoint and resume at full width with 2 layers: 10.4 GB a checkpoint.
+RESUME_LAYERS = 2
+TRAIN_JOBS = "yi-6b:8,yi-6b:2"
 SLEEP_CYCLES = 200_000_000            # device sleep before a timed run
 
 
@@ -261,9 +300,126 @@ def phase_build() -> None:
 def phase_kernels(gen: torch.Generator) -> dict:
     out = {}
     out.update(kernels_attention(gen))
+    out["flash_attention_bwd"] = kernel_flash_bwd(gen)
     out["ssd_scan"] = [kernel_ssd(gen)]
     out["rglru_scan"] = kernel_rglru(gen)
     return out
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def kernel_flash_bwd(gen: torch.Generator) -> list:
+    """The flash backward against its plain version (the reference formula
+    in float32) on the same bf16 q, k, v, dout and the forward kernel's
+    out and lse: each gradient within max(BWD_REL_L2, 2 x floor) relative
+    L2, the floor being the plain formula in bf16 against it in fp32; two
+    launches bitwise equal.  Also the forward's lse against the plain lse
+    (within LSE_TOL absolute) and its out with and without lse bitwise
+    equal.  Times at yi-6b's training shape, against SDPA's backward."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_plain,
+    )
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    cases = [
+        # name, B, Sq, Sk, H, KV, D, mask, window, q_offset
+        ("yi-6b train B4 S1024 H32 KV4 D128 causal", B, 1024, 1024, 32, 4,
+         128, "causal", 0, 0),
+        ("example B8 S128 H10 KV2 D64 causal", 8, 128, 128, 10, 2, 64,
+         "causal", 0, 0),
+        ("ragged B2 S1000 H32 KV4 D128 causal", 2, 1000, 1000, 32, 4, 128,
+         "causal", 0, 0),
+        ("window B2 Sq300 Sk600 H8 KV2 D128 w150 q_offset300", 2, 300, 600,
+         8, 2, 128, "window", 150, 300),
+        ("none B2 Sq77 Sk150 H8 KV2 D64", 2, 77, 150, 8, 2, 64, "none", 0,
+         0),
+    ]
+    results = {}
+    for name, b, sq, sk, h, kv, d, kind, window, off in cases:
+        q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
+        dout = randn(b, sq, h, d)
+        kw = dict(mask_kind=kind, window=window, q_offset=off)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        alone = flash_attention_cuda(q, k, v, **kw)
+        _, want_lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                            return_lse=True, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+        truth = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+        plain16 = flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                            dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, alone):
+            fail(f"flash_attention {name}: out differs with and without lse")
+        lse_err = float((lse - want_lse).abs().max())
+        if not lse_err <= LSE_TOL:
+            fail(f"flash_attention {name}: lse off by {lse_err:.3e}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"flash_attention_bwd {name}: two launches differ")
+        errs = []
+        for grad, g, w, f16 in zip(("dq", "dk", "dv"), got, truth, plain16):
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                fail(f"flash_attention_bwd {name} {grad}: shape "
+                     f"{tuple(g.shape)} or non-finite")
+            err, floor = rel_l2(g, w), rel_l2(f16, w)
+            limit = max(BWD_REL_L2, 2 * floor)
+            abs_err = float((g.float() - w.float()).abs().max())
+            errs.append(abs_err)
+            ok = err <= limit
+            print(f"[kernels] flash_attention_bwd {name} {grad}: relative "
+                  f"L2 {err:.3e} (bound {limit:.3e} = max({BWD_REL_L2}, 2 x "
+                  f"floor {floor:.3e})), max_abs_err {abs_err:.3e} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail(f"flash_attention_bwd {name} {grad} disagrees with its "
+                     f"plain version")
+        print(f"[kernels] flash_attention {name}: lse max abs err "
+              f"{lse_err:.3e} (tol {LSE_TOL}), out with and without lse "
+              f"bitwise equal", flush=True)
+        results[name] = max(errs)
+    print("[kernels] flash_attention_bwd: two launches bitwise equal in every "
+          "case", flush=True)
+
+    # Times at yi-6b's training shape.
+    name, b, sq, sk, h, kv, d, kind, window, off = cases[0]
+    q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
+    dout = randn(b, sq, h, d)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    pairs = int(ref.causal_mask(sq, sk, 0, "cuda").sum())
+    flops = 2.0 * b * h * pairs * (3 * d + 2 * d)          # five products
+    flops_done = 2.0 * b * h * pairs * (4 * d + 3 * d)     # as designed
+    total = nbytes(q, k, v, out, dout, lse) + nbytes(q, k, v)
+    b_ms, b_by = bound(flops, total)
+    ms = device_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, dout, lse),
+                   20)
+    plain_ms = device_ms(
+        lambda: flash_attention_bwd_plain(q, k, v, out, dout, lse), 3)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(qg, kg, vg, causal=True)
+    lib_dout = dout.transpose(1, 2)
+    lib_ms = device_ms(lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), lib_dout, retain_graph=True), 20)
+    print(f"[kernels] flash_attention_bwd {name}: kernel {ms:.4f} ms on the "
+          f"device, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP in the five "
+          f"products; {flops_done / 1e9:.2f} GFLOP as designed = "
+          f"{bound(flops_done, total)[0]:.4f} ms; {total / 1e6:.2f} MB); "
+          f"kernel at {b_ms / ms:.1%} of the bound", flush=True)
+    return [dict(shape=f"B{b} S{sq} H{h} KV{kv} D{d} {kind}",
+                 max_abs_err=max(results.values()), ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)]
 
 
 def kernels_attention(gen: torch.Generator) -> dict:
@@ -651,7 +807,8 @@ def kernel_rglru(gen: torch.Generator) -> list:
 
 
 KINDS = {   # device-time classes of the profiler's kernel names
-    "attention kernels": ("flash_fwd_kernel", "decode_attention_kernel"),
+    "attention kernels": ("flash_fwd_kernel", "flash_bwd",
+                          "decode_attention_kernel"),
     "scan kernels": ("ssd_scan_kernel", "rglru_scan_kernel"),
     "matmuls": ("gemm", "xmma", "cutlass", "nvjet"),
 }
@@ -1020,6 +1177,224 @@ def phase_executor_sweep() -> None:
              f"cache)")
 
 
+def train_args(layers: int) -> list:
+    return ["--arch", "yi-6b", "--n-layers", str(layers), "--batch", str(B),
+            "--seq", str(PROMPT)]
+
+
+TRAIN_METRICS = ("nll", "aux", "z", "grad_norm", "lr")
+
+
+def train_run(args: list, layers: int, steps_run: int) -> dict:
+    """``repro_torch.launch.train`` with the launch counters set to 0 just
+    before and read just after: every loss finite, each step's wall ms
+    printed, and one flash forward and one backward launch per layer and
+    step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    print(f"[train] python -m repro_torch.launch.train {' '.join(args)}",
+          flush=True)
+    ops.reset_launch_counts()
+    run = train.main(args)
+    launches = ops.launch_counts()
+    for r in run["steps"]:
+        if not all(math.isfinite(r[k]) for k in TRAIN_METRICS):
+            fail(f"train step {r['step']}: non-finite metrics {r}")
+        print(f"[train] step {r['step']}: {r['ms']:.1f} ms wall, nll "
+              f"{r['nll']!r}, grad_norm {r['grad_norm']!r}", flush=True)
+    want = layers * steps_run
+    print(f"[train] {len(run['steps'])} steps; predictor after the first "
+          f"steady step: {run['predicted_s']!r} s for the rest; peak device "
+          f"memory {run['peak_bytes'] / 2**30:.2f} GiB "
+          f"(max_memory_allocated); kernel launches {launches} (flash "
+          f"forward and backward: {layers} layers x {steps_run} steps = "
+          f"{want} each)", flush=True)
+    if len(run["steps"]) != steps_run:
+        fail(f"train ran {len(run['steps'])} steps, expected {steps_run}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if launches[name] != want:
+            fail(f"train launched {name} {launches[name]} times, expected "
+                 f"{want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "launches": launches}
+
+
+def profile_train_step() -> None:
+    """Where a train step's device time goes at full width and
+    TRAIN_LAYERS layers: torch.profiler over two steps after a warm one
+    (outside the launch-counting windows)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import pipeline as data
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=TRAIN_LAYERS)
+    shape = InputShape("profile", PROMPT, B, "train")
+    params = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
+                     stacked=True)
+    for p in leaves(params):
+        p.requires_grad_()
+    opt = adamw.init(params)
+    bundle = build_train_step(cfg, shape, remat=False)
+    batch = data.batch_for_step(cfg, shape, 0, device="cuda")
+
+    def step():
+        bundle.fn(params, opt, batch)
+
+    step()
+    torch.cuda.synchronize()
+    profile(step, 2, f"yi-6b {TRAIN_LAYERS}-layer train step")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train() -> dict:
+    """Full-width yi-6b cut to TRAIN_LAYERS layers for TRAIN_STEPS steps;
+    then, at RESUME_LAYERS layers, TRAIN_STEPS steps with a checkpoint
+    every TRAIN_STEPS // 2 and a run resumed from that checkpoint, whose
+    steps must equal the uninterrupted run's bitwise.  (The runs write
+    three checkpoints of fp32 state: 93 GB at 12 layers, past a 45 GiB
+    limit on disk writes that a GPU host may set; 31 GB at 2.)"""
+    import os
+    import shutil
+    import tempfile
+
+    launches = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    add(train_run(train_args(TRAIN_LAYERS) + ["--steps", str(TRAIN_STEPS)],
+                  TRAIN_LAYERS, TRAIN_STEPS)["launches"])
+    profile_train_step()
+    half = TRAIN_STEPS // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = train_run(train_args(RESUME_LAYERS) + [
+            "--steps", str(TRAIN_STEPS), "--checkpoint-dir", tmp,
+            "--checkpoint-every", str(half)], RESUME_LAYERS, TRAIN_STEPS)
+        shutil.rmtree(os.path.join(tmp, f"step_{TRAIN_STEPS:010d}"))
+        resumed = train_run(train_args(RESUME_LAYERS) + [
+            "--steps", str(TRAIN_STEPS), "--checkpoint-dir", tmp,
+            "--resume"], RESUME_LAYERS, TRAIN_STEPS - half)
+    add(whole["launches"])
+    add(resumed["launches"])
+    diffs = []
+    for a, b in zip(whole["run"]["steps"][half:], resumed["run"]["steps"]):
+        for name in TRAIN_METRICS:
+            if a[name] != b[name]:
+                diffs.append((a["step"], name, a[name], b[name]))
+    if diffs:
+        # Every kernel on the path is deterministic and the data are
+        # seekable, so a difference is a fault, not noise.
+        fail(f"resumed steps differ from the uninterrupted run: {diffs}")
+    print(f"[train] resumed from step {half}: steps {half}-{TRAIN_STEPS - 1} "
+          f"bitwise equal to the uninterrupted run in {TRAIN_METRICS}",
+          flush=True)
+    return launches
+
+
+def phase_train_check() -> None:
+    """One step's gradients at full width and TRAIN_LAYERS layers, from
+    the same fp32 weights and batch, through the kernels and through the
+    plain versions (``backend="ref"``): each stacked leaf within
+    max(MODEL_REL_L2, 2 x floor) relative L2, the floor being the plain
+    path in bf16 against it in fp32.  Gradients only, no optimizer state,
+    so that two sets fit beside the weights; the plain runs recompute each
+    layer in the backward (remat) to keep their quadratic attention's
+    activations small."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import pipeline as data
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves_with_path
+
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=TRAIN_LAYERS)
+    params = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
+                     stacked=True)
+    paths = [p for p, _ in leaves_with_path(params)]
+    leaves = [t.requires_grad_() for _, t in leaves_with_path(params)]
+    batch = data.batch_for_step(cfg, InputShape("check", PROMPT, B, "train"),
+                                0, device="cuda")
+
+    def grads(backend, dtype, remat):
+        total, _ = lm.loss_fn(cfg, params, batch, backend=backend,
+                              dtype=dtype, remat=remat)
+        g = torch.autograd.grad(total, leaves)
+        torch.cuda.synchronize()
+        return float(total.detach()), g
+
+    t0 = time.perf_counter()
+    loss_ref, plain = grads("ref", torch.bfloat16, True)
+    loss_truth, truth = grads("ref", torch.float32, True)
+    floors = [rel_l2(p, t) for p, t in zip(plain, truth)]
+    del truth
+    loss_kernel, kernel = grads("kernel", torch.bfloat16, False)
+    worst = 0.0
+    for path, k, p, floor in zip(paths, kernel, plain, floors):
+        if not torch.isfinite(k).all():
+            fail(f"train check {path}: non-finite kernel gradient")
+        err, limit = rel_l2(k, p), max(MODEL_REL_L2, 2 * floor)
+        worst = max(worst, err / limit)
+        print(f"[train-check] {path}: relative L2 kernels vs plain {err:.3e} "
+              f"(bound {limit:.3e}; floor, plain bf16 vs fp32, "
+              f"{floor:.3e}) {'ok' if err <= limit else 'MISMATCH'}",
+              flush=True)
+        if not err <= limit:
+            fail(f"train check: {path} through the kernels disagrees with "
+                 f"the plain versions")
+    print(f"[train-check] losses: kernels {loss_kernel!r}, plain bf16 "
+          f"{loss_ref!r}, plain fp32 {loss_truth!r}; worst error at "
+          f"{worst:.1%} of its bound; {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    del params, leaves, kernel, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_multi() -> dict:
+    """``--jobs yi-6b:8,yi-6b:2`` at full width and 2 layers under SRTF and
+    FIFO: every job finishes."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    launches = {}
+    for policy in ("srtf", "fifo"):
+        args = ["--jobs", TRAIN_JOBS, "--n-layers", "2", "--batch", str(B),
+                "--seq", str(PROMPT), "--policy", policy]
+        print(f"[train-multi] python -m repro_torch.launch.train "
+              f"{' '.join(args)}", flush=True)
+        ops.reset_launch_counts()
+        run = train.main(args)
+        counts = ops.launch_counts()
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        blocks = sorted(r.blocks for r in run["results"].values())
+        want = sorted(int(j.split(":")[1]) for j in TRAIN_JOBS.split(","))
+        if blocks != want or any(r.cancelled
+                                 for r in run["results"].values()):
+            fail(f"train --jobs {TRAIN_JOBS} {policy}: blocks {blocks}, "
+                 f"expected {want}")
+        m = run["metrics"]
+        print(f"[train-multi] {policy}: STP={m.stp:.4f} ANTT={m.antt:.4f} "
+              f"fairness={m.fairness:.4f} peak_memory="
+              f"{run['peak_bytes'] / 2**30:.2f} GiB, every job finished; "
+              f"kernel launches {counts}", flush=True)
+        if counts["flash_attention_bwd"] <= 0:
+            fail("multi-job training never launched the flash backward")
+    return launches
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     result = fn(*args)
@@ -1040,10 +1415,17 @@ def main() -> None:
         counts = timed("serve", phase_serve, jobs, path_kernels, pacing)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
+    for phase in (phase_train, phase_train_multi):
+        counts = timed("train", phase)
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+    timed("train-check", phase_train_check)
     timed("scenario", phase_scenario_kernels)
     timed("sweep", phase_executor_sweep)
     sources = {
         "flash_attention": "src/repro/kernels/flash_attention.py:109",
+        "flash_attention_bwd":
+            "src/repro/kernels/ops.py:152 (XLA custom_vjp backward)",
         "decode_attention": "src/repro/kernels/decode_attention.py:84",
         "ssd_scan": "src/repro/kernels/ssd_scan.py:94",
         "rglru_scan": "src/repro/kernels/rglru_scan.py:74",
@@ -1051,7 +1433,7 @@ def main() -> None:
     kernels = []
     for name, replaces in sources.items():
         # One entry per timed shape; launches are the kernel's count over
-        # the serve paths, whatever the shape.
+        # the serve and train paths, whatever the shape.
         for s in stats[name]:
             kernels.append({
                 "name": name, "route": "cuda",

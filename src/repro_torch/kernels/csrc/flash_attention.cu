@@ -5,7 +5,9 @@
 // attention with a causal, sliding-window or no mask and a static q_offset.
 // Scores are accumulated in fp32 and scaled in fp32; the running max m, sum
 // l and output accumulator are fp32; a row that no key may attend to comes
-// out 0 (the Pallas kernel's 1e-30 floor on l).
+// out 0 (the Pallas kernel's 1e-30 floor on l).  On request (training) it
+// also writes each row's logsumexp for the backward
+// (csrc/flash_attention_bwd.cu); serving passes no lse pointer.
 //
 // What bounds it on the card: tensor-core operations.  At the serving
 // path's prefill shapes the causal half of QK^T and PV is 34.39 GFLOP
@@ -114,8 +116,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 bf16* __restrict__ out, int Sq, int Sk, int H, int KV,
-                 int mask_kind, int window, int q_offset, float scale_log2) {
+                 bf16* __restrict__ out, float* __restrict__ lse, int Sq,
+                 int Sk, int H, int KV, int mask_kind, int window,
+                 int q_offset, float scale_log2) {
     using T = Tile<D, DV>;
     constexpr int BN = T::BN;
     extern __shared__ unsigned char smem_raw[];
@@ -292,12 +295,28 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
     // Epilogue: the quad's partial sums, then O / max(l, 1e-30) as bf16.
     float inv[2];
+    float l_tot[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         float l = l_run[r];
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
-        inv[r] = 1.f / fmaxf(l, 1e-30f);
+        l_tot[r] = fmaxf(l, 1e-30f);
+        inv[r] = 1.f / l_tot[r];
+    }
+    // The backward's lse (training only): natural log of the scaled
+    // logits' sum of exponentials, (m + log2 l) ln 2 from the log2 domain;
+    // a row that sees no key gets -1e30 (the reference's -1e30 + log(1e-30)
+    // in fp32), so that the backward gives it zero gradient.
+    if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = row0 + 8 * r;
+            if (row >= Sq) continue;
+            lse[((long long)b * Sq + row) * H + h] = m_run[r] == -INFINITY
+                ? -1e30f
+                : (m_run[r] + log2f(l_tot[r])) * 0.6931471805599453f;
+        }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -363,8 +382,9 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int width, int heads,
 
 template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int KV, int mask_kind,
-                   int window, int q_offset, float scale, cudaStream_t stream) {
+                   void* lse, int B, int Sq, int Sk, int H, int KV,
+                   int mask_kind, int window, int q_offset, float scale,
+                   cudaStream_t stream) {
     using T = Tile<D, DV>;
     if (Sk == 0)   // no key anywhere: every row is 0
         return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * DV * sizeof(bf16),
@@ -380,39 +400,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return err;
     dim3 grid(H, B, (Sq + BM - 1) / BM);
     kern<<<grid, THREADS, T::bytes, stream>>>(
-        tq, tk, tv, static_cast<bf16*>(out), Sq, Sk, H, KV, mask_kind, window,
-        q_offset, scale * 1.4426950408889634f);
+        tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), Sq,
+        Sk, H, KV, mask_kind, window, q_offset, scale * 1.4426950408889634f);
     return cudaGetLastError();
 }
 
 }  // namespace
 
+// `lse` ([B, Sq, H] fp32) may be null: serving asks for none.  With Sk = 0
+// only `out` is written (zeros); the wrapper fills `lse` then.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* out, int B, int Sq, int Sk, int H,
-                                   int KV, int D, int Dv, int mask_kind,
+                                   void* out, void* lse, int B, int Sq, int Sk,
+                                   int H, int KV, int D, int Dv, int mask_kind,
                                    int window, int q_offset, float scale,
                                    int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     if (D == 128 && Dv == 128)
-        return (int)launch<128, 128>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
-                                     window, q_offset, scale, st);
+        return (int)launch<128, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV,
+                                     mask_kind, window, q_offset, scale, st);
     if (D == 64 && Dv == 64)
-        return (int)launch<64, 64>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
-                                   window, q_offset, scale, st);
+        return (int)launch<64, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV,
+                                   mask_kind, window, q_offset, scale, st);
     if (D == 128 && Dv == 64)
-        return (int)launch<128, 64>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
-                                    window, q_offset, scale, st);
+        return (int)launch<128, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV,
+                                    mask_kind, window, q_offset, scale, st);
     if (D == 64 && Dv == 128)
-        return (int)launch<64, 128>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
-                                    window, q_offset, scale, st);
+        return (int)launch<64, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV,
+                                    mask_kind, window, q_offset, scale, st);
     if (D == 192 && Dv == 128)   // MLA (deepseek-v2-lite); 128 KB
-        return (int)launch<192, 128>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
-                                     window, q_offset, scale, st);
+        return (int)launch<192, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV,
+                                     mask_kind, window, q_offset, scale, st);
     if (D == 256 && Dv == 256)   // recurrentgemma; 192 KB of shared memory
-        return (int)launch<256, 256>(q, k, v, out, B, Sq, Sk, H, KV, mask_kind,
-                                     window, q_offset, scale, st);
+        return (int)launch<256, 256>(q, k, v, out, lse, B, Sq, Sk, H, KV,
+                                     mask_kind, window, q_offset, scale, st);
     return (int)cudaErrorInvalidValue;
 }
 

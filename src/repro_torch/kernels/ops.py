@@ -10,6 +10,16 @@ the plain version on any device, as ``backend="ref"`` does in the JAX
 package; comparisons with the kernels use it.  The single-token decode
 steps and the MoE dispatch are plain tensor code, as in the JAX package
 (which leaves the MoE's sort, scatter and products to XLA).
+
+Under autograd (grad enabled and an input that requires grad),
+:func:`flash_attention` goes through :class:`FlashAttention`, the
+counterpart of the JAX package's ``custom_vjp``: the forward saves its
+output and logsumexp, and the backward recomputes the probabilities from
+them, through the CUDA backward kernel on the card and through its plain
+version (the reference formula in float32) otherwise.  The scans have no
+backward kernel yet: on the card :func:`ssd` and :func:`rglru` refuse an
+input that requires grad rather than cut the gradient; on the CPU their
+plain versions are differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -21,6 +31,10 @@ import torch.nn.functional as F
 
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .flash_attention_bwd import (
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_plain,
+)
 from .rglru_scan import rglru_cuda, rglru_plain
 from .ssd_scan import ssd_cuda, ssd_plain
 
@@ -28,6 +42,7 @@ BACKENDS = ("kernel", "ref")
 
 #: Every kernel wrapper, by the kernel's name.
 KERNELS = {"flash_attention": flash_attention_cuda,
+           "flash_attention_bwd": flash_attention_bwd_cuda,
            "decode_attention": decode_attention_cuda,
            "ssd_scan": ssd_cuda,
            "rglru_scan": rglru_cuda}
@@ -37,6 +52,46 @@ def _use_kernel(backend: str, x: torch.Tensor) -> bool:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected {BACKENDS})")
     return backend == "kernel" and x.device.type == "cuda"
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _refuse_grad(name: str, later: str, *ts) -> None:
+    """The CUDA scans' outputs carry no autograd history: refuse an input
+    that requires grad instead of treating the scan as a constant."""
+    if _needs_grad(*ts):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet ({later}); "
+            f"training a model with this layer runs on the CPU only")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the backward of ``repro.kernels.ops.
+    _flash_custom``: the forward saves q, k, v, its output and the lse; the
+    backward recomputes P from the lse.  ``kernel`` picks the CUDA forward
+    and backward kernels, else their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_kind, window, q_offset, scale, kernel):
+        fwd = flash_attention_cuda if kernel else flash_attention_plain
+        out, lse = fwd(q, k, v, mask_kind=mask_kind, window=window,
+                       q_offset=q_offset, scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(mask_kind=mask_kind, window=window,
+                        q_offset=q_offset, scale=scale)
+        ctx.kernel = kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if ctx.kernel \
+            else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, dout.contiguous(), lse, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
@@ -51,8 +106,12 @@ def flash_attention(
     backend: str = "kernel",
 ) -> torch.Tensor:
     """Masked GQA attention.  Returns [B, Sq, H, Dv]."""
-    fn = flash_attention_cuda if _use_kernel(backend, q) \
-        else flash_attention_plain
+    kernel = _use_kernel(backend, q)
+    if _needs_grad(q, k, v):
+        scale = scale if scale is not None else q.shape[-1] ** -0.5
+        return FlashAttention.apply(q, k, v, mask_kind, window, q_offset,
+                                    scale, kernel)
+    fn = flash_attention_cuda if kernel else flash_attention_plain
     return fn(q, k, v, mask_kind=mask_kind, window=window, q_offset=q_offset,
               scale=scale)
 
@@ -84,7 +143,11 @@ def ssd(
     backend: str = "kernel",
 ) -> tuple:
     """Mamba-2 SSD (state-space duality) mixer: (y, final_state)."""
-    fn = ssd_cuda if _use_kernel(backend, x) else ssd_plain
+    kernel = _use_kernel(backend, x)
+    if kernel:
+        _refuse_grad("ssd", "the SSD-scan backward kernel is a later slice",
+                     x, dt, A, Bmat, Cmat, initial_state)
+    fn = ssd_cuda if kernel else ssd_plain
     return fn(x, dt, A, Bmat, Cmat, chunk=chunk, initial_state=initial_state)
 
 
@@ -119,7 +182,11 @@ def rglru(
     backend: str = "kernel",
 ) -> tuple:
     """RG-LRU linear recurrence: (h [B,S,C], final_state [B,C])."""
-    fn = rglru_cuda if _use_kernel(backend, x) else rglru_plain
+    kernel = _use_kernel(backend, x)
+    if kernel:
+        _refuse_grad("rglru", "the RG-LRU backward kernel is a later slice",
+                     x, gate_a, gate_i, log_a, initial_state)
+    fn = rglru_cuda if kernel else rglru_plain
     return fn(x, gate_a, gate_i, log_a, initial_state=initial_state, c=c)
 
 

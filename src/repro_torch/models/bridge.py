@@ -39,14 +39,21 @@ def leaf_dtype(path: str, dtype: torch.dtype) -> torch.dtype:
 
 def params_from_numpy(cfg: ArchConfig, flat: Mapping[str, object], *,
                       device=None,
-                      dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> Dict:
+                      dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE,
+                      stacked: bool = False) -> Dict:
     """Nested port parameters on ``device`` from flat arrays (numpy arrays
     or tensors).  Matrices and biases are cast once to ``dtype`` (the JAX
     package casts them at every use, to the same values); norm scales and
     biases and the leaves the JAX package reads in float32 stay float32
     (:func:`leaf_dtype`).  Stacked stage parameters are split along their
-    leading axis into per-layer views.  Raises on a missing, unexpected or
-    misshapen entry."""
+    leading axis into per-layer views, unless ``stacked``: then every stage
+    unit stays one dict of ``[repeats, ...]`` leaves, the JAX package's
+    pytree, which is what training takes (``dtype=torch.float32``: the
+    reference's fp32 master weights, cast to bf16 at each use; the stacked
+    tensors are the leaves that gradients, the optimizer and checkpoints
+    address, and the model takes its per-layer views inside
+    :func:`repro_torch.models.lm.forward`).  Raises on a missing,
+    unexpected or misshapen entry."""
     device = resolve_device(device)
     shapes = param_shapes(cfg)
     by_flat = {_SANITIZE.sub("_", k): k for k in flat}
@@ -72,11 +79,13 @@ def params_from_numpy(cfg: ArchConfig, flat: Mapping[str, object], *,
             node = node.setdefault(part, {})
         node[parts[-1]] = t
 
+    if stacked:
+        return nested
     for si, stage in enumerate(ported_plan(cfg)):
         units = nested[f"stage{si}"]
         for ui in range(len(stage.unit)):
-            stacked = units[f"u{ui}"]
-            units[f"u{ui}"] = [_select(stacked, r)
+            unit = units[f"u{ui}"]
+            units[f"u{ui}"] = [_select(unit, r)
                                for r in range(stage.repeats)]
     return nested
 

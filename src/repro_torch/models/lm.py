@@ -16,8 +16,12 @@ them, stage after stage.
 
 Parameters are a nested dict: ``params["stage0"]["u0"]`` is the list of
 per-layer dicts of stage 0's unit 0, other leaves are as in the JAX
-package (``params["embed"]["table"]`` and so on).  Caches keep the JAX
-package's structure, one dict of stacked ``[L, ...]`` leaves per unit:
+package (``params["embed"]["table"]`` and so on).  For training the unit
+is instead one dict of stacked ``[repeats, ...]`` leaves, the JAX
+package's pytree (``init(..., stacked=True)``): those tensors are the
+autograd leaves, and :func:`forward` takes their per-layer views itself.
+Caches keep the JAX package's structure, one dict of stacked ``[L, ...]``
+leaves per unit:
 ``{"k", "v"}`` ``[L, B, slots, KV, hd]`` for attention (``max_seq`` slots,
 or exactly ``window`` for a local layer), ``{"c_kv" [L, B, max_seq, R],
 "k_rope" [L, B, max_seq, r]}`` for MLA, ``{"ssm" [L, B, H, P, N] fp32,
@@ -33,6 +37,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
@@ -251,11 +256,14 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
 
 
 def init(cfg: ArchConfig, *, seed: int = 0, device=None,
-         dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> Dict:
+         dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE,
+         stacked: bool = False) -> Dict:
     """Random parameters with the JAX package's shapes and scales, drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (so they
     are not the JAX package's numbers; tests share weights through
-    :func:`repro_torch.models.bridge.params_from_numpy`)."""
+    :func:`repro_torch.models.bridge.params_from_numpy`).  ``stacked``
+    keeps stage units as stacked leaves, for training
+    (``params_from_numpy``)."""
     from .bridge import leaf_dtype, params_from_numpy
 
     device = resolve_device(device)
@@ -275,18 +283,38 @@ def init(cfg: ArchConfig, *, seed: int = 0, device=None,
             part.copy_(torch.randn(part.shape, generator=gen,
                                    device=device).mul_(how))
         flat[key] = t
-    return params_from_numpy(cfg, flat, device=device, dtype=dtype)
+    return params_from_numpy(cfg, flat, device=device, dtype=dtype,
+                             stacked=stacked)
 
 
-# ================================================================ serving
+# ================================================================ layers
+def _unbind(tree: Dict, reps: int) -> list:
+    """Per-layer views of a unit's stacked leaves, one ``unbind`` a leaf:
+    its backward stacks the layers' gradients into one tensor (a
+    ``select`` per layer would allocate a whole zero gradient each)."""
+    layers = [{} for _ in range(reps)]
+    for key, val in tree.items():
+        parts = _unbind(val, reps) if isinstance(val, dict) \
+            else val.unbind(0)
+        for r in range(reps):
+            layers[r][key] = parts[r]
+    return layers
+
+
 def _layers(cfg: ArchConfig, params: Dict):
-    """(spec, stage key, unit key, repeat, layer params) in execution
-    order: stage after stage, each repeat of the stage's unit in turn."""
+    """(spec, stage key, unit key, repeat, repeats, layer params) in
+    execution order: stage after stage, each repeat of the stage's unit in
+    turn.  A unit is a list of per-layer dicts (serving) or a dict of
+    stacked leaves (training)."""
     for si, stage in enumerate(ported_plan(cfg)):
+        units = [params[f"stage{si}"][f"u{ui}"]
+                 for ui in range(len(stage.unit))]
+        units = [u if isinstance(u, list) else _unbind(u, stage.repeats)
+                 for u in units]
         for r in range(stage.repeats):
             for ui, spec in enumerate(stage.unit):
-                yield (spec, f"stage{si}", f"u{ui}", r,
-                       params[f"stage{si}"][f"u{ui}"][r])
+                yield (spec, f"stage{si}", f"u{ui}", r, stage.repeats,
+                       units[ui][r])
 
 
 def _window(cfg: ArchConfig, spec: LayerSpec) -> int:
@@ -300,13 +328,36 @@ def _head(cfg: ArchConfig, params: Dict, x: torch.Tensor, dtype):
 
 
 def _ffn(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
-         dtype) -> torch.Tensor:
-    """The layer's dense or MoE FFN on ``x`` [B, S, D].  The MoE's aux loss
-    is not needed when serving and is dropped."""
+         dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's dense or MoE FFN on ``x`` [B, S, D]: (out, the MoE's
+    aux load-balance loss, None for a dense FFN)."""
     h = apply_norm(p["norm2"], x, cfg.norm)
     if spec.ffn == "moe":
-        return moe_mod.moe_apply(p["ffn"], h, cfg.moe, dtype=dtype)[0]
-    return apply_mlp(p["ffn"], h, cfg.act, dtype)
+        return moe_mod.moe_apply(p["ffn"], h, cfg.moe, dtype=dtype)
+    return apply_mlp(p["ffn"], h, cfg.act, dtype), None
+
+
+def _mix(cfg: ArchConfig, spec: LayerSpec, p: Dict, h: torch.Tensor,
+         positions: torch.Tensor, backend: str, dtype) -> Tuple:
+    """The layer's mixer on the whole sequence ``h`` (normed): (out, the
+    cache entry or recurrent state it leaves)."""
+    if spec.mixer in ("gqa", "local"):
+        window = _window(cfg, spec)
+        return attn.gqa_apply(
+            p["mixer"], h,
+            rope_theta=cfg.rope_theta if cfg.has_attention else None,
+            mask_kind="window" if window else "causal", window=window,
+            positions=positions, backend=backend, dtype=dtype)
+    if spec.mixer == "mla":
+        return mla_mod.mla_apply(p["mixer"], h, cfg.mla,
+                                 rope_theta=cfg.rope_theta,
+                                 positions=positions, backend=backend,
+                                 dtype=dtype)
+    if spec.mixer == "ssd":
+        return ssm_mod.mamba2_apply(p["mixer"], h, cfg.ssm, backend=backend,
+                                    dtype=dtype)
+    return rglru_mod.rglru_block_apply(p["mixer"], h, cfg.rglru,
+                                       backend=backend, dtype=dtype)
 
 
 def _store(unit_c: Dict, entry: Dict, r: int, reps: int,
@@ -350,39 +401,25 @@ def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
                     f"{cfg.arch_id}: max_seq={max_seq} exceeds the local "
                     f"attention window {_window(cfg, spec)}; the window's "
                     f"cache has no slot past it")
-    rope = cfg.rope_theta if cfg.has_attention else None
     x = embed(params["embed"], tokens, dtype)
     positions = torch.arange(S, device=tokens.device)
     caches: Dict = {}
-    for spec, sk, uk, r, p in _layers(cfg, params):
+    for spec, sk, uk, r, reps, p in _layers(cfg, params):
         unit_c = caches.setdefault(sk, {}).setdefault(uk, {})
-        reps = len(params[sk][uk])
         h = apply_norm(p["norm1"], x, cfg.norm)
+        mix, entry = _mix(cfg, spec, p, h, positions, backend, dtype)
         if spec.mixer in ("gqa", "local"):
-            window = _window(cfg, spec)
-            mix, kv = attn.gqa_apply(
-                p["mixer"], h, rope_theta=rope,
-                mask_kind="window" if window else "causal", window=window,
-                positions=positions, backend=backend, dtype=dtype)
             # S <= max_seq <= window: the JAX package's ring of `window`
             # slots holds position t at slot t, as the padded cache does
-            _store(unit_c, kv, r, reps, slots=window or max_seq)
+            _store(unit_c, entry, r, reps,
+                   slots=_window(cfg, spec) or max_seq)
         elif spec.mixer == "mla":
-            mix, kv = mla_mod.mla_apply(
-                p["mixer"], h, cfg.mla, rope_theta=cfg.rope_theta,
-                positions=positions, backend=backend, dtype=dtype)
-            _store(unit_c, kv, r, reps, slots=max_seq)
-        elif spec.mixer == "ssd":
-            mix, state = ssm_mod.mamba2_apply(p["mixer"], h, cfg.ssm,
-                                              backend=backend, dtype=dtype)
-            _store(unit_c, state, r, reps)
+            _store(unit_c, entry, r, reps, slots=max_seq)
         else:
-            mix, state = rglru_mod.rglru_block_apply(
-                p["mixer"], h, cfg.rglru, backend=backend, dtype=dtype)
-            _store(unit_c, state, r, reps)
+            _store(unit_c, entry, r, reps)
         x = x + mix
         if spec.ffn != "none":
-            x = x + _ffn(cfg, spec, p, x, dtype)
+            x = x + _ffn(cfg, spec, p, x, dtype)[0]
     # the head is applied to the last position only, as in the JAX package
     last = apply_norm(params["final_norm"], x[:, -1, :], cfg.norm)
     return _head(cfg, params, last, dtype), caches
@@ -398,7 +435,7 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
     returned; ``lengths`` (int32 ``[B]``) counts the positions cached.
     """
     x = embed(params["embed"], token, dtype)                  # [B,D]
-    for spec, sk, uk, r, p in _layers(cfg, params):
+    for spec, sk, uk, r, _, p in _layers(cfg, params):
         c = caches[sk][uk]
         h = apply_norm(p["norm1"], x, cfg.norm)
         if spec.mixer in ("gqa", "local"):
@@ -424,6 +461,132 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
         x = x + mix
         if spec.ffn != "none":
             # one token a row: the MoE dispatches it as a sequence of one
-            x = x + _ffn(cfg, spec, p, x[:, None, :], dtype)[:, 0]
+            x = x + _ffn(cfg, spec, p, x[:, None, :], dtype)[0][:, 0]
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _head(cfg, params, x, dtype), caches
+
+
+# =============================================================== training
+def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+            return_hidden: bool = False, remat: bool = False,
+            backend: str = "kernel",
+            dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> Tuple:
+    """The whole sequence, no cache (``repro.models.lm.forward``): (logits
+    [B,S,V] -- or the final hidden states [B,S,D] if ``return_hidden``,
+    for the vocab-chunked loss -- , the summed MoE aux loss).
+
+    ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on
+    the reference's scan body; here per layer, not per unit).  Patch
+    prefixes and the encoder wait for their slice.
+    """
+    x = embed(params["embed"], tokens, dtype)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(spec, p, x):
+        h = apply_norm(p["norm1"], x, cfg.norm)
+        x = x + _mix(cfg, spec, p, h, positions, backend, dtype)[0]
+        if spec.ffn == "none":
+            return x, None
+        y, a = _ffn(cfg, spec, p, x, dtype)
+        return x + y, a
+
+    for spec, _, _, _, _, p in _layers(cfg, params):
+        if remat:
+            x, a = checkpoint(layer, spec, p, x, use_reentrant=False)
+        else:
+            x, a = layer(spec, p, x)
+        if a is not None:
+            aux = aux + a
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    if return_hidden:
+        return x, aux
+    return _head(cfg, params, x, dtype), aux
+
+
+def _nll_chunk(x, table, transpose: bool, targets, vocab: int, start: int,
+               chunk: int, m, se, tl, dtype):
+    """One vocabulary chunk of :func:`_chunked_nll`: its logits, then the
+    running max ``m``, sum of exponentials ``se`` and target logit
+    ``tl``."""
+    if transpose:
+        logits = x @ cast(table[start:start + chunk], dtype).T
+    else:
+        logits = x @ cast(table[:, start:start + chunk], dtype)
+    logits = logits.float()
+    width = logits.shape[-1]
+    cols = start + torch.arange(width, device=x.device)
+    logits = torch.where(cols < vocab, logits, logits.new_full((), -1e30))
+    new_m = torch.maximum(m, logits.amax(-1))
+    se = se * torch.exp(m - new_m) + torch.exp(
+        logits - new_m[..., None]).sum(-1)
+    local = targets - start
+    in_range = (local >= 0) & (local < width)
+    lt = logits.gather(-1, local.clamp(0, width - 1)[..., None])[..., 0]
+    return new_m, se, torch.where(in_range, lt, tl)
+
+
+def _chunked_nll(x: torch.Tensor, table: torch.Tensor, transpose: bool,
+                 targets: torch.Tensor, vocab: int, chunk: int = 8192,
+                 dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> Tuple:
+    """Online-logsumexp cross entropy over vocabulary chunks
+    (``repro.models.lm._chunked_nll``): the head's product streams over
+    chunks of ``chunk`` columns, so the fp32 logits transient is [B, S,
+    chunk], and under autograd each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``, as the reference checkpoints its scan
+    body).  ``table`` is [V, D] if ``transpose`` (tied embeddings) else
+    [D, V]; columns ``>= vocab`` get -1e30.  Returns (nll [B,S], lse
+    [B,S]).
+
+    The last chunk is cut at V.  The reference's ``dynamic_slice`` instead
+    moves a last chunk that would run past V back inside it while its
+    column labels stay where they were, so when ``chunk`` does not divide
+    V its loss counts some columns twice, misses others and reads targets
+    in the last chunk from the wrong column (``ROADMAP.md`` C); the two
+    agree exactly when ``chunk`` divides V or is at least V.
+    """
+    B, S, _ = x.shape
+    V = table.shape[0] if transpose else table.shape[1]
+    chunk = min(chunk, V)
+    m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
+    se = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    tl = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    grad = torch.is_grad_enabled() and (x.requires_grad
+                                        or table.requires_grad)
+    for start in range(0, V, chunk):
+        args = (x, table, transpose, targets, vocab, start, chunk, m, se, tl,
+                dtype)
+        m, se, tl = checkpoint(_nll_chunk, *args, use_reentrant=False) \
+            if grad else _nll_chunk(*args)
+    lse = torch.log(torch.clamp(se, min=1e-30)) + m
+    return lse - tl, lse
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *,
+            backend: str = "kernel", remat: bool = False,
+            aux_coef: float = 0.01, z_coef: float = 1e-4,
+            dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross entropy (+ MoE aux + z-loss), vocab-chunked
+    (``repro.models.lm.loss_fn``): (total, {"nll", "aux", "z"})."""
+    for key in ("patches", "frames"):
+        if batch.get(key) is not None:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: batches with {key} wait for the encoder and "
+                f"patch-prefix slice")
+    tokens = batch["tokens"]
+    hidden, aux = forward(cfg, params, tokens, return_hidden=True,
+                          remat=remat, backend=backend, dtype=dtype)
+    x = hidden[:, :-1, :]
+    targets = tokens[:, 1:]
+    if cfg.tie_embeddings:
+        nll, lse = _chunked_nll(x, params["embed"]["table"], True, targets,
+                                cfg.padded_vocab, dtype=dtype)
+    else:
+        nll, lse = _chunked_nll(x, params["lm_head"]["w"], False, targets,
+                                cfg.padded_vocab, dtype=dtype)
+    nll = nll.mean()
+    z_loss = z_coef * torch.square(lse).mean()
+    total = nll + z_loss + aux_coef * aux
+    return total, {"nll": nll, "aux": aux, "z": z_loss}

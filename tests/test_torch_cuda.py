@@ -332,6 +332,7 @@ def test_ops_route_cuda_tensors_to_the_kernels(gen):
     ops.rglru(*_rglru_inputs(gen, 1, 8, 16, False)[:4])
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": 1,
+                                   "flash_attention_bwd": 0,
                                    "decode_attention": 1, "ssd_scan": 1,
                                    "rglru_scan": 1}
 
@@ -530,3 +531,156 @@ def test_concurrent_serving_example_at_full_width_on_the_card(gen,
     launches = ops.launch_counts()
     assert launches["flash_attention"] > 0
     assert launches["decode_attention"] > 0
+
+
+# ------------------------------------------------------------- training
+BWD = [
+    # (B, Sq, Sk, H, KV, D, mask_kind, window, q_offset)
+    (4, 1024, 1024, 32, 4, 128, "causal", 0, 0),         # yi-6b training
+    (8, 128, 128, 10, 2, 64, "causal", 0, 0),            # the 100M example
+    (2, 1000, 1000, 8, 2, 128, "causal", 0, 0),          # ragged S
+    (2, 150, 201, 8, 2, 128, "causal", 0, 51),           # Sq != Sk, offset
+    (1, 300, 300, 4, 2, 128, "window", 33, 0),
+    (2, 300, 600, 4, 2, 64, "window", 150, 300),         # window + offset
+    (1, 37, 129, 4, 1, 128, "none", 0, 0),
+    (3, 77, 190, 4, 2, 64, "none", 0, 0),
+    (2, 40, 300, 4, 2, 64, "causal", 0, 260),            # Sq < one tile
+    (2, 5, 1, 4, 2, 64, "none", 0, 0),                   # Sk = 1
+    (1, 8, 8, 2, 2, 64, "window", 2, 20),                # no key in sight
+    (2, 5, 0, 4, 2, 64, "none", 0, 0),                   # Sk = 0
+    (2, 200, 200, 4, 4, 128, "causal", 0, 0),            # G = 1
+]
+# Backward, kernel vs the plain formula in fp32: relative L2 of each
+# gradient within max(2e-2, 2 x floor), the floor the plain formula in
+# bf16 (P and dS rounded before the products, as the kernel rounds them).
+BWD_REL_L2 = 2e-2
+
+
+def _rel_l2(got, want):
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("case", BWD, ids=str)
+def test_flash_backward_kernel_matches_plain(case, gen):
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_plain,
+    )
+
+    B, Sq, Sk, H, KV, D, kind, window, off = case
+    q, k, v = _randn(gen, B, Sq, H, D), _randn(gen, B, Sk, KV, D), \
+        _randn(gen, B, Sk, KV, D)
+    dout = _randn(gen, B, Sq, H, D)
+    kw = dict(mask_kind=kind, window=window, q_offset=off)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    floor = flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                      dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    for name, g, a, w, f in zip(("dq", "dk", "dv"), got, again, want, floor):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16, name
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, a), f"{name}: two launches differ"
+        if not w.any():
+            assert not g.any(), name
+            continue
+        limit = max(BWD_REL_L2, 2 * _rel_l2(f, w))
+        assert _rel_l2(g, w) <= limit, (name, _rel_l2(g, w), limit)
+
+
+@pytest.mark.parametrize("case", [c for c in FLASH if c[2] > 0], ids=str)
+def test_flash_forward_gives_the_same_out_with_lse(case, gen):
+    """Asking for the lse changes nothing the serving path reads; the lse
+    is the plain one within 1e-3, and -1e30 for rows that see no key."""
+    B, Sq, Sk, H, KV, D, Dv, kind, window, off = case
+    q, k, v = _randn(gen, B, Sq, H, D), _randn(gen, B, Sk, KV, D), \
+        _randn(gen, B, Sk, KV, Dv)
+    kw = dict(mask_kind=kind, window=window, q_offset=off)
+    alone = flash_attention_cuda(q, k, v, **kw)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                    return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, alone)
+    assert lse.shape == (B, Sq, H) and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) <= 1e-3
+
+
+def test_flash_under_autograd_launches_both_kernels(gen):
+    q, k, v = (t.requires_grad_() for t in (
+        _randn(gen, 2, 64, 4, 64), _randn(gen, 2, 64, 2, 64),
+        _randn(gen, 2, 64, 2, 64)))
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    assert all(t.grad is not None and t.grad.dtype == torch.bfloat16
+               for t in (q, k, v))
+
+
+def test_scans_refuse_to_train_on_the_card(gen):
+    """The CUDA scans have no backward yet: an input that requires grad
+    raises instead of silently cutting the gradient; without grad (or
+    under no_grad) they launch as when serving."""
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(gen, 1, 32, 2, 16, 1, 16, False)
+    with pytest.raises(NotImplementedError, match="SSD-scan backward"):
+        ops.ssd(x.requires_grad_(), dt, A, Bm, Cm, chunk=16)
+    with torch.no_grad():
+        ops.ssd(x, dt, A, Bm, Cm, chunk=16)
+    xr, ga, gi, la, _ = _rglru_inputs(gen, 1, 8, 16, False)
+    with pytest.raises(NotImplementedError, match="RG-LRU backward"):
+        ops.rglru(xr, ga, gi, la.requires_grad_())
+    ops.rglru(xr, ga, gi, la.detach())
+
+
+def test_train_step_through_the_kernels_matches_the_plain_route(gen):
+    """Full-width yi-6b at 2 layers, B 2 x 256: one step's gradients
+    through the kernels against the plain versions, each stacked leaf
+    within max(5e-2, 2 x floor) relative L2 (floor: plain bf16 vs fp32)."""
+    import dataclasses
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import pipeline as data
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=2)
+    params = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
+                     stacked=True)
+    ps = [p.requires_grad_() for p in leaves(params)]
+    batch = data.batch_for_step(cfg, InputShape("t", 256, 2, "train"), 0,
+                                device="cuda")
+
+    def grads(backend, dtype):
+        total, _ = lm.loss_fn(cfg, params, batch, backend=backend,
+                              dtype=dtype)
+        return torch.autograd.grad(total, ps)
+
+    ops.reset_launch_counts()
+    kernel = grads("kernel", torch.bfloat16)
+    assert ops.launch_counts()["flash_attention_bwd"] == 2
+    plain = grads("ref", torch.bfloat16)
+    truth = grads("ref", torch.float32)
+    for k, p, t in zip(kernel, plain, truth):
+        assert torch.isfinite(k).all()
+        assert _rel_l2(k, p) <= max(5e-2, 2 * _rel_l2(p, t))
+
+
+def test_preemptive_training_example_survives_its_preemption(gen):
+    from repro_torch.examples import preemptive_training
+
+    ops.reset_launch_counts()
+    out = preemptive_training.main(["--steps", "40"])
+    cut = int(40 * 0.4)
+    assert [r["step"] for r in out["seg1"]] == list(range(cut))
+    assert [r["step"] for r in out["seg2"]] == list(range(cut, 40))
+    assert all(torch.isfinite(torch.tensor(r["nll"]))
+               for r in out["seg1"] + out["seg2"])
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+        == 10 * 40

@@ -501,8 +501,8 @@ def test_ssd_state_tiling_covers_the_state_once(shape):
     assert all(len(w) == 1 for w in owners.values())
 
 
-ZERO_COUNTS = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
-               "rglru_scan": 0}
+ZERO_COUNTS = {"flash_attention": 0, "flash_attention_bwd": 0,
+               "decode_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
 
 
 def test_cpu_calls_leave_launch_counters_at_zero():
