@@ -25,7 +25,9 @@ ends the script with a non-zero exit and no result line:
               of dq, dk, dv within max(2e-2, 2 x the plain formula's bf16
               floor), two launches bitwise equal, the forward's lse within
               1e-3 of the plain lse and its out unchanged by asking for
-              lse; times against SDPA's backward.
+              lse; times against SDPA's backward and both bounds (the
+              formula's five products, the design's seven), and each of
+              its CUDA kernels' own time (delta, dK/dV, dQ; torch.profiler).
 4. model   -- full-width yi-6b, mamba2-2.7b, recurrentgemma-2b, minicpm3-4b
               and deepseek-v2-lite-16b in bf16 (random weights from a
               seed): prefill and 4 decode steps through the kernels against
@@ -411,15 +413,45 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
     lib_dout = dout.transpose(1, 2)
     lib_ms = device_ms(lambda: torch.autograd.grad(
         lib_out, (qg, kg, vg), lib_dout, retain_graph=True), 20)
+    b7_ms = bound(flops_done, total)[0]
     print(f"[kernels] flash_attention_bwd {name}: kernel {ms:.4f} ms on the "
           f"device, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP in the five "
           f"products; {flops_done / 1e9:.2f} GFLOP as designed = "
-          f"{bound(flops_done, total)[0]:.4f} ms; {total / 1e6:.2f} MB); "
-          f"kernel at {b_ms / ms:.1%} of the bound", flush=True)
+          f"{b7_ms:.4f} ms; {total / 1e6:.2f} MB); kernel at {b_ms / ms:.1%} "
+          f"of the five-product bound and {b7_ms / ms:.1%} of the "
+          f"seven-product one", flush=True)
+    # Each of the wrapper's CUDA kernels on its own (delta, dK/dV, dQ).
+    parts = kernel_times(
+        lambda: flash_attention_bwd_cuda(q, k, v, out, dout, lse), 10,
+        r"flash_bwd_\w+")
+    by_kernel = ", ".join(f"{k} {t:.4f}" for k, t in parts.items())
+    print(f"[kernels] flash_attention_bwd {name}: device ms per call by "
+          f"CUDA kernel (torch.profiler, 10 calls): "
+          f"{by_kernel or 'not measured'}", flush=True)
     return [dict(shape=f"B{b} S{sq} H{h} KV{kv} D{d} {kind}",
                  max_abs_err=max(results.values()), ms=ms, plain_ms=plain_ms,
                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)]
+
+
+def kernel_times(fn, n: int, pattern: str) -> dict:
+    """Device milliseconds per call of each CUDA kernel whose name matches
+    ``pattern``, from torch.profiler over ``n`` calls (empty if the
+    profiler recorded no device time)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        named = re.search(pattern, e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and named:
+            key = named.group(0)
+            times[key] = times.get(key, 0.0) + e.time_range.elapsed_us()
+    return {k: t / 1e3 / n for k, t in sorted(times.items())}
 
 
 def kernels_attention(gen: torch.Generator) -> dict:

@@ -15,29 +15,61 @@
 //   dQ    = scale dS K
 //   dK    = scale dS^T Q
 // dK and dV sum over the G query heads of each KV head.  Three launches on
-// the caller's stream, no atomics, so two calls on one input give the same
-// bits:
-// 1. delta: one warp per (batch, query, head) row.
-// 2. dK/dV: one CTA per (batch, KV head, tile of 64 keys); its four warps
-//    own 16 keys each and walk the G heads and every tile of 32 queries
-//    that the mask lets see one of its keys, recomputing S^T and P^T there
-//    and accumulating dK and dV in fp32 registers.
-// 3. dQ: one CTA per (batch, head, tile of 64 queries); four warps of 16
-//    rows walk the key tiles of 64 that the mask leaves visible (the
-//    forward's key range) and accumulate dQ in fp32 registers.
+// the caller's stream, no atomics, every sum in a fixed order, so two calls
+// on one input give the same bits:
+// 1. delta: lse log2(e) and delta of every (batch, head, query) row into
+//    fp32 scratch [B, H, 2, Sq_pad] (Sq_pad: Sq rounded up to 64, the pad
+//    rows 0), so that a step's 64 values are contiguous for TMA and every
+//    row stride is a multiple of 16 bytes, as TMA requires.
+// 2. dK/dV: one CTA per (batch, KV head, tile of 64 keys), key tile 0 (the
+//    heaviest under a causal mask) launched first.  The (head, 64-query
+//    tile) steps that the mask lets see one of its keys form one list; the
+//    two warpgroups take them in turns, each holding its own fp32 dK and
+//    dV for the CTA's 64 keys, and sum them through shared memory at the
+//    end.  Per step: S^T = K Q^T and dP^T = V dO^T from shared memory, P^T
+//    and dS^T on the accumulators, then dV += P^T dO and dK += dS^T Q with
+//    P^T and dS^T as register A operands.
+// 3. dQ: one CTA per (batch, head, 128 queries), the heaviest query tiles
+//    first; each consumer warpgroup owns 64 rows and walks the 64-key
+//    tiles the mask leaves visible: S = Q K^T, dP = dO V^T, dQ += dS K.
 //
 // What bounds it on the card: tensor-core operations.  At yi-6b's training
 // shape (B 4, S 1024, 32 heads / 4 KV of 128, causal) the five products of
 // the formula over the causal half are 86.0 GFLOP against ~40 MB of
-// inputs and outputs; this design performs seven (S and dP once in each
-// kernel), 120 GFLOP.  This first version is plain: mma.sync m16n8k16
-// (bf16 in, fp32 accumulate) on operands that ldmatrix reads from padded
-// shared-memory tiles filled by ordinary 16-byte loads, one tile at a
-// time, with the mask evaluated on every element.  Left for later: wgmma,
-// TMA and a pipelined ring of tiles (ROADMAP B2).
+// inputs and outputs; the split into a dK/dV and a dQ kernel performs
+// seven (S and dP once in each), 120 GFLOP.  Folding dQ into the dK/dV
+// pass would save two products but, without atomics, needs fp32 dQ
+// partials per key tile: 4.5-8.5x dQ's 67 MB in fp32 at that shape,
+// written and read again, more time than the two products take.  What the
+// design does about the operations:
+// - Every product runs on wgmma, fed by TMA through mbarrier rings.  dK/dV
+//   loads K and V once; step i's Q, dO, lse and delta go to stage
+//   i % STAGES, so each warpgroup owns the stages of its parity and one
+//   of its threads keeps them loaded STAGES / 2 steps ahead.  dQ loads Q
+//   and dO once; a producer warpgroup (one thread) keeps a ring of K and
+//   V tiles full for both consumers, which free each stage through an
+//   "empty" mbarrier.  Q and dO are read K-major for S^T and dP^T and
+//   MN-major for dK and dV, from the same swizzled tile.
+// - Registers: a dK/dV thread holds fp32 dK, dV, S^T and dP^T (192 at D
+//   128); the kernel runs 256 threads so that ptxas may give it 231+.  A
+//   producer warpgroup beside them (384 threads) caps every thread at 168,
+//   and setmaxnreg did not lift that cap for ptxas's allocation (CUDA
+//   12.9: the same 920 bytes of spills and serialized wgmma with the
+//   consumers raised to 208, 240 or 256 as without it); dQ fits in 168.
+// - The mask is evaluated, by selects, only on tiles that cross its edge
+//   or the ragged end of Sq or Sk; a row with no visible key (lse -1e30)
+//   lies only in such tiles, so its P is 0 before it can overflow.
+// - dK/dV uses 64-key CTAs with two warpgroups rather than 128-key ones:
+//   at yi-6b's shape its 256 CTAs leave a heaviest CTA near the average
+//   per SM, where 128 CTAs of 128 keys would leave one twice the average.
+// - dK, dV and dQ leave through a swizzled staging tile and TMA stores,
+//   which clip the ragged edge.
+// Left for later: overlapping one step's softmax with the next step's
+// products inside a warpgroup, persistent CTAs.
 //
 // Head dims (D, Dv): (64, 64) and (128, 128).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,24 +83,40 @@ namespace {
 
 using namespace hopper;
 
-// Four warps.  The two product kernels declare __launch_bounds__(THREADS,
-// 1): with the bound on threads alone ptxas held the (64, 64) kernels to
-// 128 registers and spilled; this way they take 154-238, without spills.
-constexpr int THREADS = 128;
-constexpr int KV_BN = 64;            // keys per dK/dV CTA, 16 a warp
-constexpr int KV_BM = 32;            // queries per step of the dK/dV kernel
-constexpr int Q_BM = 64;             // queries per dQ CTA, 16 a warp
-constexpr int Q_BN = 64;             // keys per step of the dQ kernel
-constexpr int PAD = 8;               // bf16 of padding per shared row
+constexpr int BN = 64;               // keys per dK/dV CTA and per dQ stage
+constexpr int BM = 64;               // queries per dK/dV step, per dQ warpgroup
+constexpr int Q_BM = 128;            // queries per dQ CTA
+constexpr int BOX = 64;              // TMA box width: 64 bf16 = 128 bytes
+constexpr int STAGES = 4;            // ring depth of both product kernels
+// dK/dV: two warpgroups, each loading its own steps (it owns every other
+// stage of the ring).  dQ: two consumer warpgroups, then a producer
+// warpgroup of which one thread issues every copy.
+constexpr int KV_THREADS = 256;
+constexpr int Q_THREADS = 384;
+static_assert(STAGES % 2 == 0, "each dK/dV warpgroup owns STAGES / 2 stages");
 constexpr float LOG2E = 1.4426950408889634f;
+// A wait on a ring stage lasts at most a few steps' work: trap after ~2^22
+// polls (well under a second) instead of the default minutes.
+constexpr uint32_t POLLS = 1u << 22;
 
 enum MaskKind { MASK_NONE = 0, MASK_CAUSAL = 1, MASK_WINDOW = 2 };
 
+// Whether the query at position qpos (q_offset included) sees `key`;
+// without branches, so that an edge tile masks by selects.
 __device__ __forceinline__ bool visible(int mask_kind, int window, int qpos,
                                         int key) {
-    if (mask_kind == MASK_NONE) return true;
-    if (key > qpos) return false;
-    return mask_kind != MASK_WINDOW || key > qpos - window;
+    return (mask_kind == MASK_NONE) |
+           ((key <= qpos) & ((mask_kind != MASK_WINDOW) | (key > qpos - window)));
+}
+
+// Whether a BM x BN tile (queries from m0, keys from n0) holds a pair that
+// the mask hides or that lies past Sq or Sk: only such tiles are masked.
+__device__ __forceinline__ bool edge_tile(int m0, int n0, int Sq, int Sk,
+                                          int mask_kind, int window,
+                                          int q_offset) {
+    return m0 + BM > Sq || n0 + BN > Sk ||
+           (mask_kind != MASK_NONE && n0 + BN - 1 > q_offset + m0) ||
+           (mask_kind == MASK_WINDOW && n0 <= q_offset + m0 + BM - 1 - window);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -82,325 +130,418 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// `rows` rows of W bf16 from global memory (row stride `stride` elements)
-// into a shared tile of row stride W + PAD; rows past `valid` are zeros.
-template <int W>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int rows,
-                                          int valid) {
-    constexpr int CPR = W / 8;                  // 16-byte chunks a row
-    for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
-        const int r = i / CPR;
-        const int c = (i % CPR) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < valid)
-            val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-        *reinterpret_cast<uint4*>(dst + r * (W + PAD) + c) = val;
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+    if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+    else wgmma_rs_n128(d, a, b);
+}
+
+// A 64 x BM (or BN) fp32 accumulator of 64-column blocks as A fragments
+// (hopper.cuh): k16 slice kk is s[8kk .. 8kk + 7], rounded to bf16.
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
+                                     const float (&s)[N / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            a[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// The descriptor of the operand `bytes` (a multiple of 16) past the one
+// `d` describes: the start address is d's low 14 bits, in 16-byte units.
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t bytes) {
+    return d + (bytes >> 4);
+}
+
+// `d`, opaque to the compiler: descriptors derived from it inside a loop
+// are rebuilt there by one add each instead of being hoisted out of the
+// loop, where they would hold registers the accumulators need.
+__device__ __forceinline__ uint64_t per_step(uint64_t d) {
+    asm volatile("" : "+l"(d));
+    return d;
+}
+
+// S (+)= A B^T over DEPTH columns, both tiles K-major in shared memory as
+// [DEPTH / 64] boxes of [rows][64] (descriptors a and b of box 0, boxes
+// a_box and b_box bytes apart).
+template <int DEPTH>
+__device__ __forceinline__ void wgmma_ss_tiles(float (&s)[32], uint64_t a,
+                                               uint32_t a_box, uint64_t b,
+                                               uint32_t b_box) {
+#pragma unroll
+    for (int kk = 0; kk < DEPTH / 16; ++kk) {
+        const uint32_t box = kk / 4;
+        const uint32_t sub = (kk % 4) * 32;  // 32 bytes per k16 step
+        wgmma_ss_n64(s, desc_at(a, box * a_box + sub),
+                     desc_at(b, box * b_box + sub), kk > 0);
     }
 }
 
-// mma.sync operands from a shared tile of row stride LD (fragment layouts
-// of the PTX ISA's m16n8k16):
-// A, 16 x 16 at (row0, k0) of a row-major [M][K] tile;
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* tile,
-                                       int row0, int k0, int lane) {
-    ldmatrix_x4(a, tile + (row0 + lane % 16) * LD + k0 + (lane / 16) * 8);
-}
-
-// B for two n8 tiles (b[0..1] columns n0..n0+7, b[2..3] the next eight),
-// k0..k0+15, from a row-major [N][K] tile;
-template <int LD>
-__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const bf16* tile,
-                                          int n0, int k0, int lane) {
-    ldmatrix_x4(b, tile + (n0 + lane % 8 + (lane / 16) * 8) * LD + k0 +
-                       ((lane / 8) % 2) * 8);
-}
-
-// the same from a row-major [K][N] tile (transposed by ldmatrix).
-template <int LD>
-__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const bf16* tile,
-                                          int k0, int n0, int lane) {
-    ldmatrix_x4_trans(b, tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
-                             n0 + (lane / 16) * 8);
-}
-
-// An accumulator of n8 tiles 2kk and 2kk + 1 as the A operand of k16 slice
-// kk (rows stay, its columns become k), rounded to bf16.
-template <int N>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&c)[N][4], int kk) {
-    a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+// A warpgroup's 64 x W fp32 accumulator (warp w rows 16w .. 16w + 15) as
+// bf16 into W / 64 boxes of [64][64], `box_bytes` apart, with TMA's
+// 128-byte swizzle: 16-byte chunk c of row r lies at chunk c ^ (r % 8).
+template <int W>
+__device__ __forceinline__ void stage_bf16(void* tile, int box_bytes,
+                                           const float (&acc)[W / 2],
+                                           int warp, int lane) {
+    unsigned char* base = static_cast<unsigned char*>(tile);
+    const int g = lane / 4;
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = 16 * warp + g + 8 * r;
+            const int off = (j / 8) * box_bytes + row * 128 +
+                            (((j % 8) ^ g) << 4) + 4 * (lane % 4);
+            *reinterpret_cast<uint32_t*>(base + off) =
+                pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        }
 }
 
 // ------------------------------------------------------------------ delta
+// Dv / 8 threads per (batch, query, head) row, 8 columns each; writes
+// stats[b, h, 0, q] = lse log2(e) and stats[b, h, 1, q] = delta, zeros for
+// the pad rows Sq <= q < Sq_pad.
+template <int DV>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const bf16* __restrict__ out,
                        const bf16* __restrict__ dout,
-                       float* __restrict__ delta, long long rows, int DV) {
-    const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    if (row >= rows) return;
-    const __nv_bfloat162* o2 =
-        reinterpret_cast<const __nv_bfloat162*>(out + row * DV);
-    const __nv_bfloat162* d2 =
-        reinterpret_cast<const __nv_bfloat162*>(dout + row * DV);
+                       const float* __restrict__ lse,
+                       float* __restrict__ stats, int B, int Sq, int Sq_pad,
+                       int H) {
+    constexpr int LANES = DV / 8;            // divides 32: a row is in one warp
+    const long long rows = (long long)B * Sq_pad * H;
+    const long long row =
+        ((long long)blockIdx.x * blockDim.x + threadIdx.x) / LANES;
+    const int c = (threadIdx.x % LANES) * 8;
+    const int h = (int)(row % H);
+    const int q = (int)((row / H) % Sq_pad);
+    const int b = (int)(row / ((long long)H * Sq_pad));
+    const bool live = row < rows && q < Sq;
+    const long long at = ((long long)b * Sq + q) * H + h;
     float acc = 0.f;
-    for (int c = lane; c < DV / 2; c += 32) {
-        const float2 o = __bfloat1622float2(o2[c]);
-        const float2 d = __bfloat1622float2(d2[c]);
-        acc += o.x * d.x + o.y * d.y;
+    if (live) {
+        const uint4 o = *reinterpret_cast<const uint4*>(out + at * DV + c);
+        const uint4 d = *reinterpret_cast<const uint4*>(dout + at * DV + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 df = __bfloat1622float2(d2[e]);
+            acc += of.x * df.x + of.y * df.y;
+        }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2)
+    for (int off = LANES / 2; off > 0; off /= 2)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) delta[row] = acc;
+    if (row < rows && c == 0) {
+        float* st = stats + (((long long)b * H + h) * 2) * Sq_pad + q;
+        st[0] = live ? lse[at] * LOG2E : 0.f;
+        st[Sq_pad] = acc;
+    }
 }
 
 // ------------------------------------------------------------------ dK/dV
+// Shared memory, 1024-byte aligned sections: K and V of the CTA's keys,
+// the ring's Q and dO stages, its stats stages ([2][BM] fp32), then the
+// mbarriers (K/V's and one per stage).  Mirrored by smem_bytes in
+// kernels/flash_attention_bwd.py.
 template <int D, int DV>
 struct KvLayout {
-    static constexpr int LDK = D + PAD;
-    static constexpr int LDV = DV + PAD;
-    static constexpr int k_off = 0;                          // [KV_BN][LDK]
-    static constexpr int v_off = k_off + KV_BN * LDK * 2;    // [KV_BN][LDV]
-    static constexpr int q_off = v_off + KV_BN * LDV * 2;    // [KV_BM][LDK]
-    static constexpr int do_off = q_off + KV_BM * LDK * 2;   // [KV_BM][LDV]
-    static constexpr int lse_off = do_off + KV_BM * LDV * 2; // [KV_BM] fp32
-    static constexpr int delta_off = lse_off + KV_BM * 4;    // [KV_BM] fp32
-    static constexpr int bytes = delta_off + KV_BM * 4;
+    static constexpr uint32_t k_bytes = BN * D * 2;
+    static constexpr uint32_t v_bytes = BN * DV * 2;
+    static constexpr uint32_t q_bytes = BM * D * 2;
+    static constexpr uint32_t do_bytes = BM * DV * 2;
+    static constexpr uint32_t st_bytes = 2 * BM * 4;
+    static constexpr uint32_t k_off = 0;
+    static constexpr uint32_t v_off = k_off + k_bytes;
+    static constexpr uint32_t q_off = v_off + v_bytes;
+    static constexpr uint32_t do_off = q_off + STAGES * q_bytes;
+    static constexpr uint32_t st_off = do_off + STAGES * do_bytes;
+    static constexpr uint32_t bar_off = st_off + STAGES * st_bytes;
+    static constexpr uint32_t bytes = bar_off + 8 * (1 + STAGES) + 1024;
+    static constexpr uint32_t stage_tx = q_bytes + do_bytes + st_bytes;
+    // The epilogue hands one fp32 accumulator per warpgroup over through
+    // the ring's Q and dO stages.
+    static_assert((D / 2 + DV / 2) * 128 * 4 <= STAGES * (q_bytes + do_bytes),
+                  "exchange does not fit the ring");
 };
 
 template <int D, int DV>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int Sq, int Sk, int H, int KV,
-                      int mask_kind, int window, int q_offset, float scale) {
+__global__ void __launch_bounds__(KV_THREADS, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tst,
+                      const __grid_constant__ CUtensorMap tdk,
+                      const __grid_constant__ CUtensorMap tdv, int Sq, int Sk,
+                      int H, int KV, int mask_kind, int window, int q_offset,
+                      float scale) {
     using L = KvLayout<D, DV>;
-    extern __shared__ __align__(16) unsigned char smem[];
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem =
+        smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
     bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
     bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
     bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
     bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
-    float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
-    float* delta_s = reinterpret_cast<float*>(smem + L::delta_off);
+    float* Sts = reinterpret_cast<float*>(smem + L::st_off);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+    uint64_t* kv_full = bars;
+    uint64_t* full = bars + 1;                 // [STAGES]
 
-    const int n0 = blockIdx.x * KV_BN;
-    const int hk = blockIdx.y;
-    const int b = blockIdx.z;
+    const int hk = blockIdx.x;
+    const int b = blockIdx.y;
+    const int n0 = blockIdx.z * BN;            // key tile 0 first
     const int G = H / KV;
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const int t = lane % 4;
-    // This thread's two keys (accumulator rows g and g + 8 of its warp).
-    const int key0 = n0 + 16 * warp + lane / 4;
-    const float scale_log2 = scale * LOG2E;
+    const int tid = threadIdx.x;
+    const int wg = tid / 128;
+    const int ct = tid % 128;
 
-    load_tile<D>(Ks, k + ((long long)b * Sk + n0) * KV * D + hk * D,
-                 (long long)KV * D, KV_BN, Sk - n0);
-    load_tile<DV>(Vs, v + ((long long)b * Sk + n0) * KV * DV + hk * DV,
-                  (long long)KV * DV, KV_BN, Sk - n0);
-
-    // Query rows [m_lo, m_hi) that can see a key of this tile.
+    // Query rows [m_lo, m_hi) that can see a key of this tile; the steps
+    // are its query tiles for each of the G heads, head-major.
     int m_lo = 0;
     int m_hi = Sq;
     if (mask_kind != MASK_NONE) {
         m_lo = max(0, n0 - q_offset);
         if (mask_kind == MASK_WINDOW)
-            m_hi = min(Sq, n0 + KV_BN - 1 + window - q_offset);
+            m_hi = min(Sq, n0 + BN - 1 + window - q_offset);
     }
-    const int t_lo = m_lo / KV_BM;
-    const int t_hi = m_hi > m_lo ? (m_hi + KV_BM - 1) / KV_BM : t_lo;
+    const int t_lo = m_lo / BM;
+    const int n_qt = m_hi > m_lo ? (m_hi + BM - 1) / BM - t_lo : 0;
+    const int n_steps = G * n_qt;
 
-    float acc_dk[D / 8][4];
-    float acc_dv[DV / 8][4];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_dk[j][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_dv[j][e] = 0.f;
+    if (tid == 0) {
+        mbar_init(kv_full, 1);
+        for (int s = 0; s < STAGES; ++s) mbar_init(full + s, 1);
+        fence_barrier_init();
+    }
+    __syncthreads();
 
-    for (int hg = 0; hg < G; ++hg) {
-        const int h = hk * G + hg;
-        for (int tile = t_lo; tile < t_hi; ++tile) {
-            const int m0 = tile * KV_BM;
-            __syncthreads();                 // the last tile's reads are done
-            load_tile<D>(Qs, q + ((long long)b * Sq + m0) * H * D + h * D,
-                         (long long)H * D, KV_BM, Sq - m0);
-            load_tile<DV>(dOs,
-                          dout + ((long long)b * Sq + m0) * H * DV + h * DV,
-                          (long long)H * DV, KV_BM, Sq - m0);
-            if (threadIdx.x < KV_BM) {
-                const int row = m0 + threadIdx.x;
-                const long long at = ((long long)b * Sq + row) * H + h;
-                lse_s[threadIdx.x] = row < Sq ? lse[at] * LOG2E : 0.f;
-                delta_s[threadIdx.x] = row < Sq ? delta[at] : 0.f;
-            }
-            __syncthreads();
-
-            // S^T = K Q^T: this warp's 16 keys x KV_BM queries.
-            float s[KV_BM / 8][4];
+    // Step i (head i / n_qt of the group, query tile t_lo + i % n_qt) into
+    // ring stage i % STAGES.
+    auto load_step = [&](int i) {
+        const int s = i % STAGES;
+        const int h = hk * G + i / n_qt;
+        const int m0 = (t_lo + i % n_qt) * BM;
+        mbar_arrive_expect_tx(full + s, L::stage_tx);
 #pragma unroll
-            for (int j = 0; j < KV_BM / 8; ++j)
+        for (int c = 0; c < D / BOX; ++c)
+            tma_load_4d(Qs + s * BM * D + c * BM * BOX, &tq, full + s,
+                        c * BOX, h, m0, b);
 #pragma unroll
-                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        for (int c = 0; c < DV / BOX; ++c)
+            tma_load_4d(dOs + s * BM * DV + c * BM * BOX, &tdo, full + s,
+                        c * BOX, h, m0, b);
+        tma_load_4d(Sts + s * 2 * BM, &tst, full + s, m0, 0, h, b);
+    };
+    // Warpgroup w computes the steps w, w + 2, w + 4, ... and one of its
+    // threads loads them, STAGES / 2 ahead: the warpgroup owns the stages
+    // of its parity, so the two never wait on each other.
+    if (ct == 0) {
+        if (wg == 0) {
+            mbar_arrive_expect_tx(kv_full, L::k_bytes + L::v_bytes);
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                uint32_t a[4];
-                frag_a<L::LDK>(a, Ks, 16 * warp, 16 * kk, lane);
+            for (int c = 0; c < D / BOX; ++c)
+                tma_load_4d(Ks + c * BN * BOX, &tk, kv_full, c * BOX, hk, n0,
+                            b);
 #pragma unroll
-                for (int nb = 0; nb < KV_BM / 16; ++nb) {
-                    uint32_t bq[4];
-                    frag_b_nk<L::LDK>(bq, Qs, 16 * nb, 16 * kk, lane);
-                    mma_16816(s[2 * nb], a, bq[0], bq[1]);
-                    mma_16816(s[2 * nb + 1], a, bq[2], bq[3]);
-                }
-            }
-            // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked
-            // (also keys past Sk and queries past Sq, the tiles' zeros).
-#pragma unroll
-            for (int j = 0; j < KV_BM / 8; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int key = key0 + ((e & 2) ? 8 : 0);
-                    const int ql = 8 * j + 2 * t + (e & 1);
-                    const int row = m0 + ql;
-                    const bool ok = key < Sk && row < Sq &&
-                        visible(mask_kind, window, q_offset + row, key);
-                    s[j][e] = ok ? ex2(s[j][e] * scale_log2 - lse_s[ql]) : 0.f;
-                }
-            // dV += P^T dO.
-#pragma unroll
-            for (int kk = 0; kk < KV_BM / 16; ++kk) {
-                uint32_t p[4];
-                acc_to_a<KV_BM / 8>(p, s, kk);
-#pragma unroll
-                for (int nb = 0; nb < DV / 16; ++nb) {
-                    uint32_t bo[4];
-                    frag_b_kn<L::LDV>(bo, dOs, 16 * kk, 16 * nb, lane);
-                    mma_16816(acc_dv[2 * nb], p, bo[0], bo[1]);
-                    mma_16816(acc_dv[2 * nb + 1], p, bo[2], bo[3]);
-                }
-            }
-            // dP^T = V dO^T.
-            float dp[KV_BM / 8][4];
-#pragma unroll
-            for (int j = 0; j < KV_BM / 8; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < DV / 16; ++kk) {
-                uint32_t a[4];
-                frag_a<L::LDV>(a, Vs, 16 * warp, 16 * kk, lane);
-#pragma unroll
-                for (int nb = 0; nb < KV_BM / 16; ++nb) {
-                    uint32_t bo[4];
-                    frag_b_nk<L::LDV>(bo, dOs, 16 * nb, 16 * kk, lane);
-                    mma_16816(dp[2 * nb], a, bo[0], bo[1]);
-                    mma_16816(dp[2 * nb + 1], a, bo[2], bo[3]);
-                }
-            }
-            // dS^T = P^T (dP^T - delta), in place of P^T.
-#pragma unroll
-            for (int j = 0; j < KV_BM / 8; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    s[j][e] *= dp[j][e] - delta_s[8 * j + 2 * t + (e & 1)];
-            // dK += dS^T Q (scaled once, at the end).
-#pragma unroll
-            for (int kk = 0; kk < KV_BM / 16; ++kk) {
-                uint32_t ds[4];
-                acc_to_a<KV_BM / 8>(ds, s, kk);
-#pragma unroll
-                for (int nb = 0; nb < D / 16; ++nb) {
-                    uint32_t bq[4];
-                    frag_b_kn<L::LDK>(bq, Qs, 16 * kk, 16 * nb, lane);
-                    mma_16816(acc_dk[2 * nb], ds, bq[0], bq[1]);
-                    mma_16816(acc_dk[2 * nb + 1], ds, bq[2], bq[3]);
-                }
-            }
+            for (int c = 0; c < DV / BOX; ++c)
+                tma_load_4d(Vs + c * BN * BOX, &tv, kv_full, c * BOX, hk, n0,
+                            b);
         }
+        for (int i = wg; i < min(n_steps, STAGES); i += 2) load_step(i);
     }
 
+    const int warp = (tid / 32) % 4;
+    const int lane = tid % 32;
+    const float scale_log2 = scale * LOG2E;
+    // This thread's two keys (accumulator rows) and first query column.
+    const int key0 = n0 + 16 * warp + lane / 4;
+    const int col_in = 2 * (lane % 4);
+
+    float dk[D / 2];
+    float dv[DV / 2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int key = key0 + 8 * r;
-        if (key >= Sk) continue;
-        bf16* krow = dk + ((long long)b * Sk + key) * KV * D + hk * D + 2 * t;
-        bf16* vrow = dv + ((long long)b * Sk + key) * KV * DV + hk * DV + 2 * t;
+    for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-            *reinterpret_cast<uint32_t*>(krow + 8 * j) = pack_bf16(
-                acc_dk[j][2 * r] * scale, acc_dk[j][2 * r + 1] * scale);
+    for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+
+    const uint64_t k_desc = desc_sw128(Ks, 0, 1024);
+    const uint64_t v_desc = desc_sw128(Vs, 0, 1024);
+    mbar_wait(kv_full, 0, POLLS);
+    for (int i = wg; i < n_steps; i += 2) {
+        const int s = i % STAGES;
+        const uint32_t parity = (i / STAGES) & 1;
+        const int m0 = (t_lo + i % n_qt) * BM;
+        const bf16* q_st = Qs + s * BM * D;
+        const bf16* do_st = dOs + s * BM * DV;
+        const float* lse_st = Sts + s * 2 * BM;
+        const float* dlt_st = lse_st + BM;
+        mbar_wait(full + s, parity, POLLS);
+
+        // S^T = K Q^T and dP^T = V dO^T: keys x queries, 64 x 64.
+        float st[BM / 2];
+        float dpt[BM / 2];
+        wgmma_fence();
+        wgmma_ss_tiles<D>(st, per_step(k_desc), BN * BOX * 2,
+                          desc_sw128(q_st, 0, 1024), BM * BOX * 2);
+        wgmma_commit();
+        wgmma_ss_tiles<DV>(dpt, per_step(v_desc), BN * BOX * 2,
+                           desc_sw128(do_st, 0, 1024), BM * BOX * 2);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs<BM / 2>(st);
+
+        // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked.
+        const bool edge =
+            edge_tile(m0, n0, Sq, Sk, mask_kind, window, q_offset);
 #pragma unroll
-        for (int j = 0; j < DV / 8; ++j)
-            *reinterpret_cast<uint32_t*>(vrow + 8 * j) =
-                pack_bf16(acc_dv[j][2 * r], acc_dv[j][2 * r + 1]);
+        for (int x = 0; x < BM / 2; ++x) {
+            const int col = 8 * (x / 4) + col_in + (x & 1);
+            float p = ex2(st[x] * scale_log2 - lse_st[col]);
+            if (edge) {
+                const int key = key0 + ((x & 2) ? 8 : 0);
+                const int row = m0 + col;
+                const bool ok = (key < Sk) & (row < Sq) &
+                    visible(mask_kind, window, q_offset + row, key);
+                p = ok ? p : 0.f;
+            }
+            st[x] = p;
+        }
+        wgmma_wait<0>();
+        fence_regs<BM / 2>(dpt);
+        // dS^T = P^T (dP^T - delta), in place of dP^T.
+#pragma unroll
+        for (int x = 0; x < BM / 2; ++x) {
+            const int col = 8 * (x / 4) + col_in + (x & 1);
+            dpt[x] = st[x] * (dpt[x] - dlt_st[col]);
+        }
+        uint32_t pa[BM / 16][4];
+        uint32_t dsa[BM / 16][4];
+        to_a<BM>(pa, st);
+        to_a<BM>(dsa, dpt);
+
+        // dV += P^T dO and dK += dS^T Q: dO and Q are [queries, width]
+        // with the width contiguous, MN-major B operands; atoms of 64
+        // columns are one box (BM rows) apart.
+        fence_regs<DV / 2>(dv);
+        fence_regs<D / 2>(dk);
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk) {
+            fence_regs<4>(pa[kk]);
+            fence_regs<4>(dsa[kk]);
+        }
+        const uint64_t do_mn = desc_sw128(do_st, BM * BOX * 2, 1024);
+        const uint64_t q_mn = desc_sw128(q_st, BM * BOX * 2, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+            wgmma_rs<DV>(dv, pa[kk], desc_at(do_mn, kk * 16 * BOX * 2));
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+            wgmma_rs<D>(dk, dsa[kk], desc_at(q_mn, kk * 16 * BOX * 2));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<DV / 2>(dv);
+        fence_regs<D / 2>(dk);
+        // Every warp of this warpgroup is done with stage s: refill it.
+        named_barrier_sync(1 + wg, 128);
+        if (ct == 0 && i + STAGES < n_steps) load_step(i + STAGES);
+    }
+
+    // Epilogue.  Both warpgroups are done with the ring; warpgroup 0 hands
+    // its dV to warpgroup 1 and takes warpgroup 1's dK through it, so that
+    // each sums one gradient (warpgroup 0's part + warpgroup 1's), stages
+    // it as bf16 where K or V lay, and stores it with TMA.
+    float* xch = reinterpret_cast<float*>(smem + L::q_off);
+    __syncthreads();
+    if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < DV / 2; ++i) xch[i * 128 + ct] = dv[i];
+    } else {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) xch[(DV / 2 + i) * 128 + ct] = dk[i];
+    }
+    __syncthreads();
+    if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i)
+            dk[i] = (dk[i] + xch[(DV / 2 + i) * 128 + ct]) * scale;
+        stage_bf16<D>(Ks, BN * BOX * 2, dk, warp, lane);
+    } else {
+#pragma unroll
+        for (int i = 0; i < DV / 2; ++i) dv[i] = xch[i * 128 + ct] + dv[i];
+        stage_bf16<DV>(Vs, BN * BOX * 2, dv, warp, lane);
+    }
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, 128);
+    if (ct == 0) {
+        if (wg == 0) {
+#pragma unroll
+            for (int c = 0; c < D / BOX; ++c)
+                tma_store_4d(&tdk, Ks + c * BN * BOX, c * BOX, hk, n0, b);
+        } else {
+#pragma unroll
+            for (int c = 0; c < DV / BOX; ++c)
+                tma_store_4d(&tdv, Vs + c * BN * BOX, c * BOX, hk, n0, b);
+        }
+        bulk_commit();
+        bulk_wait_read<0>();
     }
 }
 
 // --------------------------------------------------------------------- dQ
+// Shared memory: Q and dO of the CTA's 128 rows, the ring's K and V
+// stages, then the mbarriers.  Mirrored by smem_bytes in
+// kernels/flash_attention_bwd.py.
 template <int D, int DV>
 struct QLayout {
-    static constexpr int LDK = D + PAD;
-    static constexpr int LDV = DV + PAD;
-    static constexpr int q_off = 0;                          // [Q_BM][LDK]
-    static constexpr int do_off = q_off + Q_BM * LDK * 2;    // [Q_BM][LDV]
-    static constexpr int k_off = do_off + Q_BM * LDV * 2;    // [Q_BN][LDK]
-    static constexpr int v_off = k_off + Q_BN * LDK * 2;     // [Q_BN][LDV]
-    static constexpr int bytes = v_off + Q_BN * LDV * 2;
+    static constexpr uint32_t q_bytes = Q_BM * D * 2;
+    static constexpr uint32_t do_bytes = Q_BM * DV * 2;
+    static constexpr uint32_t k_bytes = BN * D * 2;
+    static constexpr uint32_t v_bytes = BN * DV * 2;
+    static constexpr uint32_t q_off = 0;
+    static constexpr uint32_t do_off = q_off + q_bytes;
+    static constexpr uint32_t k_off = do_off + do_bytes;
+    static constexpr uint32_t v_off = k_off + STAGES * k_bytes;
+    static constexpr uint32_t bar_off = v_off + STAGES * v_bytes;
+    static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;
 };
 
 template <int D, int DV>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int Sq, int Sk, int H, int KV, int mask_kind, int window,
+__global__ void __launch_bounds__(Q_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdq,
+                    const float* __restrict__ stats, int Sq, int Sq_pad,
+                    int Sk, int H, int KV, int mask_kind, int window,
                     int q_offset, float scale) {
     using L = QLayout<D, DV>;
-    extern __shared__ __align__(16) unsigned char smem[];
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem =
+        smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
     bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
     bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
     bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
     bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+    uint64_t* q_full = bars;
+    uint64_t* full = bars + 1;                 // [STAGES]
+    uint64_t* empty = bars + 1 + STAGES;       // [STAGES]
 
-    const int m0 = blockIdx.x * Q_BM;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
+    const int h = blockIdx.x;
+    const int b = blockIdx.y;
+    const int m0 = (gridDim.z - 1 - blockIdx.z) * Q_BM;   // heaviest first
     const int hk = h / (H / KV);
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const int t = lane % 4;
-    // This thread's two rows (accumulator rows g and g + 8 of its warp).
-    const int row0 = m0 + 16 * warp + lane / 4;
-    const float scale_log2 = scale * LOG2E;
-
-    load_tile<D>(Qs, q + ((long long)b * Sq + m0) * H * D + h * D,
-                 (long long)H * D, Q_BM, Sq - m0);
-    load_tile<DV>(dOs, dout + ((long long)b * Sq + m0) * H * DV + h * DV,
-                  (long long)H * DV, Q_BM, Sq - m0);
-    float lse2[2];
-    float dlt[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 8 * r;
-        const long long at = ((long long)b * Sq + row) * H + h;
-        lse2[r] = row < Sq ? lse[at] * LOG2E : 0.f;
-        dlt[r] = row < Sq ? delta[at] : 0.f;
-    }
+    const int tid = threadIdx.x;
+    const int wg = tid / 128;
 
     // Key tiles that any row of this CTA can see (the forward's range).
     int n_lo = 0;
@@ -409,113 +550,245 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         n_hi = min(Sk, q_offset + m0 + Q_BM);
         if (mask_kind == MASK_WINDOW) n_lo = max(0, q_offset + m0 - window + 1);
     }
-    const int t_lo = n_lo / Q_BN;
-    const int n_tiles = max(0, (n_hi + Q_BN - 1) / Q_BN - t_lo);
+    const int t_lo = n_lo / BN;
+    const int n_tiles = max(0, (n_hi + BN - 1) / BN - t_lo);
 
-    float acc[D / 8][4];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    if (tid == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, 8);           // every consumer warp
+        }
+        fence_barrier_init();
+    }
+    __syncthreads();
 
-    for (int i = 0; i < n_tiles; ++i) {
-        const int n0 = (t_lo + i) * Q_BN;
-        __syncthreads();                     // the last tile's reads are done
-        load_tile<D>(Ks, k + ((long long)b * Sk + n0) * KV * D + hk * D,
-                     (long long)KV * D, Q_BN, Sk - n0);
-        load_tile<DV>(Vs, v + ((long long)b * Sk + n0) * KV * DV + hk * DV,
-                      (long long)KV * DV, Q_BN, Sk - n0);
-        __syncthreads();
-
-        // S = Q K^T: this warp's 16 rows x Q_BN keys.
-        float s[Q_BN / 8][4];
+    if (wg == 2) {
+        // ------------------------------------------------------ producer
+        if (tid == 256 && n_tiles > 0) {
+            mbar_arrive_expect_tx(q_full, L::q_bytes + L::do_bytes);
 #pragma unroll
-        for (int j = 0; j < Q_BN / 8; ++j)
+            for (int c = 0; c < D / BOX; ++c)
+                tma_load_4d(Qs + c * Q_BM * BOX, &tq, q_full, c * BOX, h, m0, b);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+            for (int c = 0; c < DV / BOX; ++c)
+                tma_load_4d(dOs + c * Q_BM * BOX, &tdo, q_full, c * BOX, h, m0,
+                            b);
+            for (int i = 0; i < n_tiles; ++i) {
+                const int s = i % STAGES;
+                if (i >= STAGES)
+                    mbar_wait(empty + s, ((i / STAGES) - 1) & 1, POLLS);
+                const int n0 = (t_lo + i) * BN;
+                mbar_arrive_expect_tx(full + s, L::k_bytes + L::v_bytes);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-            uint32_t a[4];
-            frag_a<L::LDK>(a, Qs, 16 * warp, 16 * kk, lane);
+                for (int c = 0; c < D / BOX; ++c)
+                    tma_load_4d(Ks + s * BN * D + c * BN * BOX, &tk, full + s,
+                                c * BOX, hk, n0, b);
 #pragma unroll
-            for (int nb = 0; nb < Q_BN / 16; ++nb) {
-                uint32_t bk[4];
-                frag_b_nk<L::LDK>(bk, Ks, 16 * nb, 16 * kk, lane);
-                mma_16816(s[2 * nb], a, bk[0], bk[1]);
-                mma_16816(s[2 * nb + 1], a, bk[2], bk[3]);
+                for (int c = 0; c < DV / BOX; ++c)
+                    tma_load_4d(Vs + s * BN * DV + c * BN * BOX, &tv, full + s,
+                                c * BOX, hk, n0, b);
             }
         }
-#pragma unroll
-        for (int j = 0; j < Q_BN / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int row = row0 + ((e & 2) ? 8 : 0);
-                const int key = n0 + 8 * j + 2 * t + (e & 1);
-                const bool ok = row < Sq && key < Sk &&
-                    visible(mask_kind, window, q_offset + row, key);
-                s[j][e] = ok ? ex2(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
-            }
-        // dP = dO V^T.
-        float dp[Q_BN / 8][4];
-#pragma unroll
-        for (int j = 0; j < Q_BN / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DV / 16; ++kk) {
-            uint32_t a[4];
-            frag_a<L::LDV>(a, dOs, 16 * warp, 16 * kk, lane);
-#pragma unroll
-            for (int nb = 0; nb < Q_BN / 16; ++nb) {
-                uint32_t bv[4];
-                frag_b_nk<L::LDV>(bv, Vs, 16 * nb, 16 * kk, lane);
-                mma_16816(dp[2 * nb], a, bv[0], bv[1]);
-                mma_16816(dp[2 * nb + 1], a, bv[2], bv[3]);
-            }
-        }
-        // dS = P (dP - delta), then dQ += dS K (scaled once, at the end).
-#pragma unroll
-        for (int j = 0; j < Q_BN / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - dlt[e >> 1];
-#pragma unroll
-        for (int kk = 0; kk < Q_BN / 16; ++kk) {
-            uint32_t ds[4];
-            acc_to_a<Q_BN / 8>(ds, s, kk);
-#pragma unroll
-            for (int nb = 0; nb < D / 16; ++nb) {
-                uint32_t bk[4];
-                frag_b_kn<L::LDK>(bk, Ks, 16 * kk, 16 * nb, lane);
-                mma_16816(acc[2 * nb], ds, bk[0], bk[1]);
-                mma_16816(acc[2 * nb + 1], ds, bk[2], bk[3]);
-            }
-        }
+        return;
     }
 
+    // ------------------------------------------------------- consumers
+    const int warp = (tid / 32) % 4;
+    const int lane = tid % 32;
+    const float scale_log2 = scale * LOG2E;
+    const int m0w = m0 + BM * wg;              // this warpgroup's 64 rows
+    const int row0 = m0w + 16 * warp + lane / 4;
+    const int col_in = 2 * (lane % 4);
+    const bool live = m0w < Sq;
+    const float* st_h = stats + ((long long)b * H + h) * 2 * Sq_pad;
+    float lse2[2];
+    float dlt[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
-        if (row >= Sq) continue;
-        bf16* qrow = dq + ((long long)b * Sq + row) * H * D + h * D + 2 * t;
+        lse2[r] = row < Sq ? st_h[row] : 0.f;
+        dlt[r] = row < Sq ? st_h[Sq_pad + row] : 0.f;
+    }
+
+    float dq[D / 2];
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-            *reinterpret_cast<uint32_t*>(qrow + 8 * j) =
-                pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    // This warpgroup's rows of Q and dO, box 0.
+    const uint64_t q_desc = desc_sw128(Qs + wg * BM * BOX, 0, 1024);
+    const uint64_t do_desc = desc_sw128(dOs + wg * BM * BOX, 0, 1024);
+
+    if (n_tiles > 0) mbar_wait(q_full, 0, POLLS);
+    for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        const uint32_t parity = (i / STAGES) & 1;
+        const int n0 = (t_lo + i) * BN;
+        // Whether any of this warpgroup's rows sees a key of the tile.
+        bool sees = live;
+        if (mask_kind != MASK_NONE) sees = sees && n0 <= q_offset + m0w + BM - 1;
+        if (mask_kind == MASK_WINDOW)
+            sees = sees && n0 + BN - 1 > q_offset + m0w - window;
+        const bf16* k_st = Ks + s * BN * D;
+        const bf16* v_st = Vs + s * BN * DV;
+        mbar_wait(full + s, parity, POLLS);
+        if (sees) {
+            float sc[BN / 2];
+            float dp[BN / 2];
+            wgmma_fence();
+            wgmma_ss_tiles<D>(sc, per_step(q_desc), Q_BM * BOX * 2,
+                              desc_sw128(k_st, 0, 1024), BN * BOX * 2);
+            wgmma_commit();
+            wgmma_ss_tiles<DV>(dp, per_step(do_desc), Q_BM * BOX * 2,
+                               desc_sw128(v_st, 0, 1024), BN * BOX * 2);
+            wgmma_commit();
+            wgmma_wait<1>();
+            fence_regs<BN / 2>(sc);
+            const bool edge =
+                edge_tile(m0w, n0, Sq, Sk, mask_kind, window, q_offset);
+#pragma unroll
+            for (int x = 0; x < BN / 2; ++x) {
+                const int r = (x >> 1) & 1;
+                float p = ex2(sc[x] * scale_log2 - lse2[r]);
+                if (edge) {
+                    const int key = n0 + 8 * (x / 4) + col_in + (x & 1);
+                    const int row = row0 + 8 * r;
+                    const bool ok = (key < Sk) & (row < Sq) &
+                        visible(mask_kind, window, q_offset + row, key);
+                    p = ok ? p : 0.f;
+                }
+                sc[x] = p;
+            }
+            wgmma_wait<0>();
+            fence_regs<BN / 2>(dp);
+#pragma unroll
+            for (int x = 0; x < BN / 2; ++x)
+                dp[x] = sc[x] * (dp[x] - dlt[(x >> 1) & 1]);
+            uint32_t dsa[BN / 16][4];
+            to_a<BN>(dsa, dp);
+            // dQ += dS K: K is [keys, D] with D contiguous, an MN-major B
+            // operand; atoms of 64 columns are one box (BN rows) apart.
+            fence_regs<D / 2>(dq);
+#pragma unroll
+            for (int kk = 0; kk < BN / 16; ++kk) fence_regs<4>(dsa[kk]);
+            const uint64_t k_mn = desc_sw128(k_st, BN * BOX * 2, 1024);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BN / 16; ++kk)
+                wgmma_rs<D>(dq, dsa[kk], desc_at(k_mn, kk * 16 * BOX * 2));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs<D / 2>(dq);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);   // the stage is free again
+    }
+
+    // Epilogue: scale dQ, stage it as bf16 over this warpgroup's own rows
+    // of Q (no other warpgroup reads them) and store it with TMA.
+    if (!live) return;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] *= scale;
+    bf16* stage = Qs + wg * BM * BOX;
+    stage_bf16<D>(stage, Q_BM * BOX * 2, dq, warp, lane);
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, 128);
+    if (tid % 128 == 0) {
+#pragma unroll
+        for (int c = 0; c < D / BOX; ++c)
+            tma_store_4d(&tdq, stage + c * Q_BM * BOX, c * BOX, h, m0w, b);
+        bulk_commit();
+        bulk_wait_read<0>();
     }
 }
 
 // ------------------------------------------------------------------- host
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+                   ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+    }();
+    return fn;
+}
+
+// Rank-4 map over a contiguous tensor of dims {d0, d1, d2, d3} (innermost
+// first) with boxes `box`; boxes past the edge read as zeros and are
+// clipped when stored.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                     int elem, const cuuint64_t (&dims)[4],
+                     const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t strides[3] = {dims[0] * elem, dims[0] * dims[1] * elem,
+                                   dims[0] * dims[1] * dims[2] * elem};
+    const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+    const CUresult r = encode(
+        map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 [batch, seq, heads, width] tensor in boxes of 64 columns x `rows`
+// positions of one head, 128-byte swizzled.
+cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int width, int heads,
+                     int seq, int batch, int rows) {
+    const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
+                                (cuuint64_t)seq, (cuuint64_t)batch};
+    const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
+    return make_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dims, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const void* lse,
-                   void* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                   void* stats, void* dq, void* dk, void* dv, int B, int Sq,
                    int Sk, int H, int KV, int mask_kind, int window,
                    int q_offset, float scale, cudaStream_t stream) {
-    const long long rows = (long long)B * Sq * H;
-    flash_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+    const int Sq_pad = (Sq + BM - 1) / BM * BM;
+    const long long threads = (long long)B * Sq_pad * H * (DV / 8);
+    flash_bwd_delta_kernel<DV><<<(unsigned)((threads + 255) / 256), 256, 0,
+                                 stream>>>(
         static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
-        static_cast<float*>(delta), rows, DV);
+        static_cast<const float*>(lse), static_cast<float*>(stats), B, Sq,
+        Sq_pad, H);
     cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+
+    CUtensorMap tq, tdo, tk, tv, tst, tdk, tdv, tq2, tdo2, tdq;
+    const cuuint64_t st_dims[4] = {(cuuint64_t)Sq_pad, 2, (cuuint64_t)H,
+                                   (cuuint64_t)B};
+    const cuuint32_t st_box[4] = {BM, 2, 1, 1};
+    err = bf16_map(&tq, q, D, H, Sq, B, BM);
+    if (err == cudaSuccess) err = bf16_map(&tdo, dout, DV, H, Sq, B, BM);
+    if (err == cudaSuccess) err = bf16_map(&tk, k, D, KV, Sk, B, BN);
+    if (err == cudaSuccess) err = bf16_map(&tv, v, DV, KV, Sk, B, BN);
+    if (err == cudaSuccess)
+        err = make_map(&tst, stats, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                       st_dims, st_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err == cudaSuccess) err = bf16_map(&tdk, dk, D, KV, Sk, B, BN);
+    if (err == cudaSuccess) err = bf16_map(&tdv, dv, DV, KV, Sk, B, BN);
+    if (err == cudaSuccess) err = bf16_map(&tq2, q, D, H, Sq, B, Q_BM);
+    if (err == cudaSuccess) err = bf16_map(&tdo2, dout, DV, H, Sq, B, Q_BM);
+    if (err == cudaSuccess) err = bf16_map(&tdq, dq, D, H, Sq, B, BM);
     if (err != cudaSuccess) return err;
 
     auto kv_kern = flash_bwd_dkdv_kernel<D, DV>;
@@ -524,13 +797,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kv_bytes);
     if (err != cudaSuccess) return err;
-    dim3 kv_grid((Sk + KV_BN - 1) / KV_BN, KV, B);
-    kv_kern<<<kv_grid, THREADS, kv_bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H, KV,
-        mask_kind, window, q_offset, scale);
+    dim3 kv_grid(KV, B, (Sk + BN - 1) / BN);
+    kv_kern<<<kv_grid, KV_THREADS, kv_bytes, stream>>>(
+        tq, tdo, tk, tv, tst, tdk, tdv, Sq, Sk, H, KV, mask_kind, window,
+        q_offset, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
@@ -540,24 +810,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                q_bytes);
     if (err != cudaSuccess) return err;
-    dim3 q_grid((Sq + Q_BM - 1) / Q_BM, H, B);
-    q_kern<<<q_grid, THREADS, q_bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dq), Sq, Sk, H, KV, mask_kind, window, q_offset,
-        scale);
+    dim3 q_grid(H, B, (Sq + Q_BM - 1) / Q_BM);
+    q_kern<<<q_grid, Q_THREADS, q_bytes, stream>>>(
+        tq2, tdo2, tk, tv, tdq, static_cast<const float*>(stats), Sq, Sq_pad,
+        Sk, H, KV, mask_kind, window, q_offset, scale);
     return cudaGetLastError();
 }
 
 }  // namespace
 
 // Gradients of flash attention.  Sq, Sk and B must be positive (the
-// wrapper answers the empty cases); delta is scratch of B * Sq * H floats.
+// wrapper answers the empty cases); stats is fp32 scratch [B, H, 2,
+// Sq_pad] with Sq_pad = Sq rounded up to a multiple of 64.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const void* lse,
-                                   void* delta, void* dq, void* dk, void* dv,
+                                   void* stats, void* dq, void* dk, void* dv,
                                    int B, int Sq, int Sk, int H, int KV,
                                    int D, int Dv, int mask_kind, int window,
                                    int q_offset, float scale, int device,
@@ -566,14 +834,27 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     if (err != cudaSuccess) return (int)err;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     if (D == 128 && Dv == 128)
-        return (int)launch<128, 128>(q, k, v, out, dout, lse, delta, dq, dk,
+        return (int)launch<128, 128>(q, k, v, out, dout, lse, stats, dq, dk,
                                      dv, B, Sq, Sk, H, KV, mask_kind, window,
                                      q_offset, scale, st);
     if (D == 64 && Dv == 64)
-        return (int)launch<64, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+        return (int)launch<64, 64>(q, k, v, out, dout, lse, stats, dq, dk, dv,
                                    B, Sq, Sk, H, KV, mask_kind, window,
                                    q_offset, scale, st);
     return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the dK/dV kernel (kernel 0) or the dQ kernel
+// (kernel 1) for a head-dim pair; -1 for a pair the backward is not built
+// for.
+extern "C" long flash_attention_bwd_smem_bytes(int D, int Dv, int kernel) {
+    if (D == 128 && Dv == 128)
+        return kernel == 0 ? (long)KvLayout<128, 128>::bytes
+                           : (long)QLayout<128, 128>::bytes;
+    if (D == 64 && Dv == 64)
+        return kernel == 0 ? (long)KvLayout<64, 64>::bytes
+                           : (long)QLayout<64, 64>::bytes;
+    return -1;
 }
 
 extern "C" const char* error_string(int code) {

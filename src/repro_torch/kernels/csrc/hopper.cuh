@@ -1,6 +1,7 @@
 // Small PTX helpers for Hopper (sm_90a) kernels: mbarriers, asynchronous
-// copies, TMA tensor loads and stores, ldmatrix and mma.sync, wgmma shared-memory
-// descriptors and the wgmma products in the widths the port's kernels use.
+// copies, TMA tensor loads and stores, named barriers, ldmatrix and
+// mma.sync, wgmma shared-memory descriptors and the wgmma products in the
+// widths the port's kernels use.
 // Device code only; include after <cuda.h> (for CUtensorMap).
 //
 // Conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
@@ -46,6 +47,12 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                                                       uint32_t bytes) {
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                  :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Arrive once (no transaction bytes): a consumer releasing a ring stage.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
@@ -136,6 +143,18 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
         : "memory");
 }
 
+// The same for a rank-4 tensor map at (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+        " [%0, {%2, %3, %4, %5}], [%1];\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+           "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
 // Makes this thread's shared-memory writes visible to the async proxy (a
 // TMA store that reads them).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -152,6 +171,13 @@ __device__ __forceinline__ void bulk_commit() {
 template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
     asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// ----------------------------------------------------------- named barriers
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32: syncs a subset of warps, e.g. one warpgroup.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // -------------------------------------------------------- ldmatrix, mma.sync

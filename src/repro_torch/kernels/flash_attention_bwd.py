@@ -9,17 +9,22 @@ recomputes the probabilities from the forward's logsumexp
 CUDA tensors in the JAX package's layout (q ``[B, Sq, H, D]``, k ``[B, Sk,
 KV, D]``, v ``[B, Sk, KV, Dv]``, out and dout ``[B, Sq, H, Dv]``) and lse
 fp32 ``[B, Sq, H]``, checks them, allocates the gradients and the fp32
-``delta`` scratch and launches on PyTorch's current stream.  It raises on
-anything the kernel does not take; it never falls back to the plain
-version.  One call of the wrapper is one launch of the kernel (its three
-CUDA kernels: delta, dK/dV, dQ).
+scratch of lse and delta and launches on PyTorch's current stream.  It
+raises on anything the kernel does not take; it never falls back to the
+plain version.  One call of the wrapper is one launch of the kernel (its
+three CUDA kernels: delta, dK/dV, dQ).
+
+:func:`smem_bytes`, :func:`dkdv_steps` and :func:`dq_tiles` mirror the
+kernel's shared-memory layouts and the work each CTA does, so that the CPU
+tests can hold the schedule to the mask and the tiled arithmetic to the
+plain formula.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -28,6 +33,82 @@ from .flash_attention import MASK_KINDS, mask_for
 
 #: (D, Dv) pairs the backward is built for: yi-6b's and the 100M example's.
 HEAD_DIMS = ((64, 64), (128, 128))
+#: The kernel's tiles: keys per dK/dV CTA and per dQ ring stage (BN),
+#: queries per dK/dV step and per dQ warpgroup (BM), queries per dQ CTA
+#: (Q_BM), and the depth of both rings.
+BN, BM, Q_BM, STAGES = 64, 64, 128, 4
+
+
+def smem_bytes(D: int, Dv: int) -> Tuple[int, int]:
+    """Dynamic shared memory of the (dK/dV, dQ) kernels.  dK/dV: K and V of
+    64 keys, then per ring stage Q and dO of 64 queries and their lse and
+    delta (fp32), a full mbarrier per stage and K/V's; dQ: Q and dO of 128
+    queries, then per stage K and V of 64 keys, a full and an empty
+    mbarrier per stage and Q/dO's; both bf16, plus 1024 bytes to align.
+    Mirrors ``KvLayout`` and ``QLayout`` in ``csrc/flash_attention_bwd.cu``.
+    """
+    kv = (2 * BN * (D + Dv) + STAGES * (2 * BM * (D + Dv) + 2 * BM * 4)
+          + 8 * (1 + STAGES) + 1024)
+    dq = 2 * Q_BM * (D + Dv) + STAGES * 2 * BN * (D + Dv) \
+        + 8 * (1 + 2 * STAGES) + 1024
+    return kv, dq
+
+
+def _edge(m0: int, n0: int, Sq: int, Sk: int, mask_kind: str, window: int,
+          q_offset: int) -> bool:
+    """Whether the BM x BN tile at (m0, n0) needs the mask (the kernel's
+    ``edge_tile``): a pair past Sq or Sk, or one the mask may hide."""
+    return (m0 + BM > Sq or n0 + BN > Sk
+            or (mask_kind != "none" and n0 + BN - 1 > q_offset + m0)
+            or (mask_kind == "window"
+                and n0 <= q_offset + m0 + BM - 1 - window))
+
+
+def dkdv_steps(n0: int, Sq: int, Sk: int, G: int, mask_kind: str,
+               window: int = 0, q_offset: int = 0
+               ) -> List[Tuple[int, int, int, bool]]:
+    """The steps of the dK/dV CTA of the key tile at ``n0``, in order
+    (step i goes to ring stage i % STAGES): ``(head in the group, query
+    tile, warpgroup, edge)``.  The query tiles are those that can see a
+    key of the tile; the two warpgroups take the steps in turns."""
+    m_lo, m_hi = 0, Sq
+    if mask_kind != "none":
+        m_lo = max(0, n0 - q_offset)
+        if mask_kind == "window":
+            m_hi = min(Sq, n0 + BN - 1 + window - q_offset)
+    t_lo = m_lo // BM
+    n_qt = (m_hi + BM - 1) // BM - t_lo if m_hi > m_lo else 0
+    return [(i // n_qt, t_lo + i % n_qt, i % 2,
+             _edge((t_lo + i % n_qt) * BM, n0, Sq, Sk, mask_kind, window,
+                   q_offset))
+            for i in range(G * n_qt)]
+
+
+def dq_tiles(m0: int, Sq: int, Sk: int, mask_kind: str, window: int = 0,
+             q_offset: int = 0) -> List[Tuple[int, int, bool, bool]]:
+    """The key tiles of the dQ CTA of the queries from ``m0`` (the
+    forward's key range), each for both warpgroups: ``(key tile,
+    warpgroup, sees, edge)``; a warpgroup computes on a tile only where
+    one of its 64 rows sees one of its keys (``sees``)."""
+    n_lo, n_hi = 0, Sk
+    if mask_kind != "none":
+        n_hi = min(Sk, q_offset + m0 + Q_BM)
+        if mask_kind == "window":
+            n_lo = max(0, q_offset + m0 - window + 1)
+    t_lo = n_lo // BN
+    out = []
+    for t in range(t_lo, max(t_lo, (n_hi + BN - 1) // BN)):
+        n0 = t * BN
+        for wg in (0, 1):
+            m0w = m0 + BM * wg
+            sees = m0w < Sq
+            if mask_kind != "none":
+                sees = sees and n0 <= q_offset + m0w + BM - 1
+            if mask_kind == "window":
+                sees = sees and n0 + BN - 1 > q_offset + m0w - window
+            out.append((t, wg, sees, sees and _edge(
+                m0w, n0, Sq, Sk, mask_kind, window, q_offset)))
+    return out
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *,
@@ -69,6 +150,8 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 10 + [
         ctypes.c_float, i, p]
     lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_smem_bytes.argtypes = [i, i, i]
+    lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_long
     return lib
 
 
@@ -107,11 +190,13 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *,
     if B == 0 or Sq == 0 or Sk == 0 or H == 0:
         # nothing to attend to, or no query to attend: zero gradients
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Sq, H), dtype=torch.float32, device=dev)
+    # lse log2(e) and delta per (batch, head), queries padded to BM rows
+    stats = torch.empty((B, H, 2, -(-Sq // BM) * BM), dtype=torch.float32,
+                        device=dev)
     lib = _lib()
     status = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), stats.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, D, Dv,
         MASK_KINDS[mask_kind], int(window), int(q_offset), float(scale),
         dev.index, torch.cuda.current_stream(dev).cuda_stream)

@@ -549,6 +549,10 @@ BWD = [
     (1, 8, 8, 2, 2, 64, "window", 2, 20),                # no key in sight
     (2, 5, 0, 4, 2, 64, "none", 0, 0),                   # Sk = 0
     (2, 200, 200, 4, 4, 128, "causal", 0, 0),            # G = 1
+    # The ring wraps many times, odd step counts split between the two
+    # warpgroups of the dK/dV kernel.
+    (1, 2048, 2048, 8, 1, 64, "causal", 0, 0),           # D 64, G 8
+    (2, 1000, 1000, 8, 2, 128, "window", 150, 0),        # ragged, window
 ]
 # Backward, kernel vs the plain formula in fp32: relative L2 of each
 # gradient within max(2e-2, 2 x floor), the floor the plain formula in
@@ -589,6 +593,24 @@ def test_flash_backward_kernel_matches_plain(case, gen):
             continue
         limit = max(BWD_REL_L2, 2 * _rel_l2(f, w))
         assert _rel_l2(g, w) <= limit, (name, _rel_l2(g, w), limit)
+
+
+def test_flash_backward_smem_bytes_match_the_source(gen):
+    """The wrapper module's mirror of the two product kernels' shared
+    memory equals the source's layouts, which fit the card."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        HEAD_DIMS as BWD_HEAD_DIMS,
+        _lib as bwd_lib,
+        smem_bytes as bwd_smem_bytes,
+    )
+
+    lib = bwd_lib()
+    for D, Dv in BWD_HEAD_DIMS:
+        got = tuple(lib.flash_attention_bwd_smem_bytes(D, Dv, kernel)
+                    for kernel in (0, 1))
+        assert got == bwd_smem_bytes(D, Dv)
+        assert max(got) <= 232_448
+    assert lib.flash_attention_bwd_smem_bytes(256, 256, 0) == -1
 
 
 @pytest.mark.parametrize("case", [c for c in FLASH if c[2] > 0], ids=str)

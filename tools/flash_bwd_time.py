@@ -1,0 +1,172 @@
+"""Time the flash backward kernel on the card, against a baseline source.
+
+    python3 tools/flash_bwd_time.py [--baseline OTHER/flash_attention_bwd.cu]
+
+At yi-6b's training shape (B 4, S 1024, 32 heads / 4 KV of 128, causal)
+and the 100M example's (B 8, S 128, 10 / 2 of 64, causal), on the same
+bf16 inputs (the forward kernel's out and lse):
+
+- the device time of one wrapper call (``chip_smoke.device_ms``: CUDA
+  events over 20 calls, the host's enqueueing hidden behind a device
+  sleep), in turns with the baseline (baseline, kernel, kernel,
+  baseline) when one is given;
+- each CUDA kernel's own time (torch.profiler over 10 calls);
+- SDPA's backward on the same inputs (``torch.autograd.grad`` through
+  ``F.scaled_dot_product_attention``; a yardstick the port never calls);
+- the least time the card could take: the formula's five products and
+  the design's seven over the causal half at 989 TFLOP/s bf16, against
+  the inputs and gradients once at 3.35 TB/s.
+
+``--baseline`` builds another version of the kernel source as it is (for
+example the parent commit's, from an unpacked ``git archive``, with its
+``hopper.cuh`` beside it) into the git-ignored
+``kernels/_cuda_build/flash_bwd_time/``; it must export the same
+``flash_attention_bwd`` C entry.  Its scratch is the larger of the
+layouts either version takes.  Prints the card's name and power limit,
+one line per measurement and a last JSON line.  Needs a GPU and
+``nvcc``; exits non-zero without them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import (  # noqa: E402
+    bound,
+    device_ms,
+    kernel_times,
+    nbytes,
+    sdpa,
+)
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    MASK_KINDS,
+    flash_attention_cuda,
+)
+from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
+    BM,
+    flash_attention_bwd_cuda,
+)
+
+OUT = _build.BUILD_DIR / "flash_bwd_time"
+SHAPES = {   # name: (B, S, H, KV, D)
+    "yi-6b train": (4, 1024, 32, 4, 128),
+    "example": (8, 128, 10, 2, 64),
+}
+
+
+def build_baseline(source: Path) -> ctypes.CDLL:
+    OUT.mkdir(parents=True, exist_ok=True)
+    lib = OUT / "libbaseline.so"
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(source.parent),
+           "-o", str(lib), str(source)]
+    done = subprocess.run(cmd, capture_output=True, text=True)
+    if done.returncode != 0:
+        raise SystemExit(f"baseline build failed:\n{done.stdout}{done.stderr}")
+    dll = ctypes.CDLL(str(lib))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.flash_attention_bwd.argtypes = [p] * 10 + [i] * 10 + [
+        ctypes.c_float, i, p]
+    dll.flash_attention_bwd.restype = ctypes.c_int
+    return dll
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", type=Path, default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    base = build_baseline(args.baseline) if args.baseline else None
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    results = {}
+    for name, (b, s, h, kv, d) in SHAPES.items():
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+
+        q, k, v, dout = randn(b, s, h, d), randn(b, s, kv, d), \
+            randn(b, s, kv, d), randn(b, s, h, d)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        pad = -(-s // BM) * BM
+        scratch = torch.empty(b * h * 2 * pad, dtype=torch.float32,
+                              device="cuda")
+
+        def kernel():
+            flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+
+        def baseline():
+            status = base.flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                *(g.data_ptr() for g in grads), b, s, s, h, kv, d, d,
+                MASK_KINDS["causal"], 0, 0, d ** -0.5, 0,
+                torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise SystemExit(f"baseline failed with CUDA error {status}")
+
+        row = {}
+        if base is not None:
+            times = [device_ms(f, 20) for f in (baseline, kernel, kernel,
+                                                  baseline)]
+            row["baseline_ms"] = [times[0], times[3]]
+            row["ms"] = [times[1], times[2]]
+            got = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+            baseline()
+            torch.cuda.synchronize()
+            row["max_abs_diff_vs_baseline"] = max(
+                float((x.float() - y.float()).abs().max())
+                for x, y in zip(got, grads))
+        else:
+            row["ms"] = [device_ms(kernel, 20), device_ms(kernel, 20)]
+        row["kernels"] = kernel_times(kernel, 10, r"flash_bwd_\w+")
+        if base is not None:
+            row["baseline_kernels"] = kernel_times(baseline, 10,
+                                                   r"flash_bwd_\w+")
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = sdpa(qg, kg, vg, causal=True)
+        row["sdpa_backward_ms"] = device_ms(lambda: torch.autograd.grad(
+            lib_out, (qg, kg, vg), dout.transpose(1, 2), retain_graph=True),
+            20)
+        pairs = s * (s + 1) // 2
+        five = 2.0 * b * h * pairs * 5 * d
+        seven = 2.0 * b * h * pairs * 7 * d
+        total = nbytes(q, k, v, out, dout, lse, q, k, v)
+        row["bound5_ms"] = bound(five, total)[0]
+        row["bound7_ms"] = bound(seven, total)[0]
+        ms = min(row["ms"])
+        print(f"[{name}] B{b} S{s} H{h} KV{kv} D{d} causal: kernel "
+              f"{row['ms']} ms" + (f", baseline {row['baseline_ms']} ms "
+                                   f"(max |diff| "
+                                   f"{row['max_abs_diff_vs_baseline']:.3e})"
+                                   if base is not None else "")
+              + f"; sdpa backward {row['sdpa_backward_ms']:.4f} ms; bounds "
+              f"{row['bound5_ms']:.4f} (five products, {five / 1e9:.2f} "
+              f"GFLOP) / {row['bound7_ms']:.4f} ms (seven); kernel at "
+              f"{row['bound5_ms'] / ms:.1%} / {row['bound7_ms'] / ms:.1%} "
+              f"of them; by CUDA kernel {row['kernels']}"
+              + (f"; baseline by CUDA kernel {row['baseline_kernels']}"
+                 if base is not None else ""), flush=True)
+        results[name] = row
+    print(json.dumps({"device": smi, "shapes": results}, allow_nan=False))
+
+
+if __name__ == "__main__":
+    main()
