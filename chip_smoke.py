@@ -28,6 +28,13 @@ ends the script with a non-zero exit and no result line:
               lse; times against SDPA's backward and both bounds (the
               formula's five products, the design's seven), and each of
               its CUDA kernels' own time (delta, dK/dV, dQ; torch.profiler).
+              The SSD backward against its plain formula (fp32) at
+              mamba2-2.7b's training shape and at G 2 and 4, chunks 64 and
+              256, S equal to the chunk, an initial state and a final-state
+              cotangent, strong decay and ragged P and N: each gradient
+              within max(3e-2, 2 x the plain formula's bf16 floor)
+              relative L2, two launches bitwise equal; its time and each of
+              its CUDA kernels' (walks, chunks, reductions).
 4. model   -- full-width yi-6b, mamba2-2.7b, recurrentgemma-2b, minicpm3-4b
               and deepseek-v2-lite-16b in bf16 (random weights from a
               seed): prefill and 4 decode steps through the kernels against
@@ -63,10 +70,14 @@ ends the script with a non-zero exit and no result line:
               the uninterrupted ones (the three checkpoints these runs
               write would take 93 GB at 12 layers, 31 GB at 2).  Then
               ``--jobs yi-6b:8,yi-6b:2 --n-layers 2`` under SRTF and FIFO,
-              every job finishing.  Then one step's gradients at 12 layers
-              through the kernels against the plain versions, each stacked
-              leaf within max(5e-2, 2 x floor) relative L2 (floor: plain
-              bf16 vs plain fp32).
+              every job finishing.  Then ``--arch mamba2-2.7b --n-layers
+              56 --steps 4`` (full width, the deepest multiple of 8 layers
+              that fits): every loss finite, one SSD forward and backward
+              launch per layer and step, the step wall, peak memory and
+              device split.  Then one step's gradients through the kernels
+              against the plain versions, yi-6b at 12 layers and
+              mamba2-2.7b at 16, each stacked leaf within max(5e-2, 2 x
+              floor) relative L2 (floor: plain bf16 vs plain fp32).
 7. scenario kernels -- ``--scenario poisson-open --scenario-kernels
               --time-scale 1e-6 --max-blocks 16``: the scenario's first
               workload (8 arrivals) as jobs of synthetic blocks on the
@@ -82,6 +93,7 @@ ends the script with a non-zero exit and no result line:
 The line before the last is a JSON object with one entry per kernel and
 timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's and
 deepseek-v2-lite's prefill; the flash backward: yi-6b's training shape;
+the SSD backward: mamba2-2.7b's;
 decode: yi-6b's and recurrentgemma-2b's decode steps; RG-LRU:
 recurrentgemma-2b's prefill at B 4 and at B 1; launches summed over the
 serve and train paths); the last line is
@@ -144,6 +156,11 @@ MODEL_REL_L2 = 5e-2
 # another order and ex2.approx).
 BWD_REL_L2 = 2e-2
 LSE_TOL = 1e-3
+# SSD backward, kernel vs its plain formula in fp32 on the same bf16 inputs:
+# relative L2 of each gradient within max(SSD_BWD_REL_L2, 2 x floor), the
+# floor the plain formula with each product's operands rounded to bf16 as
+# the kernel rounds them, against it in fp32 (the scans' bf16 tolerance).
+SSD_BWD_REL_L2 = 3e-2
 
 B, PROMPT, TOKENS_PER_BLOCK, LONGEST = 4, 1024, 8, 8
 MAX_SEQ = PROMPT + LONGEST * TOKENS_PER_BLOCK + 8   # make_serve_job's max_seq
@@ -174,6 +191,15 @@ TRAIN_LAYERS, TRAIN_STEPS = 12, 6
 # Checkpoint and resume at full width with 2 layers: 10.4 GB a checkpoint.
 RESUME_LAYERS = 2
 TRAIN_JOBS = "yi-6b:8,yi-6b:2"
+# Full-width mamba2-2.7b at B 4 x 1024 peaks at ~2.9 GiB + 1.06 GiB a
+# layer: 0.60 GiB of parameter state (fp32 weights, gradients and AdamW
+# moments, 16 B a parameter) and ~0.46 GiB of activations
+# (tools/ssd_bwd_time.py --depths: 19.85 GiB at 16 layers, 62.34 at 56,
+# 70.84 at all 64).  All 64 fit the card; the cut to 56 is a headroom
+# rule, the deepest multiple of 8 layers under ~70 GiB, not a fit limit.
+# Its gradient check holds three gradient sets at once beside the
+# weights: 16 layers.
+MAMBA_LAYERS, MAMBA_STEPS, MAMBA_CHECK_LAYERS = 56, 4, 16
 SLEEP_CYCLES = 200_000_000            # device sleep before a timed run
 
 
@@ -304,6 +330,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     out.update(kernels_attention(gen))
     out["flash_attention_bwd"] = kernel_flash_bwd(gen)
     out["ssd_scan"] = [kernel_ssd(gen)]
+    out["ssd_scan_bwd"] = [kernel_ssd_bwd(gen)]
     out["rglru_scan"] = kernel_rglru(gen)
     return out
 
@@ -753,6 +780,125 @@ def kernel_ssd(gen: torch.Generator) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def kernel_ssd_bwd(gen: torch.Generator) -> dict:
+    """The SSD backward against its plain version (the chunked formula in
+    float32) on the same bf16 x, B, C, dy and fp32 dt, A, initial state
+    and final-state cotangent: each gradient within max(SSD_BWD_REL_L2, 2 x
+    floor) relative L2, the floor being the plain formula with bf16
+    operands against it in fp32; two launches bitwise equal.  Times at
+    mamba2-2.7b's training shape, and each of its CUDA kernels' own time.
+    No single PyTorch call computes the backward, so there is no library
+    time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan_bwd import flops as ssd_bwd_flops
+    from repro_torch.kernels.ssd_scan_bwd import ssd_bwd_cuda, ssd_bwd_plain
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def inputs(b, s, h, p, g, n, init, dstate, decay=1.0):
+        return ((randn(b, s, h, p) * 0.5).to(torch.bfloat16),
+                F.softplus(randn(b, s, h)), -torch.exp(randn(h)) * decay,
+                (randn(b, s, g, n) * 0.3).to(torch.bfloat16),
+                (randn(b, s, g, n) * 0.3).to(torch.bfloat16),
+                randn(b, s, h, p).to(torch.bfloat16),
+                randn(b, h, p, n) * 0.5 if dstate else None,
+                randn(b, h, p, n) * 0.2 if init else None)
+
+    train = (B, PROMPT, 80, 64, 1, 128, 128, False, False)
+    cases = [
+        # name, (B, S, H, P, G, N, chunk, initial_state, dstate[, decay])
+        ("mamba2 train B4 S1024 H80 P64 G1 N128 chunk128", train),
+        ("G2 S256 chunk64 with initial_state and dstate",
+         (2, 256, 8, 64, 2, 128, 64, True, True)),
+        ("G4 S=chunk=64", (2, 64, 8, 32, 4, 64, 64, False, True)),
+        ("chunk256 S512 P32 N32 with initial_state",
+         (2, 512, 4, 32, 1, 32, 256, True, False)),
+        # A dt << 0: exp(cum) underflows within a step or two.
+        ("strong decay A*300 S256 with initial_state and dstate",
+         (2, 256, 4, 64, 1, 128, 128, True, True, 300.0)),
+        ("ragged P24 N40 chunk48 S96 with initial_state and dstate",
+         (1, 96, 3, 24, 1, 40, 48, True, True)),
+    ]
+    names = ("dx", "ddt", "dA", "dB", "dC", "d initial_state")
+    errs = []
+    for name, (b, s, h, p, g, n, chunk, init, dst, *decay) in cases:
+        x, dt, A, Bm, Cm, dy, ds, h0 = inputs(b, s, h, p, g, n, init, dst,
+                                              *decay)
+        kw = dict(chunk=chunk, initial_state=h0)
+        got = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, ds, **kw)
+        again = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, ds, **kw)
+        truth = ssd_bwd_plain(x, dt, A, Bm, Cm, dy, ds, **kw)
+        plain16 = ssd_bwd_plain(x, dt, A, Bm, Cm, dy, ds,
+                                dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(got, again)
+                   if u is not None):
+            fail(f"ssd_scan_bwd {name}: two launches differ")
+        for grad, k, w, f16 in zip(names, got, truth, plain16):
+            if w is None:
+                continue
+            if k.shape != w.shape or k.dtype != w.dtype \
+                    or not torch.isfinite(k).all():
+                fail(f"ssd_scan_bwd {name} {grad}: {tuple(k.shape)} "
+                     f"{k.dtype} or non-finite")
+            abs_err = float((k.float() - w.float()).abs().max())
+            errs.append(abs_err)
+            if not w.any():
+                print(f"[kernels] ssd_scan_bwd {name} {grad}: plain all "
+                      f"zero, kernel {'all zero' if not k.any() else 'NOT'}",
+                      flush=True)
+                if k.any():
+                    fail(f"ssd_scan_bwd {name} {grad} is not zero")
+                continue
+            err, floor = rel_l2(k, w), rel_l2(f16, w)
+            limit = max(SSD_BWD_REL_L2, 2 * floor)
+            ok = err <= limit
+            print(f"[kernels] ssd_scan_bwd {name} {grad}: relative L2 "
+                  f"{err:.3e} (bound {limit:.3e} = max({SSD_BWD_REL_L2}, 2 x "
+                  f"floor {floor:.3e})), max_abs_err {abs_err:.3e} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail(f"ssd_scan_bwd {name} {grad} disagrees with its plain "
+                     f"version")
+    print("[kernels] ssd_scan_bwd: two launches bitwise equal in every case",
+          flush=True)
+
+    b, s, h, p, g, n, chunk, _, _ = train
+    x, dt, A, Bm, Cm, dy, _, _ = inputs(b, s, h, p, g, n, False, False)
+    # the bound from the products the gradients need; the design's (which
+    # forms Z twice and C Bᵀ per head) printed beside it
+    flops, flops_done = ssd_bwd_flops(b, s, h, p, g, n, chunk)
+    grads = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=chunk)
+    total = nbytes(x, dt, A, Bm, Cm, dy) + nbytes(*grads[:5])
+    b_ms, b_by = bound(flops, total)
+    ms = device_ms(lambda: ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=chunk),
+                   20)
+    plain_ms = device_ms(
+        lambda: ssd_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=chunk), 3)
+    parts = kernel_times(
+        lambda: ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=chunk), 10,
+        r"ssd_bwd_\w+")
+    by_kernel = ", ".join(f"{k} {t:.4f}" for k, t in parts.items())
+    print(f"[kernels] ssd_scan_bwd train B{b} S{s} H{h} P{p} G{g} N{n} chunk "
+          f"{chunk}: kernel {ms:.4f} ms on the device, plain {plain_ms:.4f} "
+          f"ms, library none, bound {b_ms:.4f} ms ({b_by}; "
+          f"{total / 1e6:.2f} MB over {PEAK_BYTES / 1e12} TB/s = "
+          f"{total / PEAK_BYTES * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP the "
+          f"gradients need over {PEAK_FLOPS / 1e12:.0f} TFLOP/s = "
+          f"{flops / PEAK_FLOPS * 1e3:.4f} ms; {flops_done / 1e9:.2f} GFLOP "
+          f"as designed = {bound(flops_done, total)[0]:.4f} ms); kernel at "
+          f"{b_ms / ms:.1%} of the bound and "
+          f"{bound(flops_done, total)[0] / ms:.1%} of the design's; device "
+          f"ms per call by "
+          f"CUDA kernel (torch.profiler, 10 calls): "
+          f"{by_kernel or 'not measured'}", flush=True)
+    return dict(shape=f"B{b} S{s} H{h} P{p} G{g} N{n} chunk {chunk}",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def kernel_rglru(gen: torch.Generator) -> list:
     """The RG-LRU scan against its plain (sequential fp32) version, two
     launches on one input bitwise equal; times at the recurrentgemma-2b
@@ -841,7 +987,7 @@ def kernel_rglru(gen: torch.Generator) -> list:
 KINDS = {   # device-time classes of the profiler's kernel names
     "attention kernels": ("flash_fwd_kernel", "flash_bwd",
                           "decode_attention_kernel"),
-    "scan kernels": ("ssd_scan_kernel", "rglru_scan_kernel"),
+    "scan kernels": ("ssd_scan_kernel", "ssd_bwd", "rglru_scan_kernel"),
     "matmuls": ("gemm", "xmma", "cutlass", "nvjet"),
 }
 
@@ -1209,19 +1355,20 @@ def phase_executor_sweep() -> None:
              f"cache)")
 
 
-def train_args(layers: int) -> list:
-    return ["--arch", "yi-6b", "--n-layers", str(layers), "--batch", str(B),
+def train_args(layers: int, arch: str = "yi-6b") -> list:
+    return ["--arch", arch, "--n-layers", str(layers), "--batch", str(B),
             "--seq", str(PROMPT)]
 
 
 TRAIN_METRICS = ("nll", "aux", "z", "grad_norm", "lr")
 
 
-def train_run(args: list, layers: int, steps_run: int) -> dict:
+def train_run(args: list, layers: int, steps_run: int,
+              kernels=("flash_attention", "flash_attention_bwd")) -> dict:
     """``repro_torch.launch.train`` with the launch counters set to 0 just
     before and read just after: every loss finite, each step's wall ms
-    printed, and one flash forward and one backward launch per layer and
-    step."""
+    printed, and one launch of each of ``kernels`` (a forward and its
+    backward) per layer and step."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
@@ -1239,12 +1386,12 @@ def train_run(args: list, layers: int, steps_run: int) -> dict:
     print(f"[train] {len(run['steps'])} steps; predictor after the first "
           f"steady step: {run['predicted_s']!r} s for the rest; peak device "
           f"memory {run['peak_bytes'] / 2**30:.2f} GiB "
-          f"(max_memory_allocated); kernel launches {launches} (flash "
-          f"forward and backward: {layers} layers x {steps_run} steps = "
+          f"(max_memory_allocated); kernel launches {launches} "
+          f"({', '.join(kernels)}: {layers} layers x {steps_run} steps = "
           f"{want} each)", flush=True)
     if len(run["steps"]) != steps_run:
         fail(f"train ran {len(run['steps'])} steps, expected {steps_run}")
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in kernels:
         if launches[name] != want:
             fail(f"train launched {name} {launches[name]} times, expected "
                  f"{want}")
@@ -1253,10 +1400,11 @@ def train_run(args: list, layers: int, steps_run: int) -> dict:
     return {"run": run, "launches": launches}
 
 
-def profile_train_step() -> None:
-    """Where a train step's device time goes at full width and
-    TRAIN_LAYERS layers: torch.profiler over two steps after a warm one
-    (outside the launch-counting windows)."""
+def profile_train_step(arch: str = "yi-6b",
+                       layers: int = TRAIN_LAYERS) -> None:
+    """Where a train step's device time goes at full width and ``layers``
+    layers: torch.profiler over two steps after a warm one (outside the
+    launch-counting windows)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1267,7 +1415,7 @@ def profile_train_step() -> None:
     from repro_torch.optim import adamw
     from repro_torch.tree import leaves
 
-    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
     shape = InputShape("profile", PROMPT, B, "train")
     params = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
                      stacked=True)
@@ -1282,7 +1430,7 @@ def profile_train_step() -> None:
 
     step()
     torch.cuda.synchronize()
-    profile(step, 2, f"yi-6b {TRAIN_LAYERS}-layer train step")
+    profile(step, 2, f"{arch} {layers}-layer train step")
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -1334,15 +1482,16 @@ def phase_train() -> dict:
     return launches
 
 
-def phase_train_check() -> None:
-    """One step's gradients at full width and TRAIN_LAYERS layers, from
-    the same fp32 weights and batch, through the kernels and through the
-    plain versions (``backend="ref"``): each stacked leaf within
-    max(MODEL_REL_L2, 2 x floor) relative L2, the floor being the plain
-    path in bf16 against it in fp32.  Gradients only, no optimizer state,
-    so that two sets fit beside the weights; the plain runs recompute each
-    layer in the backward (remat) to keep their quadratic attention's
-    activations small."""
+def phase_train_check(arch: str = "yi-6b",
+                      layers: int = TRAIN_LAYERS) -> None:
+    """One step's gradients of ``arch`` at full width and ``layers``
+    layers, from the same fp32 weights and batch, through the kernels and
+    through the plain versions (``backend="ref"``): each stacked leaf
+    within max(MODEL_REL_L2, 2 x floor) relative L2, the floor being the
+    plain path in bf16 against it in fp32.  Gradients only, no optimizer
+    state, so that two sets fit beside the weights; the plain runs
+    recompute each layer in the backward (remat) to keep their quadratic
+    attention's (and chunked scan's) activations small."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1351,7 +1500,7 @@ def phase_train_check() -> None:
     from repro_torch.models import lm
     from repro_torch.tree import leaves_with_path
 
-    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
     params = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
                      stacked=True)
     paths = [p for p, _ in leaves_with_path(params)]
@@ -1378,20 +1527,40 @@ def phase_train_check() -> None:
             fail(f"train check {path}: non-finite kernel gradient")
         err, limit = rel_l2(k, p), max(MODEL_REL_L2, 2 * floor)
         worst = max(worst, err / limit)
-        print(f"[train-check] {path}: relative L2 kernels vs plain {err:.3e} "
+        print(f"[train-check] {arch} {path}: relative L2 kernels vs plain "
+              f"{err:.3e} "
               f"(bound {limit:.3e}; floor, plain bf16 vs fp32, "
               f"{floor:.3e}) {'ok' if err <= limit else 'MISMATCH'}",
               flush=True)
         if not err <= limit:
             fail(f"train check: {path} through the kernels disagrees with "
                  f"the plain versions")
-    print(f"[train-check] losses: kernels {loss_kernel!r}, plain bf16 "
+    print(f"[train-check] {arch} {layers} layers: losses: kernels "
+          f"{loss_kernel!r}, plain bf16 "
           f"{loss_ref!r}, plain fp32 {loss_truth!r}; worst error at "
           f"{worst:.1%} of its bound; {time.perf_counter() - t0:.1f}s",
           flush=True)
     del params, leaves, kernel, plain
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_train_mamba2() -> dict:
+    """Full-width mamba2-2.7b cut to MAMBA_LAYERS layers (the cut printed)
+    for MAMBA_STEPS steps: every loss finite, one SSD forward and backward
+    launch per layer and step; then where a step's device time goes."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch("mamba2-2.7b").n_layers
+    print(f"[train] mamba2-2.7b at full width, depth cut {full} -> "
+          f"{MAMBA_LAYERS} layers (the deepest multiple of 8 whose fp32 "
+          f"weights, gradients, AdamW moments and activations stay under "
+          f"~70 GiB)", flush=True)
+    run = train_run(train_args(MAMBA_LAYERS, "mamba2-2.7b")
+                    + ["--steps", str(MAMBA_STEPS)], MAMBA_LAYERS,
+                    MAMBA_STEPS, ("ssd_scan", "ssd_scan_bwd"))
+    profile_train_step("mamba2-2.7b", MAMBA_LAYERS)
+    return run["launches"]
 
 
 def phase_train_multi() -> dict:
@@ -1447,11 +1616,13 @@ def main() -> None:
         counts = timed("serve", phase_serve, jobs, path_kernels, pacing)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
-    for phase in (phase_train, phase_train_multi):
+    for phase in (phase_train, phase_train_mamba2, phase_train_multi):
         counts = timed("train", phase)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     timed("train-check", phase_train_check)
+    timed("train-check", phase_train_check, "mamba2-2.7b",
+          MAMBA_CHECK_LAYERS)
     timed("scenario", phase_scenario_kernels)
     timed("sweep", phase_executor_sweep)
     sources = {
@@ -1460,6 +1631,8 @@ def main() -> None:
             "src/repro/kernels/ops.py:152 (XLA custom_vjp backward)",
         "decode_attention": "src/repro/kernels/decode_attention.py:84",
         "ssd_scan": "src/repro/kernels/ssd_scan.py:94",
+        "ssd_scan_bwd":
+            "src/repro/kernels/ops.py:255 (XLA autodiff of _ssd_chunked_xla)",
         "rglru_scan": "src/repro/kernels/rglru_scan.py:74",
     }
     kernels = []

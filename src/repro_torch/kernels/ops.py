@@ -16,10 +16,13 @@ Under autograd (grad enabled and an input that requires grad),
 counterpart of the JAX package's ``custom_vjp``: the forward saves its
 output and logsumexp, and the backward recomputes the probabilities from
 them, through the CUDA backward kernel on the card and through its plain
-version (the reference formula in float32) otherwise.  The scans have no
-backward kernel yet: on the card :func:`ssd` and :func:`rglru` refuse an
-input that requires grad rather than cut the gradient; on the CPU their
-plain versions are differentiated by autograd.
+version (the reference formula in float32) otherwise.  :func:`ssd` goes
+through :class:`SSDScan` (the JAX package differentiates its XLA scan):
+the forward saves its inputs, and the backward recomputes the chunk
+states, through the CUDA backward kernel on the card and its plain version
+otherwise.  The RG-LRU scan has no backward kernel yet: on the card
+:func:`rglru` refuses an input that requires grad rather than cut the
+gradient; on the CPU its plain version is differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from .flash_attention_bwd import (
 )
 from .rglru_scan import rglru_cuda, rglru_plain
 from .ssd_scan import ssd_cuda, ssd_plain
+from .ssd_scan_bwd import ssd_bwd_cuda, ssd_bwd_plain
 
 BACKENDS = ("kernel", "ref")
 
@@ -45,6 +49,7 @@ KERNELS = {"flash_attention": flash_attention_cuda,
            "flash_attention_bwd": flash_attention_bwd_cuda,
            "decode_attention": decode_attention_cuda,
            "ssd_scan": ssd_cuda,
+           "ssd_scan_bwd": ssd_bwd_cuda,
            "rglru_scan": rglru_cuda}
 
 
@@ -60,8 +65,9 @@ def _needs_grad(*ts) -> bool:
 
 
 def _refuse_grad(name: str, later: str, *ts) -> None:
-    """The CUDA scans' outputs carry no autograd history: refuse an input
-    that requires grad instead of treating the scan as a constant."""
+    """A CUDA scan without a backward kernel gives outputs with no autograd
+    history: refuse an input that requires grad instead of treating the
+    scan as a constant."""
     if _needs_grad(*ts):
         raise NotImplementedError(
             f"{name}: the CUDA kernel has no backward yet ({later}); "
@@ -92,6 +98,36 @@ class FlashAttention(torch.autograd.Function):
             else flash_attention_bwd_plain
         dq, dk, dv = bwd(q, k, v, out, dout.contiguous(), lse, **ctx.args)
         return dq, dk, dv, None, None, None, None, None
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with the backward of XLA's autodiff of
+    ``repro.kernels.ops._ssd_chunked_xla``: the forward saves its inputs;
+    the backward recomputes the chunk states.  ``kernel`` picks the CUDA
+    forward and backward kernels, else their plain versions.  A final
+    state that nothing uses has no cotangent (zeros), and without an
+    initial state none is returned."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, initial_state, chunk, kernel):
+        fwd = ssd_cuda if kernel else ssd_plain
+        y, state = fwd(x, dt, A, Bmat, Cmat, chunk=chunk,
+                       initial_state=initial_state)
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat, initial_state)
+        ctx.chunk, ctx.kernel = chunk, kernel
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bmat, Cmat, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        bwd = ssd_bwd_cuda if ctx.kernel else ssd_bwd_plain
+        grads = bwd(x, dt, A, Bmat, Cmat, dy.contiguous(),
+                    None if dstate is None else dstate.contiguous(),
+                    chunk=ctx.chunk, initial_state=h0)
+        return (*grads, None, None)
 
 
 def flash_attention(
@@ -144,9 +180,9 @@ def ssd(
 ) -> tuple:
     """Mamba-2 SSD (state-space duality) mixer: (y, final_state)."""
     kernel = _use_kernel(backend, x)
-    if kernel:
-        _refuse_grad("ssd", "the SSD-scan backward kernel is a later slice",
-                     x, dt, A, Bmat, Cmat, initial_state)
+    if _needs_grad(x, dt, A, Bmat, Cmat, initial_state):
+        return SSDScan.apply(x, dt, A, Bmat, Cmat, initial_state, chunk,
+                             kernel)
     fn = ssd_cuda if kernel else ssd_plain
     return fn(x, dt, A, Bmat, Cmat, chunk=chunk, initial_state=initial_state)
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card; also
+"""The port's CUDA kernels against their plain versions, on the card (the
+backwards of flash and the SSD scan too, and both under autograd); also
 the MLA layer through flash at full width against its plain route, the
 MoE dispatch and combine on the card bitwise equal to the CPU's, one
 executor-sweep cell, and the serving example at its full-width default.
@@ -334,7 +335,7 @@ def test_ops_route_cuda_tensors_to_the_kernels(gen):
     assert ops.launch_counts() == {"flash_attention": 1,
                                    "flash_attention_bwd": 0,
                                    "decode_attention": 1, "ssd_scan": 1,
-                                   "rglru_scan": 1}
+                                   "ssd_scan_bwd": 0, "rglru_scan": 1}
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -646,32 +647,130 @@ def test_flash_under_autograd_launches_both_kernels(gen):
                for t in (q, k, v))
 
 
-def test_scans_refuse_to_train_on_the_card(gen):
-    """The CUDA scans have no backward yet: an input that requires grad
-    raises instead of silently cutting the gradient; without grad (or
-    under no_grad) they launch as when serving."""
+SSD_BWD = [
+    # (B, S, H, P, G, N, chunk, initial_state, dstate, decay)
+    (4, 1024, 80, 64, 1, 128, 128, False, False, 1.0),   # mamba2 training
+    (2, 256, 8, 64, 2, 128, 64, True, True, 1.0),        # G 2, chunk 64
+    (2, 64, 8, 32, 4, 64, 64, False, True, 1.0),         # S = chunk
+    (2, 512, 4, 32, 1, 32, 256, True, False, 1.0),       # chunk 256
+    (2, 256, 4, 64, 1, 128, 128, True, True, 300.0),     # strong decay
+    (1, 96, 3, 24, 1, 40, 48, True, True, 1.0),          # ragged P, N, Q
+    (1, 128, 2, 128, 1, 128, 64, True, True, 1.0),       # widest P and N
+    (2, 32, 4, 32, 1, 32, 16, True, False, 1.0),         # reduced config's
+]
+# Backward, kernel vs the plain formula in fp32: relative L2 of each
+# gradient within max(3e-2, 2 x floor), the floor the plain formula with
+# bf16 product operands (as the kernel rounds them).
+SSD_BWD_REL_L2 = 3e-2
+
+
+@pytest.mark.parametrize("case", SSD_BWD, ids=str)
+def test_ssd_backward_kernel_matches_plain(case, gen):
+    from repro_torch.kernels.ssd_scan_bwd import ssd_bwd_cuda, ssd_bwd_plain
+
+    B, S, H, P, G, N, chunk, init, dst, decay = case
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(gen, B, S, H, P, G, N, init, decay)
+    dy = _randn(gen, B, S, H, P)
+    ds = torch.randn((B, H, P, N), generator=gen, device="cuda") * 0.5 \
+        if dst else None
+    kw = dict(chunk=chunk, initial_state=h0)
+    got = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, ds, **kw)
+    again = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, ds, **kw)
+    want = ssd_bwd_plain(x, dt, A, Bm, Cm, dy, ds, **kw)
+    floor = ssd_bwd_plain(x, dt, A, Bm, Cm, dy, ds, dtype=torch.bfloat16,
+                          **kw)
+    torch.cuda.synchronize()
+    assert (got[5] is None) == (h0 is None)
+    for name, g, a, w, f in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got,
+                                again, want, floor):
+        if w is None:
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, a), f"{name}: two launches differ"
+        if not w.any():
+            assert not g.any(), name
+            continue
+        limit = max(SSD_BWD_REL_L2, 2 * _rel_l2(f, w))
+        assert _rel_l2(g, w) <= limit, (name, _rel_l2(g, w), limit)
+
+
+def test_ssd_backward_smem_bytes_match_the_source(gen):
+    from repro_torch.kernels.ssd_scan_bwd import (
+        _lib as bwd_lib,
+        smem_bytes as bwd_smem_bytes,
+    )
+
+    lib = bwd_lib()
+    for Q, P, N in [(128, 64, 128), (48, 24, 40), (64, 32, 64), (16, 16, 16),
+                    (256, 32, 32), (128, 128, 128), (40, 21, 35)]:
+        got = tuple(lib.ssd_scan_bwd_smem_bytes(Q, P, N, k) for k in (0, 1))
+        assert got == bwd_smem_bytes(Q, P, N)
+
+
+def test_ssd_backward_refuses_what_the_kernel_does_not_take(gen):
+    from repro_torch.kernels.ssd_scan_bwd import ssd_bwd_cuda
+
     x, dt, A, Bm, Cm, _ = _ssd_inputs(gen, 1, 32, 2, 16, 1, 16, False)
-    with pytest.raises(NotImplementedError, match="SSD-scan backward"):
-        ops.ssd(x.requires_grad_(), dt, A, Bm, Cm, chunk=16)
+    dy = _randn(gen, 1, 32, 2, 16)
+    with pytest.raises(TypeError):
+        ssd_bwd_cuda(x, dt, A, Bm, Cm, dy.float(), chunk=16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=24)
+    with pytest.raises(ValueError, match="state dims"):
+        ssd_bwd_cuda(*_ssd_inputs(gen, 1, 16, 1, 16, 1, 256, False)[:5],
+                     _randn(gen, 1, 16, 1, 16), chunk=16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_bwd_cuda(x, dt, A, Bm, Cm, dy.cpu(), chunk=16)
+
+
+def test_ssd_under_autograd_launches_both_kernels(gen):
+    """Under grad, ops.ssd on CUDA tensors goes through SSDScan: one
+    forward and one backward launch, gradients in the inputs' dtypes; with
+    an initial state, its gradient too."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(gen, 2, 64, 4, 32, 2, 32, True)
+    leaves = [t.requires_grad_() for t in (x, dt, A, Bm, Cm, h0)]
+    ops.reset_launch_counts()
+    y, state = ops.ssd(*leaves[:5], chunk=32, initial_state=leaves[5])
+    (y.float().sum() + state.sum()).backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == 1 and counts["ssd_scan_bwd"] == 1
+    assert [t.grad.dtype for t in leaves] == [
+        torch.bfloat16, torch.float32, torch.float32, torch.bfloat16,
+        torch.bfloat16, torch.float32]
+    assert all(torch.isfinite(t.grad).all() for t in leaves)
     with torch.no_grad():
-        ops.ssd(x, dt, A, Bm, Cm, chunk=16)
+        ops.reset_launch_counts()
+        ops.ssd(x, dt, A, Bm, Cm, chunk=32)
+        assert ops.launch_counts()["ssd_scan_bwd"] == 0
+
+
+def test_rglru_refuses_to_train_on_the_card(gen):
+    """The CUDA RG-LRU scan has no backward yet: an input that requires
+    grad raises instead of silently cutting the gradient; without grad it
+    launches as when serving."""
     xr, ga, gi, la, _ = _rglru_inputs(gen, 1, 8, 16, False)
     with pytest.raises(NotImplementedError, match="RG-LRU backward"):
         ops.rglru(xr, ga, gi, la.requires_grad_())
     ops.rglru(xr, ga, gi, la.detach())
 
 
-def test_train_step_through_the_kernels_matches_the_plain_route(gen):
-    """Full-width yi-6b at 2 layers, B 2 x 256: one step's gradients
-    through the kernels against the plain versions, each stacked leaf
-    within max(5e-2, 2 x floor) relative L2 (floor: plain bf16 vs fp32)."""
+@pytest.mark.parametrize("arch,kernel", [("yi-6b", "flash_attention_bwd"),
+                                         ("mamba2-2.7b", "ssd_scan_bwd")])
+def test_train_step_through_the_kernels_matches_the_plain_route(arch, kernel,
+                                                                gen):
+    """Full-width yi-6b and mamba2-2.7b at 2 layers, B 2 x 256: one step's
+    gradients through the kernels against the plain versions, each stacked
+    leaf within max(5e-2, 2 x floor) relative L2 (floor: plain bf16 vs
+    fp32)."""
     import dataclasses
 
     from repro_torch.configs.shapes import InputShape
     from repro_torch.data import pipeline as data
     from repro_torch.tree import leaves
 
-    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=2)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
     params = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
                      stacked=True)
     ps = [p.requires_grad_() for p in leaves(params)]
@@ -684,11 +783,11 @@ def test_train_step_through_the_kernels_matches_the_plain_route(gen):
         return torch.autograd.grad(total, ps)
 
     ops.reset_launch_counts()
-    kernel = grads("kernel", torch.bfloat16)
-    assert ops.launch_counts()["flash_attention_bwd"] == 2
+    kernels = grads("kernel", torch.bfloat16)
+    assert ops.launch_counts()[kernel] == 2
     plain = grads("ref", torch.bfloat16)
     truth = grads("ref", torch.float32)
-    for k, p, t in zip(kernel, plain, truth):
+    for k, p, t in zip(kernels, plain, truth):
         assert torch.isfinite(k).all()
         assert _rel_l2(k, p) <= max(5e-2, 2 * _rel_l2(p, t))
 

@@ -32,54 +32,26 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
-import sys
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
-
-from chip_smoke import (  # noqa: E402
-    bound,
-    device_ms,
-    kernel_times,
-    nbytes,
-    sdpa,
-)
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention import (  # noqa: E402
+# baseline puts the repo root and src/ on sys.path
+from baseline import build_baseline, card, in_turns
+from chip_smoke import bound, device_ms, kernel_times, nbytes, sdpa
+from repro_torch.kernels.flash_attention import (
     MASK_KINDS,
     flash_attention_cuda,
 )
-from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import (
     BM,
     flash_attention_bwd_cuda,
 )
 
-OUT = _build.BUILD_DIR / "flash_bwd_time"
 SHAPES = {   # name: (B, S, H, KV, D)
     "yi-6b train": (4, 1024, 32, 4, 128),
     "example": (8, 128, 10, 2, 64),
 }
-
-
-def build_baseline(source: Path) -> ctypes.CDLL:
-    OUT.mkdir(parents=True, exist_ok=True)
-    lib = OUT / "libbaseline.so"
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(source.parent),
-           "-o", str(lib), str(source)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode != 0:
-        raise SystemExit(f"baseline build failed:\n{done.stdout}{done.stderr}")
-    dll = ctypes.CDLL(str(lib))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    dll.flash_attention_bwd.argtypes = [p] * 10 + [i] * 10 + [
-        ctypes.c_float, i, p]
-    dll.flash_attention_bwd.restype = ctypes.c_int
-    return dll
 
 
 def main() -> None:
@@ -88,11 +60,12 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    base = build_baseline(args.baseline) if args.baseline else None
+    smi = card()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    base = build_baseline(args.baseline, "flash_bwd_time",
+                          "flash_attention_bwd",
+                          [p] * 10 + [i] * 10 + [ctypes.c_float, i, p]) \
+        if args.baseline else None
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     results = {}
@@ -124,10 +97,7 @@ def main() -> None:
 
         row = {}
         if base is not None:
-            times = [device_ms(f, 20) for f in (baseline, kernel, kernel,
-                                                  baseline)]
-            row["baseline_ms"] = [times[0], times[3]]
-            row["ms"] = [times[1], times[2]]
+            row.update(in_turns(baseline, kernel))
             got = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
             baseline()
             torch.cuda.synchronize()
