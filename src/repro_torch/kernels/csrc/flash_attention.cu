@@ -91,26 +91,6 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int accumulate) {
-    if constexpr (N == 64) wgmma_ss_n64(d, a, b, accumulate);
-    else wgmma_ss_n128(d, a, b, accumulate);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-    if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-    else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
-    else wgmma_rs_n256(d, a, b);
-}
-
 template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,

@@ -125,60 +125,6 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-    if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-    else wgmma_rs_n128(d, a, b);
-}
-
-// A 64 x BM (or BN) fp32 accumulator of 64-column blocks as A fragments
-// (hopper.cuh): k16 slice kk is s[8kk .. 8kk + 7], rounded to bf16.
-template <int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
-                                     const float (&s)[N / 2]) {
-#pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            a[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
-}
-
-// The descriptor of the operand `bytes` (a multiple of 16) past the one
-// `d` describes: the start address is d's low 14 bits, in 16-byte units.
-__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t bytes) {
-    return d + (bytes >> 4);
-}
-
-// `d`, opaque to the compiler: descriptors derived from it inside a loop
-// are rebuilt there by one add each instead of being hoisted out of the
-// loop, where they would hold registers the accumulators need.
-__device__ __forceinline__ uint64_t per_step(uint64_t d) {
-    asm volatile("" : "+l"(d));
-    return d;
-}
-
-// S (+)= A B^T over DEPTH columns, both tiles K-major in shared memory as
-// [DEPTH / 64] boxes of [rows][64] (descriptors a and b of box 0, boxes
-// a_box and b_box bytes apart).
-template <int DEPTH>
-__device__ __forceinline__ void wgmma_ss_tiles(float (&s)[32], uint64_t a,
-                                               uint32_t a_box, uint64_t b,
-                                               uint32_t b_box) {
-#pragma unroll
-    for (int kk = 0; kk < DEPTH / 16; ++kk) {
-        const uint32_t box = kk / 4;
-        const uint32_t sub = (kk % 4) * 32;  // 32 bytes per k16 step
-        wgmma_ss_n64(s, desc_at(a, box * a_box + sub),
-                     desc_at(b, box * b_box + sub), kk > 0);
-    }
-}
-
 // A warpgroup's 64 x W fp32 accumulator (warp w rows 16w .. 16w + 15) as
 // bf16 into W / 64 boxes of [64][64], `box_bytes` apart, with TMA's
 // 128-byte swizzle: 16-byte chunk c of row r lies at chunk c ^ (r % 8).

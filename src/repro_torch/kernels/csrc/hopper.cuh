@@ -1,7 +1,9 @@
 // Small PTX helpers for Hopper (sm_90a) kernels: mbarriers, asynchronous
 // copies, TMA tensor loads and stores, named barriers, ldmatrix and
-// mma.sync, wgmma shared-memory descriptors and the wgmma products in the
-// widths the port's kernels use.
+// mma.sync, wgmma shared-memory descriptors, the wgmma products in the
+// widths the port's kernels use, and what the wgmma kernels share around
+// them (bf16 packing, accumulators as register A operands, descriptor
+// offsets, products over several swizzled boxes).
 // Device code only; include after <cuda.h> (for CUtensorMap).
 //
 // Conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
@@ -21,6 +23,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -125,6 +128,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
         "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// Copy one box of a rank-5 tensor map, at coordinates (c0, .., c4)
+// (innermost first), into shared memory; completes `bytes` on `bar`.
+// Elements outside the tensor are filled with zeros.
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+    asm volatile(
+        "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
         : "memory");
 }
 
@@ -253,7 +270,26 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
     for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
 }
 
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared memory.
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                              uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B in shared memory:
+// K-major, or MN-major where TA (for A) or TB (for B) is 1.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
                                               uint64_t desc_b, int accumulate) {
     asm volatile(
@@ -264,7 +300,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
         "}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -272,10 +308,12 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B K-major in shared memory.
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory:
+// K-major, or MN-major where TA (for A) or TB (for B) is 1.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
                                               uint64_t desc_b, int accumulate) {
     asm volatile(
@@ -290,7 +328,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63"
         "}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -304,7 +342,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (four bf16 pairs,
@@ -415,6 +453,73 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
           "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ------------------------------------------ around the wgmma products
+// Two floats rounded to bf16 (to nearest even) in one 32-bit word, `lo` in
+// the low half: a bf16 pair of an A fragment or a store.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int N, int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+    static_assert(N != 32 || (TA == 0 && TB == 0), "n32: K-major only");
+    if constexpr (N == 32) wgmma_ss_n32(d, a, b, accumulate);
+    else if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, a, b, accumulate);
+    else wgmma_ss_n128<TA, TB>(d, a, b, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+    if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+    else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
+    else wgmma_rs_n256(d, a, b);
+}
+
+// A 64 x N fp32 accumulator of 64-column blocks as A fragments (see the
+// conventions above): k16 slice kk is s[8kk .. 8kk + 7], rounded to bf16.
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
+                                     const float (&s)[N / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            a[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// The descriptor of the operand `bytes` (a multiple of 16) past the one
+// `d` describes: the start address is d's low 14 bits, in 16-byte units.
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t bytes) {
+    return d + (bytes >> 4);
+}
+
+// `d`, opaque to the compiler: descriptors derived from it inside a loop
+// are rebuilt there by one add each instead of being hoisted out of the
+// loop, where they would hold registers the accumulators need.
+__device__ __forceinline__ uint64_t per_step(uint64_t d) {
+    asm volatile("" : "+l"(d));
+    return d;
+}
+
+// S (+)= A B^T over DEPTH columns (64 x N), both tiles K-major in shared
+// memory as [DEPTH / 64] boxes of [rows][64] (descriptors a and b of box 0,
+// boxes a_box and b_box bytes apart).
+template <int DEPTH, int N = 64>
+__device__ __forceinline__ void wgmma_ss_tiles(float (&s)[N / 2], uint64_t a,
+                                               uint32_t a_box, uint64_t b,
+                                               uint32_t b_box) {
+#pragma unroll
+    for (int kk = 0; kk < DEPTH / 16; ++kk) {
+        const uint32_t box = kk / 4;
+        const uint32_t sub = (kk % 4) * 32;  // 32 bytes per k16 step
+        wgmma_ss<N>(s, desc_at(a, box * a_box + sub),
+                    desc_at(b, box * b_box + sub), kk > 0);
+    }
 }
 
 }  // namespace hopper

@@ -657,6 +657,12 @@ SSD_BWD = [
     (1, 96, 3, 24, 1, 40, 48, True, True, 1.0),          # ragged P, N, Q
     (1, 128, 2, 128, 1, 128, 64, True, True, 1.0),       # widest P and N
     (2, 32, 4, 32, 1, 32, 16, True, False, 1.0),         # reduced config's
+    # P and N no multiple of 8: x, dy, B and C by plain loads, not TMA
+    (1, 96, 3, 21, 1, 35, 48, True, True, 1.0),
+    # 6 heads a group in slices of 4 (4 + 2) and of 8 (one slice of 6), the
+    # heads a CTA takes (the last field) forced past the wrapper's plan.
+    (2, 256, 12, 64, 2, 128, 128, True, True, 1.0, 4),
+    (2, 256, 12, 64, 2, 128, 128, True, True, 1.0, 8),
 ]
 # Backward, kernel vs the plain formula in fp32: relative L2 of each
 # gradient within max(3e-2, 2 x floor), the floor the plain formula with
@@ -665,10 +671,13 @@ SSD_BWD_REL_L2 = 3e-2
 
 
 @pytest.mark.parametrize("case", SSD_BWD, ids=str)
-def test_ssd_backward_kernel_matches_plain(case, gen):
+def test_ssd_backward_kernel_matches_plain(case, gen, monkeypatch):
+    from repro_torch.kernels import ssd_scan_bwd
     from repro_torch.kernels.ssd_scan_bwd import ssd_bwd_cuda, ssd_bwd_plain
 
-    B, S, H, P, G, N, chunk, init, dst, decay = case
+    B, S, H, P, G, N, chunk, init, dst, decay, *heads = case
+    if heads:
+        monkeypatch.setattr(ssd_scan_bwd, "plan", lambda *a, **k: heads[0])
     x, dt, A, Bm, Cm, h0 = _ssd_inputs(gen, B, S, H, P, G, N, init, decay)
     dy = _randn(gen, B, S, H, P)
     ds = torch.randn((B, H, P, N), generator=gen, device="cuda") * 0.5 \
@@ -722,6 +731,45 @@ def test_ssd_backward_refuses_what_the_kernel_does_not_take(gen):
                      _randn(gen, 1, 16, 1, 16), chunk=16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ssd_bwd_cuda(x, dt, A, Bm, Cm, dy.cpu(), chunk=16)
+    # a prime chunk over 128 would run as sub-chunks of one row
+    with pytest.raises(ValueError, match="at least 16 rows"):
+        ssd_bwd_cuda(*_ssd_inputs(gen, 1, 131, 1, 16, 1, 16, False)[:5],
+                     _randn(gen, 1, 131, 1, 16), chunk=131)
+
+
+# Where the two warpgroups of a chunk-pass CTA share its rows (P = N =
+# 128), where x, dy, B and C come by plain loads (P 21, N 35), and where a
+# CTA's slice of heads is ragged: many launches on one input, each
+# bitwise equal to the first (a race between the warpgroups shows as
+# launches that differ now and then, not every time).
+SSD_BWD_REPEAT = [
+    # (B, S, H, P, G, N, chunk, heads a CTA or None for the wrapper's plan)
+    (1, 128, 2, 128, 1, 128, 64, None),
+    (2, 1024, 16, 128, 1, 128, 128, None),
+    (1, 96, 3, 21, 1, 35, 48, None),
+    (2, 256, 12, 64, 2, 128, 128, 4),
+]
+
+
+@pytest.mark.parametrize("case", SSD_BWD_REPEAT, ids=str)
+def test_ssd_backward_launches_repeat_bitwise(case, gen, monkeypatch):
+    from repro_torch.kernels import ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan_bwd import ssd_bwd_cuda
+
+    B, S, H, P, G, N, chunk, heads = case
+    if heads:
+        monkeypatch.setattr(ssd_scan_bwd, "plan", lambda *a, **k: heads)
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(gen, B, S, H, P, G, N, True)
+    dy = _randn(gen, B, S, H, P)
+    ds = torch.randn((B, H, P, N), generator=gen, device="cuda") * 0.5
+    kw = dict(chunk=chunk, initial_state=h0)
+    first = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, ds, **kw)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    for k in range(200):
+        again = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, ds, **kw)
+        differ = [n for n, u, v in zip(names, first, again)
+                  if not torch.equal(u, v)]
+        assert not differ, f"launch {k + 2} differs from the first: {differ}"
 
 
 def test_ssd_under_autograd_launches_both_kernels(gen):

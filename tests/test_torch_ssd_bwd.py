@@ -8,10 +8,12 @@ chunked scan and its sequential oracle (``backend="ref"``).  In float32
 every gradient (x, dt, A, B, C, the initial state) agrees within 1e-4
 relative L2: the same formula summed in another order.  The CUDA kernel
 itself runs only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``); here its shared-memory and tiling mirrors are held to
-the source.
+``chip_smoke.py``); here its shared-memory, schedule and tiling mirrors
+are held to the source, and the plain formula at the kernels' chunk and
+rounding to the float32 formula.
 """
 
+import itertools
 import re
 
 import jax
@@ -219,6 +221,29 @@ def test_bf16_plain_backward_keeps_dtypes_and_stays_near_float32():
         assert 0 < _rel_l2(f, t) <= 3e-2, name
 
 
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_sub_chunks_give_the_same_function(chunk):
+    """The kernels run a chunk over 128 as equal sub-chunks: in float32 the
+    formula at chunk 256 and at its 128-row sub-chunks agree within 1e-4,
+    and the bf16 floor, which follows the kernels' chunk, stays within the
+    card's 3e-2 of the float32 formula at the chunk asked for."""
+    case = (2, 512, 4, 16, 2, 32, chunk, True, True, 1.0)
+    x, dt, A, Bm, Cm, dy, ds, h0 = (None if a is None else torch.from_numpy(a)
+                                    for a in _inputs(case, 17))
+    kw = dict(initial_state=h0)
+    whole = sb.ssd_bwd_plain(x, dt, A, Bm, Cm, dy, ds, chunk=chunk, **kw)
+    parts = sb.ssd_bwd_plain(x, dt, A, Bm, Cm, dy, ds,
+                             chunk=sb.kernel_chunk(chunk, 16, 32), **kw)
+    for name, w, p_ in zip(GRADS, whole, parts):
+        assert _rel_l2(p_, w) <= F32_REL_L2, (name, _rel_l2(p_, w))
+    bf = torch.bfloat16
+    args = (x.to(bf), dt, A, Bm.to(bf), Cm.to(bf), dy.to(bf), ds)
+    truth = sb.ssd_bwd_plain(*args, chunk=chunk, **kw)
+    floor = sb.ssd_bwd_plain(*args, chunk=chunk, dtype=bf, **kw)
+    for name, f, t in zip(GRADS, floor, truth):
+        assert 0 < _rel_l2(f, t) <= 3e-2, name
+
+
 # ------------------------------------------------------------ the mirrors
 SRC = (_build.CSRC / "ssd_scan_bwd.cu").read_text()
 
@@ -227,17 +252,20 @@ def _const(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", SRC)[1])
 
 
-def _layout(struct: str, Q: int, P: int, N: int) -> int:
-    """``bytes`` of a layout struct of the source, by evaluating its
-    member initializers in order."""
+def _layout(struct: str, Q: int, P: int, N: int, member: str = "bytes"):
+    """A member (by default ``bytes``) of a layout struct of the source, by
+    evaluating its member initializers in order (C's integer division as
+    Python's floor division)."""
     body = re.search(rf"struct {struct} \{{(.*?)\n\}};", SRC, re.S)[1]
     inits = re.search(r"\)\s*:\s*(.*?)\{\}", body, re.S)[1]
     env = {"Q": Q, "P": P, "N": N, "PAD": _const("PAD"),
-           "WARPS": _const("THREADS") // 32,
-           "round16": lambda v: (v + 15) // 16 * 16}
+           "WARPS": _const("THREADS") // 32, "STAGES": _const("STAGES"),
+           "round16": lambda v: (v + 15) // 16 * 16,
+           "round64": lambda v: (v + 63) // 64 * 64,
+           "round1024": lambda v: (v + 1023) // 1024 * 1024}
     for name, expr in re.findall(r"(\w+)\(((?:[^()]|\([^()]*\))*)\)", inits):
-        env[name] = eval(expr, {}, env)
-    return env["bytes"]
+        env[name] = int(eval(expr.replace(" / ", " // "), {}, env))
+    return env[member]
 
 
 SHAPES = [(128, 64, 128), (64, 32, 64), (256, 32, 32), (48, 24, 40),
@@ -246,10 +274,16 @@ SHAPES = [(128, 64, 128), (64, 32, 64), (256, 32, 32), (48, 24, 40),
 
 def test_constants_mirror_the_source():
     assert (_const("THREADS") // 32, _const("MAX_Q"), _const("MAX_P"),
-            _const("MAX_N"), _const("PAD")) == \
-        (sb._WARPS, sb._MAX_Q, sb._MAX_P, sb._MAX_N, sb._PAD)
+            _const("MAX_N"), _const("PAD"), _const("STAGES"),
+            _const("MAX_SMEM")) == \
+        (sb._WARPS, sb._MAX_Q, sb._MAX_P, sb._MAX_N, sb._PAD, sb._STAGES,
+         MAX_SMEM)
     # no atomic operation: two launches give the same bits
     assert not re.search(r"\batomic[A-Z]\w*\(|\batom\.|\bred\.", SRC)
+    # one fp32 dB / dC partial per head slice, summed in slice order
+    assert "[B, S, G x slices, N]" in SRC
+    assert "for (int j = 0; j < a.n_sl; ++j) sum += p[(long long)j * a.N];" \
+        in SRC
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
@@ -260,9 +294,26 @@ def test_smem_bytes_mirror_the_source_layouts(shape):
 
 
 def test_mamba2_training_shape_fits_the_card():
+    """The two-stage ring fits at the training shape and at every padded
+    chunk, P and N of 64 or 128 but one: a chunk of 128 with P and N of
+    128 does not fit, and the kernels run it as two of 64 (the source's
+    static_assert names the same three largest shapes).  Every chunk the
+    wrapper takes runs at a sub-chunk that fits."""
     walk, chunk = sb.smem_bytes(128, 64, 128)
-    assert (walk, chunk) == (108544, 143904)
+    assert (walk, chunk) == (108544, 230464)
     assert max(walk, chunk) <= MAX_SMEM
+    fits = {s: max(sb.smem_bytes(*s)) <= MAX_SMEM
+            for s in itertools.product((64, 128), repeat=3)}
+    assert [s for s, ok in fits.items() if not ok] == [(128, 128, 128)]
+    for s in ((128, 64, 128), (128, 128, 64), (64, 128, 128)):
+        assert f"ChunkLayout{s}.bytes <= MAX_SMEM".replace(" ", "") in \
+            SRC.replace(" ", "")
+    assert sb.kernel_chunk(128, 128, 128) == 64
+    for Q in (16, 48, 64, 100, 128, 200, 256):
+        for P in (8, 21, 64, 128):
+            for N in (8, 35, 64, 128):
+                k = sb.kernel_chunk(Q, P, N)
+                assert Q % k == 0 and max(sb.smem_bytes(k, P, N)) <= MAX_SMEM
     # the forward takes the same shape (the autograd function runs both)
     assert fwd_smem_bytes(128, 64, 128) <= MAX_SMEM
 
@@ -284,37 +335,98 @@ def test_walks_tile_their_state_as_the_forward_does():
     assert state_tiles_per_warp(64, 128) == 8
 
 
-@pytest.mark.parametrize("Q", [16, 48, 64, 128, 144, 200, 256])
-def test_chunk_row_tiles_cover_each_row_tile_once(Q):
-    tiles = sb.chunk_row_tiles(Q)
-    assert len(tiles) == sb._WARPS
-    assert sorted(r for ts in tiles for r in ts) == \
-        list(range(-(-Q // 16)))
-    assert "return i == 0 ? warp : 15 - warp;" in SRC
+@pytest.mark.parametrize("H,G,R,Q,P,N", [
+    (80, 1, 20, 128, 64, 128),  # mamba2's training shape: four slices of 20
+    (12, 2, 4, 128, 64, 128),   # 6 heads a group in slices of 4 and 2
+    (12, 2, 8, 128, 64, 64),    # one slice of 6: fewer heads than R
+    (12, 3, 3, 64, 32, 64),     # a chunk of one 64-row tile
+    (7, 1, 3, 48, 24, 40),      # 3 + 3 + 1, a ragged chunk
+    (8, 8, 2, 100, 64, 64),     # one head a group
+    (6, 2, 1, 16, 32, 32),      # a head a CTA
+    (5, 1, 5, 64, 128, 128),    # the group in one CTA; columns split
+])
+def test_chunk_schedule_takes_each_head_and_row_tile_once(H, G, R, Q, P, N):
+    """Every (head, 64-row tile, dB / dC column) of a chunk is taken by
+    exactly one warpgroup of one CTA, a CTA's heads lie in one group, and
+    a CTA takes at most R of them."""
+    sched = sb.chunk_schedule(H, G, R, Q, P, N)
+    T = -(-Q // 64)
+    assert len(sched) == G * -(-(H // G) // R)
+    taken = sorted((h, t, n) for cta in sched for wg in cta
+                   for h, t, lo, hi in wg for n in range(lo, min(hi, N)))
+    assert taken == [(h, t, n) for h in range(H) for t in range(T)
+                     for n in range(N)]
+    for cta in sched:
+        heads = sorted(dict.fromkeys(h for wg in cta for h, *_ in wg))
+        assert 0 < len(heads) <= R
+        assert heads[0] // (H // G) == heads[-1] // (H // G)
+    assert "return make_int2(g * rep + sl * R, min(R, rep - sl * R));" in SRC
+    assert "if (!SPLIT && wg >= T) return;" in SRC
+    assert "const int r0 = SPLIT ? 0 : 64 * wg;" in SRC
+    assert "const int n0 = SPLIT ? 64 * wg : 0;" in SRC
+    assert "constexpr bool SPLIT = TP == 2 && TN == 2;" in SRC
+
+
+def test_plan_fills_the_card_at_the_training_shape():
+    """mamba2-2.7b's training shape (B 4, 8 chunks of 128, 80 heads, G 1):
+    R 20, four slices a chunk, 128 CTAs in one wave on 132 SMs; the
+    partials it writes are 1/20 of per-head ones."""
+    R = sb.plan(4, 8, 80, 1, 132)
+    assert R == 20
+    assert 4 * 8 * 1 * -(-80 // R) == 128
+    assert sb.plan(2, 2, 12, 2, 132) == 1       # few CTAs: one head each
+    assert sb.plan(1, 1, 5, 1, 132) == 1
+
+
+@pytest.mark.parametrize("Q,P,N,want", [
+    (16, 64, 128, 16), (128, 64, 128, 128), (200, 64, 64, 100),
+    (256, 32, 32, 128), (144, 64, 128, 72), (8, 64, 128, 8),
+    (128, 128, 128, 64), (256, 128, 128, 64)])
+def test_kernel_chunk_divides_the_chunk(Q, P, N, want):
+    assert sb.kernel_chunk(Q, P, N) == want
+    assert Q % want == 0 and want <= sb._MAX_Q
+    assert max(sb.smem_bytes(want, P, N)) <= MAX_SMEM
+
+
+@pytest.mark.parametrize("Q,P,N", [
+    (131, 64, 128),     # prime: sub-chunks of one row
+    (169, 64, 64),      # 13 x 13
+    (127, 128, 128),    # too big for one chunk at P = N = 128, and prime
+])
+def test_kernel_chunk_refuses_sub_chunks_under_16_rows(Q, P, N):
+    """A chunk whose only split that fits has sub-chunks under 16 rows is
+    refused (each would be padded to 64 rows), not run at many times the
+    work; the wrapper and the bf16 floor both go through kernel_chunk."""
+    with pytest.raises(ValueError, match="at least 16 rows"):
+        sb.kernel_chunk(Q, P, N)
 
 
 def test_flop_counts_at_the_training_shape():
-    """mamba2's training shape, 8 chunks of 128: the design issues five
-    state products and three triangles over P and over N per head, by
-    16 x 16 blocks (36 a chunk); the gradients need Z once, so two
-    triangles over P per head, and the three over N once per group."""
-    function, design = sb.flops(4, 1024, 80, 64, 1, 128, 128)
-    state, pairs = 5 * 128 * 64 * 128, 128 * 129 // 2
-    assert design == 2.0 * 4 * 80 * 8 * (state + 36 * 256 * 3 * (64 + 128))
-    assert function == 2.0 * 4 * 8 * (80 * (state + 2 * pairs * 64)
+    """mamba2's training shape, 8 chunks of 128: the gradients need Z once,
+    so two triangles over P per head, and the three over N once per
+    group; the design issues per head the walks' two state products, four
+    state products and four triangles by 64 x 64 blocks (three a chunk) in
+    the chunk pass, and C·Bᵀ once per CTA of 20 heads."""
+    function, design = sb.flops(4, 1024, 80, 64, 1, 128, 128, 132)
+    state, pairs = 128 * 64 * 128, 128 * 129 // 2
+    assert function == 2.0 * 4 * 8 * (80 * (5 * state + 2 * pairs * 64)
                                       + 3 * pairs * 128)
+    blocks = 3 * 64 * 64
+    assert design == 2.0 * (4 * 80 * 8 * (6 * state + blocks * 2 * (64 + 128))
+                            + 128 * blocks * 128)
     assert (round(function / 1e9, 2), round(design / 1e9, 2)) == \
-        (32.46, 54.02)
+        (32.46, 56.77)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_the_gradients_need_no_more_products_than_the_design(shape):
     Q, P, N = shape
-    counts = [sb.flops(2, 2 * Q, 8, P, G, N, Q) for G in (1, 2, 8)]
+    counts = [sb.flops(2, 2 * Q, 8, P, G, N, Q, 132) for G in (1, 2, 8)]
     assert all(0 < function <= design for function, design in counts)
-    # the N triangles are shared by a group's heads, the design's are not
+    # the N triangles are shared by a group's heads; the design forms C Bᵀ
+    # once per CTA, and more groups make more CTAs
     assert counts[0][0] < counts[1][0] < counts[2][0]
-    assert counts[0][1] == counts[1][1] == counts[2][1]
+    assert counts[0][1] <= counts[1][1] <= counts[2][1]
 
 
 @pytest.mark.parametrize("Q", [16, 40, 64, 128, 200, 256])

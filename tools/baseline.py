@@ -1,13 +1,17 @@
 """What the kernel timing tools share: the card's name, another version of
-a kernel source built for comparison, and two versions timed in turns.
+a kernel source built for comparison, another tree's wrapper module, and
+two versions timed in turns.
 
-Imported by ``tools/flash_bwd_time.py`` and ``tools/ssd_bwd_time.py``;
-needs a GPU and ``nvcc`` when its functions run.
+Imported by ``tools/flash_bwd_time.py``, ``tools/ssd_bwd_time.py`` and
+``tools/ssd_bwd_phases.py``; needs a GPU and ``nvcc`` when its functions
+run.
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -47,6 +51,25 @@ def build_baseline(source: Path, out: str, entry: str,
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return dll
+
+
+def import_tree(root: Path, module: str, alias: str = "baseline_port"):
+    """Import ``module`` (e.g. ``kernels.ssd_scan_bwd``) of the port in
+    another tree (``root/src/repro_torch``, for example an unpacked
+    ``git archive`` of the parent commit) as ``<alias>.<module>``, beside
+    this tree's ``repro_torch``.  Its relative imports resolve inside that
+    tree, so its wrapper allocates its own scratch and builds its own
+    sources into that tree's git-ignored ``kernels/_cuda_build/``."""
+    if alias not in sys.modules:
+        init = Path(root).resolve() / "src" / "repro_torch" / "__init__.py"
+        if not init.exists():
+            raise SystemExit(f"no port package under {root}")
+        spec = importlib.util.spec_from_file_location(
+            alias, init, submodule_search_locations=[str(init.parent)])
+        package = importlib.util.module_from_spec(spec)
+        sys.modules[alias] = package
+        spec.loader.exec_module(package)
+    return importlib.import_module(f"{alias}.{module}")
 
 
 def in_turns(baseline, kernel, iters: int = 20) -> dict:

@@ -1,7 +1,6 @@
 """Time the SSD-scan backward kernel on the card, and mamba2's training peak.
 
-    python3 tools/ssd_bwd_time.py [--baseline OTHER/ssd_scan_bwd.cu]
-                                  [--depths 16,32,48,56]
+    python3 tools/ssd_bwd_time.py [--baseline TREE] [--depths 16,32,48,56]
 
 At mamba2-2.7b's training shape (B 4, S 1024, 80 heads of P 64, N 128,
 G 1, chunk 128), on bf16 x, B, C, dy and fp32 dt, A drawn from a seed:
@@ -16,10 +15,12 @@ G 1, chunk 128), on bf16 x, B, C, dy and fp32 dt, A drawn from a seed:
   (``ssd_scan_bwd.flops``) at 989 TFLOP/s bf16 against the inputs and
   gradients once at 3.35 TB/s, and the same with the design's products.
 
-``--baseline`` builds another version of the kernel source as it is (with
-its ``hopper.cuh`` beside it) into the git-ignored
-``kernels/_cuda_build/ssd_bwd_time/``; it must export the same
-``ssd_scan_bwd`` C entry and take the same scratch.  ``--depths`` then
+``--baseline`` takes the root of another tree of the port (for example
+an unpacked ``git archive`` of the parent commit, in a git-ignored
+directory) and times that tree's wrapper, ``ssd_bwd_cuda`` of its
+``kernels/ssd_scan_bwd.py``: it allocates that design's own scratch and
+builds that tree's source into that tree's git-ignored
+``kernels/_cuda_build/``.  ``--depths`` then
 trains full-width mamba2-2.7b for 3 steps at each depth through
 ``repro_torch.launch.train`` and prints its peak device memory and step
 times (a depth that does not fit prints the error).  Prints the card's
@@ -30,7 +31,6 @@ Needs a GPU and ``nvcc``; exits non-zero without them.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import gc
 import json
 from pathlib import Path
@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 # baseline puts the repo root and src/ on sys.path
-from baseline import build_baseline, card, in_turns
+from baseline import card, import_tree, in_turns
 from chip_smoke import bound, device_ms, kernel_times, nbytes
 from repro_torch.kernels import ssd_scan_bwd
 
@@ -73,10 +73,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     smi = card()
-    ours = ssd_scan_bwd._lib()
-    p, i = ctypes.c_void_p, ctypes.c_int
-    base = build_baseline(args.baseline, "ssd_bwd_time", "ssd_scan_bwd",
-                          [p] * 19 + [i] * 8 + [p]) if args.baseline else None
+    base = import_tree(args.baseline, "kernels.ssd_scan_bwd") \
+        if args.baseline else None
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
@@ -89,15 +87,12 @@ def main() -> None:
     Cm = (randn(B, S, G, N) * 0.3).to(torch.bfloat16)
     dy = randn(B, S, H, P).to(torch.bfloat16)
 
-    def call(lib):
-        # The wrapper reads its library through _lib() at each call.
+    def call(module):
         def fn():
-            ssd_scan_bwd._lib = lambda: lib
-            return ssd_scan_bwd.ssd_bwd_cuda(x, dt, A, Bm, Cm, dy,
-                                             chunk=CHUNK)
+            return module.ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=CHUNK)
         return fn
 
-    kernel = call(ours)
+    kernel = call(ssd_scan_bwd)
     row = {}
     if base is not None:
         baseline = call(base)
@@ -111,8 +106,9 @@ def main() -> None:
     else:
         row["ms"] = [device_ms(kernel, 20), device_ms(kernel, 20)]
     row["kernels"] = kernel_times(kernel, 10, r"ssd_bwd_\w+")
-    ssd_scan_bwd._lib = lambda: ours
-    flops, flops_done = ssd_scan_bwd.flops(B, S, H, P, G, N, CHUNK)
+    flops, flops_done = ssd_scan_bwd.flops(
+        B, S, H, P, G, N, CHUNK,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     total = nbytes(x, dt, A, Bm, Cm, dy) + nbytes(*kernel()[:5])
     row["bound_ms"], row["bound_by"] = bound(flops, total)
     row["design_bound_ms"] = bound(flops_done, total)[0]
