@@ -21,13 +21,18 @@ ends the script with a non-zero exit and no result line:
               and the least time the card could take for the same work.
               The flash backward against its plain formula (fp32) at
               yi-6b's training shape, the 100M example's, a ragged S, a
-              window with q_offset and no mask with Sq != Sk: relative L2
+              window with q_offset and no mask with Sq != Sk, and at head
+              dim 256 (its wide kernels) at recurrentgemma-2b's training
+              shape (MQA, window 2048), a window shorter than S, a ragged
+              S with a q_offset and no mask with Sq != Sk: relative L2
               of dq, dk, dv within max(2e-2, 2 x the plain formula's bf16
               floor), two launches bitwise equal, the forward's lse within
               1e-3 of the plain lse and its out unchanged by asking for
-              lse; times against SDPA's backward and both bounds (the
-              formula's five products, the design's seven), and each of
-              its CUDA kernels' own time (delta, dK/dV, dQ; torch.profiler).
+              lse; times at yi-6b's and recurrentgemma-2b's training
+              shapes against SDPA's backward (and which of SDPA's kernels
+              ran) and both bounds (the formula's five products, the
+              design's seven), and each of its CUDA kernels' own time
+              (delta, dK/dV, dQ; torch.profiler).
               The SSD backward against its plain formula (fp32) at
               mamba2-2.7b's training shape and at G 2 and 4, chunks 64 and
               256, S equal to the chunk, an initial state and a final-state
@@ -35,6 +40,15 @@ ends the script with a non-zero exit and no result line:
               within max(3e-2, 2 x the plain formula's bf16 floor)
               relative L2, two launches bitwise equal; its time and each of
               its CUDA kernels' (walks, chunks, reductions).
+              The RG-LRU backward against its plain formula (fp32) at
+              recurrentgemma-2b's training shape, ragged C and S, S 0, an
+              initial state with a final-state cotangent, strong decay,
+              gates near 0 and gate_a exactly 0 at a fifth of the steps
+              (beta 0): dx within max(3e-2, 2 x the floor of rounding the
+              plain one to bf16) relative L2 and the fp32 gradients within
+              1e-4, two launches bitwise equal; its time against
+              the bound of its bytes, the plain version's, and each of its
+              CUDA kernels' (the scan, the reduction of d log_a).
 4. model   -- full-width yi-6b, mamba2-2.7b, recurrentgemma-2b, minicpm3-4b
               and deepseek-v2-lite-16b in bf16 (random weights from a
               seed): prefill and 4 decode steps through the kernels against
@@ -74,10 +88,17 @@ ends the script with a non-zero exit and no result line:
               56 --steps 4`` (full width, the deepest multiple of 8 layers
               that fits): every loss finite, one SSD forward and backward
               launch per layer and step, the step wall, peak memory and
-              device split.  Then one step's gradients through the kernels
-              against the plain versions, yi-6b at 12 layers and
-              mamba2-2.7b at 16, each stacked leaf within max(5e-2, 2 x
-              floor) relative L2 (floor: plain bf16 vs plain fp32).
+              device split.  Then ``--arch recurrentgemma-2b --n-layers
+              26 --steps 4`` (every layer at full width: 18 RG-LRU and 8
+              local-attention layers): every loss finite, one RG-LRU
+              forward and backward launch per recurrent layer and one
+              flash forward and backward per local layer and step, the
+              peak under 72 GiB, the step wall and device split.  Then
+              one step's gradients through the kernels against the plain
+              versions, yi-6b at 12 layers, mamba2-2.7b at 16 and
+              recurrentgemma-2b at 9 (three (rec, rec, local) units), each
+              stacked leaf within max(5e-2, 2 x floor) relative L2 (floor:
+              plain bf16 vs plain fp32).
 7. scenario kernels -- ``--scenario poisson-open --scenario-kernels
               --time-scale 1e-6 --max-blocks 16``: the scenario's first
               workload (8 arrivals) as jobs of synthetic blocks on the
@@ -92,12 +113,12 @@ ends the script with a non-zero exit and no result line:
 
 The line before the last is a JSON object with one entry per kernel and
 timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's and
-deepseek-v2-lite's prefill; the flash backward: yi-6b's training shape;
-the SSD backward: mamba2-2.7b's;
+deepseek-v2-lite's prefill; the flash backward: yi-6b's and
+recurrentgemma-2b's training shapes; the SSD backward: mamba2-2.7b's;
 decode: yi-6b's and recurrentgemma-2b's decode steps; RG-LRU:
-recurrentgemma-2b's prefill at B 4 and at B 1; launches summed over the
-serve and train paths); the last line is
-``{"ok": true, "device": {...}}``.
+recurrentgemma-2b's prefill at B 4 and at B 1; the RG-LRU backward:
+recurrentgemma-2b's training shape; launches summed over the serve and
+train paths); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -162,6 +183,15 @@ LSE_TOL = 1e-3
 # the kernel rounds them, against it in fp32, and never above
 # SSD_BWD_REL_L2 (the scans' bf16 tolerance).
 SSD_BWD_REL_L2 = 3e-2
+# RG-LRU backward, kernel vs its plain formula in fp32 on the same inputs:
+# dx (bf16) within max(RGLRU_BWD_REL_L2, 2 x floor) relative L2, the floor
+# the plain dx rounded to bf16; the fp32 gradients (the gates, log_a and
+# the initial state) within RGLRU_BWD_F32_REL_L2, the CPU tests' fp32
+# tolerance: the kernel recomputes h_{t-1} in fp32 with the plain
+# version's formula, so only the order of fp32 sums differs (a kernel that
+# took h_{t-1} from the bf16 h would miss it by ~1e-3).
+RGLRU_BWD_REL_L2 = 3e-2
+RGLRU_BWD_F32_REL_L2 = 1e-4
 
 B, PROMPT, TOKENS_PER_BLOCK, LONGEST = 4, 1024, 8, 8
 MAX_SEQ = PROMPT + LONGEST * TOKENS_PER_BLOCK + 8   # make_serve_job's max_seq
@@ -201,6 +231,12 @@ TRAIN_JOBS = "yi-6b:8,yi-6b:2"
 # Its gradient check holds three gradient sets at once beside the
 # weights: 16 layers.
 MAMBA_LAYERS, MAMBA_STEPS, MAMBA_CHECK_LAYERS = 56, 4, 16
+# Full-width recurrentgemma-2b, all 26 layers (18 recurrent, 8 local
+# attention) at B 4 x 1024: 2.66 B parameters, 42.6 GB of fp32 weights,
+# gradients and AdamW moments, under the ~72 GiB headroom rule with its
+# activations (the run fails past it).  Its gradient check: three (rec,
+# rec, local) units.
+RG_LAYERS, RG_STEPS, RG_CHECK_LAYERS, RG_PEAK_GIB = 26, 4, 9, 72.0
 SLEEP_CYCLES = 200_000_000            # device sleep before a timed run
 
 
@@ -333,6 +369,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     out["ssd_scan"] = [kernel_ssd(gen)]
     out["ssd_scan_bwd"] = [kernel_ssd_bwd(gen)]
     out["rglru_scan"] = kernel_rglru(gen)
+    out["rglru_scan_bwd"] = [kernel_rglru_bwd(gen)]
     return out
 
 
@@ -348,8 +385,9 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
     L2, the floor being the plain formula in bf16 against it in fp32; two
     launches bitwise equal.  Also the forward's lse against the plain lse
     (within LSE_TOL absolute) and its out with and without lse bitwise
-    equal.  Times at yi-6b's training shape, against SDPA's backward."""
-    from repro_torch.kernels import ref
+    equal.  Cases at head dims 64 and 128 (the split kernels) and 256
+    (the wide kernels).  Times at yi-6b's and recurrentgemma-2b's training
+    shapes, against SDPA's backward (:func:`time_flash_bwd`)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda,
         flash_attention_plain,
@@ -374,6 +412,17 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
         ("window B2 Sq300 Sk600 H8 KV2 D128 w150 q_offset300", 2, 300, 600,
          8, 2, 128, "window", 150, 300),
         ("none B2 Sq77 Sk150 H8 KV2 D64", 2, 77, 150, 8, 2, 64, "none", 0,
+         0),
+        # (256, 256), the wide kernels: recurrentgemma-2b's local layers
+        # (MQA, window 2048 >= S: causal in effect), a window shorter than
+        # S, ragged S with a q_offset, and no mask with Sq != Sk.
+        ("recurrentgemma train B4 S1024 H10 KV1 D256 window2048", B, 1024,
+         1024, 10, 1, 256, "window", 2048, 0),
+        ("window B1 S300 H5 KV1 D256 w100", 1, 300, 300, 5, 1, 256,
+         "window", 100, 0),
+        ("ragged B2 Sq150 Sk201 H4 KV2 D256 causal q_offset51", 2, 150, 201,
+         4, 2, 256, "causal", 0, 51),
+        ("none B1 Sq77 Sk190 H4 KV1 D256", 1, 77, 190, 4, 1, 256, "none", 0,
          0),
     ]
     results = {}
@@ -422,25 +471,67 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
     print("[kernels] flash_attention_bwd: two launches bitwise equal in every "
           "case", flush=True)
 
-    # Times at yi-6b's training shape.
-    name, b, sq, sk, h, kv, d, kind, window, off = cases[0]
+    # Times at yi-6b's and recurrentgemma-2b's training shapes, each entry
+    # with the largest error of the cases built like it (the wide kernels
+    # at head dim 256, the split ones below).
+    def err(wide):
+        return max(e for c, e in zip(cases, results.values())
+                   if (c[6] == 256) == wide)
+
+    return [time_flash_bwd(gen, err(False), *cases[0]),
+            time_flash_bwd(gen, err(True), *cases[5])]
+
+
+def time_flash_bwd(gen: torch.Generator, max_abs_err: float, name, b, sq,
+                   sk, h, kv, d, kind, window, off) -> dict:
+    """The flash backward's device time at one shape against SDPA's
+    backward (causal: every timed shape's mask is causal in effect) and
+    both bounds, each of its CUDA kernels' own time, and which of SDPA's
+    kernels ran."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        mask_for,
+    )
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_plain,
+    )
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
     q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
     dout = randn(b, sq, h, d)
-    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
-    pairs = int(ref.causal_mask(sq, sk, 0, "cuda").sum())
+    kw = dict(mask_kind=kind, window=window, q_offset=off)
+    mask = mask_for(kind, sq, sk, window, off, "cuda")
+    if not torch.equal(mask, mask_for("causal", sq, sk, 0, 0, "cuda")):
+        fail(f"flash_attention_bwd {name}: timed shapes must be causal in "
+             f"effect (SDPA's backward runs is_causal)")
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    pairs = int(mask.sum())
     flops = 2.0 * b * h * pairs * (3 * d + 2 * d)          # five products
     flops_done = 2.0 * b * h * pairs * (4 * d + 3 * d)     # as designed
     total = nbytes(q, k, v, out, dout, lse) + nbytes(q, k, v)
     b_ms, b_by = bound(flops, total)
-    ms = device_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, dout, lse),
-                   20)
+
+    def kernel():
+        return flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+
+    ms = device_ms(kernel, 20)
     plain_ms = device_ms(
-        lambda: flash_attention_bwd_plain(q, k, v, out, dout, lse), 3)
+        lambda: flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw), 3)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     lib_out = sdpa(qg, kg, vg, causal=True)
     lib_dout = dout.transpose(1, 2)
-    lib_ms = device_ms(lambda: torch.autograd.grad(
-        lib_out, (qg, kg, vg), lib_dout, retain_graph=True), 20)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qg, kg, vg), lib_dout,
+                                   retain_graph=True)
+
+    lib_ms = device_ms(library, 20)
+    ran = kernel_times(library, 1,
+                       r"(?i)^.*(fmha|flash|attn|attention|cudnn|mha).*$")
     b7_ms = bound(flops_done, total)[0]
     print(f"[kernels] flash_attention_bwd {name}: kernel {ms:.4f} ms on the "
           f"device, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
@@ -448,18 +539,17 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
           f"products; {flops_done / 1e9:.2f} GFLOP as designed = "
           f"{b7_ms:.4f} ms; {total / 1e6:.2f} MB); kernel at {b_ms / ms:.1%} "
           f"of the five-product bound and {b7_ms / ms:.1%} of the "
-          f"seven-product one", flush=True)
+          f"seven-product one; SDPA's backward ran "
+          f"{[k[:90] for k in ran] or 'not measured'}", flush=True)
     # Each of the wrapper's CUDA kernels on its own (delta, dK/dV, dQ).
-    parts = kernel_times(
-        lambda: flash_attention_bwd_cuda(q, k, v, out, dout, lse), 10,
-        r"flash_bwd_\w+")
+    parts = kernel_times(kernel, 10, r"flash_bwd_\w+")
     by_kernel = ", ".join(f"{k} {t:.4f}" for k, t in parts.items())
     print(f"[kernels] flash_attention_bwd {name}: device ms per call by "
           f"CUDA kernel (torch.profiler, 10 calls): "
           f"{by_kernel or 'not measured'}", flush=True)
-    return [dict(shape=f"B{b} S{sq} H{h} KV{kv} D{d} {kind}",
-                 max_abs_err=max(results.values()), ms=ms, plain_ms=plain_ms,
-                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)]
+    return dict(shape=f"B{b} S{sq} H{h} KV{kv} D{d} {kind}",
+                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 def kernel_times(fn, n: int, pattern: str) -> dict:
@@ -1010,10 +1100,144 @@ def kernel_rglru(gen: torch.Generator) -> list:
             time_rglru(*single[:3], "one request")]
 
 
+def kernel_rglru_bwd(gen: torch.Generator) -> dict:
+    """The RG-LRU backward against its plain version (the sequential
+    formula in float32) on the same bf16 x and dh and fp32 gates, log_a,
+    initial state and final-state cotangent: dx within
+    max(RGLRU_BWD_REL_L2, 2 x floor) relative L2 and the fp32 gradients
+    within RGLRU_BWD_F32_REL_L2, two launches bitwise equal.  Times at recurrentgemma-2b's training shape (its 18 recurrent
+    layers' shape) against the bound of the bytes it must move.  No single
+    PyTorch call computes the backward, so there is no library time."""
+    from repro_torch.kernels.rglru_scan_bwd import (
+        rglru_bwd_cuda,
+        rglru_bwd_plain,
+    )
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def inputs(b, s, c, init, dstate, decay=1.0, gate_a_scale=1.0,
+               zero_share=0.0):
+        x = (randn(b, s, c) * 0.5).to(torch.bfloat16)
+        ga = torch.sigmoid(randn(b, s, c)) * gate_a_scale
+        if zero_share:
+            zero = torch.rand((b, s, c), generator=gen, device="cuda")
+            ga = ga.masked_fill(zero < zero_share, 0.0)
+        return (x, ga, torch.sigmoid(randn(b, s, c)),
+                -torch.nn.functional.softplus(randn(c)) * decay,
+                randn(b, s, c).to(torch.bfloat16),
+                randn(b, c) if dstate else None,
+                randn(b, c) if init else None)
+
+    train = (B, PROMPT, 2560, False, False)
+    cases = [
+        # name, (B, S, C, initial_state, dstate[, log_a scale[, gate_a
+        # scale[, share of gate_a set to 0]]])
+        ("recurrentgemma train B4 S1024 C2560", train),
+        ("ragged C100 S130 with initial_state and dstate",
+         (2, 130, 100, True, True)),
+        ("ragged C35 S77 with dstate", (3, 77, 35, False, True)),
+        ("S0 C256 with initial_state and dstate", (2, 0, 256, True, True)),
+        # log_a x 100: a (and its products) underflow to 0
+        ("strong decay log_a*100 S300 C256 with initial_state and dstate",
+         (2, 300, 256, True, True, 100.0)),
+        # gate_a ~ 1e-3: beta small, e / beta large
+        ("gates near 0 gate_a*1e-3 S300 C256 with initial_state and dstate",
+         (2, 300, 256, True, True, 1.0, 1e-3)),
+        # gate_a exactly 0: L 0, 1 - exp(2L) = 0, beta 0 and its derivative
+        # taken as 0
+        ("gate_a 0 at a fifth of steps S300 C256 with initial_state and "
+         "dstate", (2, 300, 256, True, True, 1.0, 1.0, 0.2)),
+    ]
+    names = ("dx", "d gate_a", "d gate_i", "d log_a", "d initial_state")
+    errs = []
+    for name, (b, s, c, init, dst, *scales) in cases:
+        x, ga, gi, la, dh, ds, h0 = inputs(b, s, c, init, dst, *scales)
+        got = rglru_bwd_cuda(x, ga, gi, la, dh, ds, initial_state=h0)
+        again = rglru_bwd_cuda(x, ga, gi, la, dh, ds, initial_state=h0)
+        truth = rglru_bwd_plain(x.float(), ga, gi, la, dh, ds,
+                                initial_state=h0)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(got, again)
+                   if u is not None):
+            fail(f"rglru_scan_bwd {name}: two launches differ")
+        for grad, k, w in zip(names, got, truth):
+            if w is None:
+                continue
+            if k.shape != w.shape or not torch.isfinite(k).all():
+                fail(f"rglru_scan_bwd {name} {grad}: {tuple(k.shape)} or "
+                     f"non-finite")
+            abs_err = float((k.float() - w.float()).abs().max()) \
+                if k.numel() else 0.0
+            errs.append(abs_err)
+            if not w.any():
+                print(f"[kernels] rglru_scan_bwd {name} {grad}: plain all "
+                      f"zero, kernel {'all zero' if not k.any() else 'NOT'}",
+                      flush=True)
+                if k.any():
+                    fail(f"rglru_scan_bwd {name} {grad} is not zero")
+                continue
+            err = rel_l2(k, w)
+            if k.dtype == torch.bfloat16:
+                floor = rel_l2(w.to(k.dtype), w)
+                limit = max(RGLRU_BWD_REL_L2, 2 * floor)
+                why = f"max({RGLRU_BWD_REL_L2}, 2 x floor {floor:.3e})"
+            else:
+                limit, why = RGLRU_BWD_F32_REL_L2, "fp32"
+            ok = err <= limit
+            print(f"[kernels] rglru_scan_bwd {name} {grad}: relative L2 "
+                  f"{err:.3e} (bound {limit:.3e} = {why}), max_abs_err "
+                  f"{abs_err:.3e} {'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail(f"rglru_scan_bwd {name} {grad} disagrees with its "
+                     f"plain version")
+    print("[kernels] rglru_scan_bwd: two launches bitwise equal in every "
+          "case", flush=True)
+
+    b, s, c, _, _ = train
+    # Input copies in turn, over 100 MB of them (22 B an element: one copy
+    # of the training shape's 231 MB), so the L2 holds no launch's inputs.
+    copies = [inputs(b, s, c, False, False)[:5]
+              for _ in range(-(-100_000_000 // (b * s * c * 22)))]
+    turn = [0]
+
+    def run(fn):
+        args = copies[turn[0] % len(copies)]
+        turn[0] += 1
+        return fn(*args)
+
+    x, ga, gi, la, dh = copies[0]
+    grads = rglru_bwd_cuda(x, ga, gi, la, dh)
+    # the least traffic: read x, dh (bf16) and both gates (fp32), write dx
+    # (bf16) and both gate gradients (fp32); ~25 fp32 operations an
+    # element (3 exp, a sqrt, a divide, the multiply-adds)
+    total = nbytes(x, ga, gi, la, dh) + nbytes(*grads[:4])
+    flops = 25.0 * b * s * c
+    b_ms, b_by = bound(flops, total, PEAK_FP32)
+    ms = device_ms(lambda: run(rglru_bwd_cuda), 50)
+    # The plain version is a Python loop over the steps, twice: timed back
+    # to back (host-paced, as it runs), as the forward's is.
+    plain_ms = wall_ms(lambda: run(rglru_bwd_plain), 1)
+    parts = kernel_times(lambda: run(rglru_bwd_cuda), 10, r"rglru_bwd_\w+")
+    by_kernel = ", ".join(f"{k} {t:.4f}" for k, t in parts.items())
+    print(f"[kernels] rglru_scan_bwd train B{b} S{s} C{c}: kernel {ms:.4f} "
+          f"ms on the device, plain {plain_ms:.4f} ms (back to back), "
+          f"library none, bound {b_ms:.4f} ms ({b_by}; {total / 1e6:.2f} MB "
+          f"over {PEAK_BYTES / 1e12} TB/s; {flops / 1e9:.2f} GFLOP fp32 "
+          f"over {PEAK_FP32 / 1e12:.0f} TFLOP/s = "
+          f"{flops / PEAK_FP32 * 1e3:.4f} ms); kernel at {b_ms / ms:.1%} of "
+          f"the bound; device ms per call by CUDA kernel (torch.profiler, "
+          f"10 calls): {by_kernel or 'not measured'}", flush=True)
+    return dict(shape=f"B{b} S{s} C{c}", max_abs_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 KINDS = {   # device-time classes of the profiler's kernel names
     "attention kernels": ("flash_fwd_kernel", "flash_bwd",
                           "decode_attention_kernel"),
-    "scan kernels": ("ssd_scan_kernel", "ssd_bwd", "rglru_scan_kernel"),
+    "scan kernels": ("ssd_scan_kernel", "ssd_bwd", "rglru_scan_kernel",
+                     "rglru_bwd"),
     "matmuls": ("gemm", "xmma", "cutlass", "nvjet"),
 }
 
@@ -1390,11 +1614,12 @@ TRAIN_METRICS = ("nll", "aux", "z", "grad_norm", "lr")
 
 
 def train_run(args: list, layers: int, steps_run: int,
-              kernels=("flash_attention", "flash_attention_bwd")) -> dict:
+              kernels=("flash_attention", "flash_attention_bwd"),
+              per_step=None) -> dict:
     """``repro_torch.launch.train`` with the launch counters set to 0 just
     before and read just after: every loss finite, each step's wall ms
-    printed, and one launch of each of ``kernels`` (a forward and its
-    backward) per layer and step."""
+    printed, and ``per_step[name]`` launches of each of ``kernels`` (a
+    forward and its backward) per step: one per layer unless given."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
@@ -1408,19 +1633,21 @@ def train_run(args: list, layers: int, steps_run: int,
             fail(f"train step {r['step']}: non-finite metrics {r}")
         print(f"[train] step {r['step']}: {r['ms']:.1f} ms wall, nll "
               f"{r['nll']!r}, grad_norm {r['grad_norm']!r}", flush=True)
-    want = layers * steps_run
+    per_step = per_step or {name: layers for name in kernels}
+    want = {name: per_step[name] * steps_run for name in kernels}
+    expected = ", ".join(f"{name}: {per_step[name]} a step x {steps_run} "
+                         f"steps = {want[name]}" for name in kernels)
     print(f"[train] {len(run['steps'])} steps; predictor after the first "
           f"steady step: {run['predicted_s']!r} s for the rest; peak device "
           f"memory {run['peak_bytes'] / 2**30:.2f} GiB "
-          f"(max_memory_allocated); kernel launches {launches} "
-          f"({', '.join(kernels)}: {layers} layers x {steps_run} steps = "
-          f"{want} each)", flush=True)
+          f"(max_memory_allocated); kernel launches {launches} ({expected})",
+          flush=True)
     if len(run["steps"]) != steps_run:
         fail(f"train ran {len(run['steps'])} steps, expected {steps_run}")
     for name in kernels:
-        if launches[name] != want:
+        if launches[name] != want[name]:
             fail(f"train launched {name} {launches[name]} times, expected "
-                 f"{want}")
+                 f"{want[name]}")
     gc.collect()
     torch.cuda.empty_cache()
     return {"run": run, "launches": launches}
@@ -1589,6 +1816,40 @@ def phase_train_mamba2() -> dict:
     return run["launches"]
 
 
+def phase_train_recurrentgemma() -> dict:
+    """Full-width recurrentgemma-2b at RG_LAYERS layers for RG_STEPS steps:
+    every loss finite, one RG-LRU forward and backward launch per
+    recurrent layer and one flash forward and backward (at (256, 256)) per
+    local-attention layer, each step; then where a step's device time
+    goes."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    full = get_arch("recurrentgemma-2b")
+    cfg = dataclasses.replace(full, n_layers=RG_LAYERS)
+    mixers = [spec.mixer for stage in lm.build_plan(cfg)
+              for spec in stage.unit * stage.repeats]
+    rec, local = mixers.count("rglru"), mixers.count("local")
+    print(f"[train] recurrentgemma-2b at full width, {RG_LAYERS} of "
+          f"{full.n_layers} layers ({rec} recurrent, {local} local "
+          f"attention at head dim 256, window {full.rglru.window})",
+          flush=True)
+    run = train_run(train_args(RG_LAYERS, "recurrentgemma-2b")
+                    + ["--steps", str(RG_STEPS)], RG_LAYERS, RG_STEPS,
+                    ("rglru_scan", "rglru_scan_bwd", "flash_attention",
+                     "flash_attention_bwd"),
+                    {"rglru_scan": rec, "rglru_scan_bwd": rec,
+                     "flash_attention": local, "flash_attention_bwd": local})
+    peak = run["run"]["peak_bytes"] / 2**30
+    if peak > RG_PEAK_GIB:
+        fail(f"recurrentgemma-2b at {RG_LAYERS} layers peaked at "
+             f"{peak:.2f} GiB, over the {RG_PEAK_GIB} GiB headroom rule")
+    profile_train_step("recurrentgemma-2b", RG_LAYERS)
+    return run["launches"]
+
+
 def phase_train_multi() -> dict:
     """``--jobs yi-6b:8,yi-6b:2`` at full width and 2 layers under SRTF and
     FIFO: every job finishes."""
@@ -1642,13 +1903,16 @@ def main() -> None:
         counts = timed("serve", phase_serve, jobs, path_kernels, pacing)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
-    for phase in (phase_train, phase_train_mamba2, phase_train_multi):
+    for phase in (phase_train, phase_train_mamba2,
+                  phase_train_recurrentgemma, phase_train_multi):
         counts = timed("train", phase)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     timed("train-check", phase_train_check)
     timed("train-check", phase_train_check, "mamba2-2.7b",
           MAMBA_CHECK_LAYERS)
+    timed("train-check", phase_train_check, "recurrentgemma-2b",
+          RG_CHECK_LAYERS)
     timed("scenario", phase_scenario_kernels)
     timed("sweep", phase_executor_sweep)
     sources = {
@@ -1660,6 +1924,8 @@ def main() -> None:
         "ssd_scan_bwd":
             "src/repro/kernels/ops.py:255 (XLA autodiff of _ssd_chunked_xla)",
         "rglru_scan": "src/repro/kernels/rglru_scan.py:74",
+        "rglru_scan_bwd": "src/repro/kernels/ops.py:339 (XLA autodiff of "
+                          "the two-level scan)",
     }
     kernels = []
     for name, replaces in sources.items():

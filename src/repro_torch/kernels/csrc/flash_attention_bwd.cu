@@ -67,7 +67,11 @@
 // Left for later: overlapping one step's softmax with the next step's
 // products inside a warpgroup, persistent CTAs.
 //
-// Head dims (D, Dv): (64, 64) and (128, 128).
+// Head dims (D, Dv): (64, 64) and (128, 128) by the kernels above; (256,
+// 256), recurrentgemma-2b's local attention, by two kernels of their own
+// (flash_bwd_dkdv_wide_kernel, flash_bwd_dq_wide_kernel, below the dQ
+// kernel) whose two warpgroups share each step, since a thread of the
+// split design would need 320 registers there.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -647,6 +651,463 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
+// ------------------------------------------------- (256, 256): dK/dV
+// At D = Dv = 256 the split-step design above fits neither registers nor
+// shared memory: a thread of it holds dK and dV (256 fp32) beside S^T and
+// dP^T, and K, V and a four-stage ring of Q and dO take 323 KB.  Here the
+// two warpgroups of a CTA work on the same step instead: warpgroup 0 forms
+// S^T = K Q^T and P^T, hands P^T (fp32) to warpgroup 1 through shared
+// memory and accumulates dV += P^T dO; warpgroup 1 forms dP^T = V dO^T,
+// then dS^T from P^T, and accumulates dK += dS^T Q.  Both run the same
+// wgmma sequence on other operands, so each thread holds one 64 x 256
+// accumulator (128 fp32) and one 64 x 64 product (32).  The ring has two
+// stages of Q, dO, lse and delta; thread 0 refills the stage of step
+// i - 1 at step i's barrier, where both warpgroups are done with it.  P^T
+// is double buffered by step parity, so one barrier a step orders its
+// writes and reads.  Under MQA one CTA per (KV head, 64 keys) leaves most
+// SMs idle (64 CTAs at recurrentgemma-2b's training shape, key tile 0
+// walking 160 steps), so a CTA takes a slice of its group's heads instead
+// (`splits` slices, chosen by the wrapper so that the heaviest CTA walks
+// no more steps than the average SM): each slice writes fp32 parts of dK
+// and dV, and flash_bwd_dkdv_reduce_kernel sums them in slice order (one
+// slice included).  Mirrored by smem_bytes and wide_splits in
+// kernels/flash_attention_bwd.py.
+constexpr int WIDE_STAGES = 2;       // ring depth of both (256, 256) kernels
+
+template <int D>
+struct KvWideLayout {
+    static constexpr uint32_t k_bytes = BN * D * 2;
+    static constexpr uint32_t q_bytes = BM * D * 2;
+    static constexpr uint32_t st_bytes = 2 * BM * 4;
+    static constexpr uint32_t p_bytes = BN * BM * 4;
+    static constexpr uint32_t k_off = 0;
+    static constexpr uint32_t v_off = k_off + k_bytes;
+    static constexpr uint32_t q_off = v_off + k_bytes;
+    static constexpr uint32_t do_off = q_off + WIDE_STAGES * q_bytes;
+    static constexpr uint32_t st_off = do_off + WIDE_STAGES * q_bytes;
+    static constexpr uint32_t p_off = st_off + WIDE_STAGES * st_bytes;
+    static constexpr uint32_t bar_off = p_off + 2 * p_bytes;
+    static constexpr uint32_t bytes = bar_off + 8 * (1 + WIDE_STAGES) + 1024;
+    static constexpr uint32_t stage_tx = 2 * q_bytes + st_bytes;
+};
+static_assert(KvWideLayout<256>::bytes <= 232448, "dK/dV (256, 256) fits");
+
+template <int D>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tst,
+                           float* __restrict__ part, int splits, int Sq,
+                           int Sk, int H, int KV, int mask_kind, int window,
+                           int q_offset, float scale) {
+    using L = KvWideLayout<D>;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem =
+        smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
+    bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
+    bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
+    bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
+    float* Sts = reinterpret_cast<float*>(smem + L::st_off);
+    float* Ps = reinterpret_cast<float*>(smem + L::p_off);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+    uint64_t* kv_full = bars;
+    uint64_t* full = bars + 1;                 // [WIDE_STAGES]
+
+    const int hk = blockIdx.x / splits;
+    const int split = blockIdx.x % splits;     // slice of the group's heads
+    const int b = blockIdx.y;
+    const int n0 = blockIdx.z * BN;            // key tile 0 first
+    const int G = H / KV;
+    const int g_per = (G + splits - 1) / splits;
+    const int g_lo = split * g_per;
+    const int n_heads = max(0, min(G, g_lo + g_per) - g_lo);
+    const int tid = threadIdx.x;
+    const int wg = tid / 128;
+    const int ct = tid % 128;
+
+    // The steps, as in flash_bwd_dkdv_kernel: the query tiles that can see
+    // a key of this tile, for each head of this CTA's slice, head-major.
+    int m_lo = 0;
+    int m_hi = Sq;
+    if (mask_kind != MASK_NONE) {
+        m_lo = max(0, n0 - q_offset);
+        if (mask_kind == MASK_WINDOW)
+            m_hi = min(Sq, n0 + BN - 1 + window - q_offset);
+    }
+    const int t_lo = m_lo / BM;
+    const int n_qt = m_hi > m_lo ? (m_hi + BM - 1) / BM - t_lo : 0;
+    const int n_steps = n_heads * n_qt;
+
+    if (tid == 0) {
+        mbar_init(kv_full, 1);
+        for (int s = 0; s < WIDE_STAGES; ++s) mbar_init(full + s, 1);
+        fence_barrier_init();
+    }
+    __syncthreads();
+
+    auto load_step = [&](int i) {
+        const int s = i % WIDE_STAGES;
+        const int h = hk * G + g_lo + i / n_qt;
+        const int m0 = (t_lo + i % n_qt) * BM;
+        mbar_arrive_expect_tx(full + s, L::stage_tx);
+#pragma unroll
+        for (int c = 0; c < D / BOX; ++c) {
+            tma_load_4d(Qs + s * BM * D + c * BM * BOX, &tq, full + s,
+                        c * BOX, h, m0, b);
+            tma_load_4d(dOs + s * BM * D + c * BM * BOX, &tdo, full + s,
+                        c * BOX, h, m0, b);
+        }
+        tma_load_4d(Sts + s * 2 * BM, &tst, full + s, m0, 0, h, b);
+    };
+    if (tid == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * L::k_bytes);
+#pragma unroll
+        for (int c = 0; c < D / BOX; ++c) {
+            tma_load_4d(Ks + c * BN * BOX, &tk, kv_full, c * BOX, hk, n0, b);
+            tma_load_4d(Vs + c * BN * BOX, &tv, kv_full, c * BOX, hk, n0, b);
+        }
+        for (int i = 0; i < min(n_steps, WIDE_STAGES); ++i) load_step(i);
+    }
+
+    const int warp = (tid / 32) % 4;
+    const int lane = tid % 32;
+    const float scale_log2 = scale * LOG2E;
+    const int key0 = n0 + 16 * warp + lane / 4;
+    const int col_in = 2 * (lane % 4);
+
+    // dV (warpgroup 0) or dK (warpgroup 1), 64 keys x D.
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // The first product's A: K (S^T = K Q^T) or V (dP^T = V dO^T).
+    const uint64_t a_desc = desc_sw128(wg == 0 ? Ks : Vs, 0, 1024);
+    mbar_wait(kv_full, 0, POLLS);
+    for (int i = 0; i < n_steps; ++i) {
+        const int s = i % WIDE_STAGES;
+        const uint32_t parity = (i / WIDE_STAGES) & 1;
+        const int m0 = (t_lo + i % n_qt) * BM;
+        const bf16* q_st = Qs + s * BM * D;
+        const bf16* do_st = dOs + s * BM * D;
+        const float* lse_st = Sts + s * 2 * BM;
+        const float* dlt_st = lse_st + BM;
+        float* p_st = Ps + (i % 2) * BN * BM;
+        mbar_wait(full + s, parity, POLLS);
+
+        // S^T or dP^T: keys x queries, 64 x 64.
+        float x[BM / 2];
+        wgmma_fence();
+        wgmma_ss_tiles<D>(x, per_step(a_desc), BN * BOX * 2,
+                          desc_sw128(wg == 0 ? q_st : do_st, 0, 1024),
+                          BM * BOX * 2);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<BM / 2>(x);
+        if (wg == 0) {
+            // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked;
+            // warpgroup 1 reads it in this thread's accumulator order.
+            const bool edge =
+                edge_tile(m0, n0, Sq, Sk, mask_kind, window, q_offset);
+#pragma unroll
+            for (int j = 0; j < BM / 2; ++j) {
+                const int col = 8 * (j / 4) + col_in + (j & 1);
+                float p = ex2(x[j] * scale_log2 - lse_st[col]);
+                if (edge) {
+                    const int key = key0 + ((j & 2) ? 8 : 0);
+                    const int row = m0 + col;
+                    const bool ok = (key < Sk) & (row < Sq) &
+                        visible(mask_kind, window, q_offset + row, key);
+                    p = ok ? p : 0.f;
+                }
+                x[j] = p;
+                p_st[j * 128 + ct] = p;
+            }
+        }
+        // P^T of step i is in place, and both warpgroups are done with
+        // step i - 1's stage: refill it with step i + 1.
+        named_barrier_sync(1, KV_THREADS);
+        if (tid == 0 && i >= 1 && i + 1 < n_steps) load_step(i + 1);
+        if (wg == 1) {
+            // dS^T = P^T (dP^T - delta), in place of dP^T.
+#pragma unroll
+            for (int j = 0; j < BM / 2; ++j) {
+                const int col = 8 * (j / 4) + col_in + (j & 1);
+                x[j] = p_st[j * 128 + ct] * (x[j] - dlt_st[col]);
+            }
+        }
+        uint32_t xa[BM / 16][4];
+        to_a<BM>(xa, x);
+
+        // dV += P^T dO or dK += dS^T Q: dO and Q are [queries, width]
+        // with the width contiguous, MN-major B operands.
+        fence_regs<D / 2>(acc);
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk) fence_regs<4>(xa[kk]);
+        const uint64_t b_mn =
+            desc_sw128(wg == 0 ? do_st : q_st, BM * BOX * 2, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+            wgmma_rs<D>(acc, xa[kk], desc_at(b_mn, kk * 16 * BOX * 2));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<D / 2>(acc);
+    }
+
+    // This slice's fp32 part of dK or dV into part[wg == 0 ? 1 : 0, split,
+    // b, key, hk, :] ([2, splits, B, Sk, KV, D]), summed over the slices
+    // (and dK scaled) by flash_bwd_dkdv_reduce_kernel.
+    const long long n = (long long)gridDim.y * Sk * KV * D;
+    float* out = part + ((wg == 0 ? (long long)splits : 0) + split) * n +
+                 (long long)b * Sk * KV * D + hk * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int key = key0 + 8 * r;
+            if (key < Sk)
+                *reinterpret_cast<float2*>(
+                    out + (long long)key * KV * D + 8 * j + col_in) =
+                    make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        }
+}
+
+// The slices' fp32 parts of dK and dV ([2, splits, n], n = B Sk KV D)
+// summed in slice order, dK scaled, into the bf16 gradients; four
+// elements a thread.
+__global__ void __launch_bounds__(256)
+flash_bwd_dkdv_reduce_kernel(const float* __restrict__ part,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             long long n, int splits, float scale) {
+    const long long i =
+        ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+    if (i >= 2 * n) return;
+    const int which = i >= n;                  // 0: dK, 1: dV
+    const long long e = i - which * n;
+    const float* p = part + (long long)which * splits * n + e;
+    float4 s = *reinterpret_cast<const float4*>(p);
+    for (int k = 1; k < splits; ++k) {
+        const float4 v = *reinterpret_cast<const float4*>(p + k * n);
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+    }
+    const float f = which ? 1.f : scale;
+    uint2 o;
+    o.x = pack_bf16(s.x * f, s.y * f);
+    o.y = pack_bf16(s.z * f, s.w * f);
+    *reinterpret_cast<uint2*>((which ? dv : dk) + e) = o;
+}
+
+// ---------------------------------------------------- (256, 256): dQ
+// One CTA per (batch, head, 64 queries), 256 threads, no producer
+// warpgroup: warpgroup 0 forms S = Q K^T and P, which it hands to
+// warpgroup 1 (fp32) through shared memory; warpgroup 1 forms dP = dO V^T
+// and dS, which it stages as a bf16 wgmma operand; then each warpgroup
+// accumulates its half of dQ's columns, dQ[:, 128 w ..] += dS K[:, 128 w
+// ..], from shared memory (64 fp32 a thread).  Q and dO load once; K and
+// V through a two-stage ring that thread 0 refills as in the dK/dV kernel.
+// Two barriers a key tile: P in place, then dS.  Mirrored by smem_bytes
+// and dq_tiles_wide in kernels/flash_attention_bwd.py.
+template <int D>
+struct QWideLayout {
+    static constexpr uint32_t q_bytes = BM * D * 2;
+    static constexpr uint32_t k_bytes = BN * D * 2;
+    static constexpr uint32_t ds_bytes = BM * BN * 2;
+    static constexpr uint32_t p_bytes = BM * BN * 4;
+    static constexpr uint32_t q_off = 0;
+    static constexpr uint32_t do_off = q_off + q_bytes;
+    static constexpr uint32_t k_off = do_off + q_bytes;
+    static constexpr uint32_t v_off = k_off + WIDE_STAGES * k_bytes;
+    static constexpr uint32_t ds_off = v_off + WIDE_STAGES * k_bytes;
+    static constexpr uint32_t p_off = ds_off + ds_bytes;
+    static constexpr uint32_t bar_off = p_off + p_bytes;
+    static constexpr uint32_t bytes = bar_off + 8 * (1 + WIDE_STAGES) + 1024;
+};
+static_assert(QWideLayout<256>::bytes <= 232448, "dQ (256, 256) fits");
+
+template <int D>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdq,
+                         const float* __restrict__ stats, int Sq, int Sq_pad,
+                         int Sk, int H, int KV, int mask_kind, int window,
+                         int q_offset, float scale) {
+    using L = QWideLayout<D>;
+    constexpr int HALF = D / 2;                // dQ columns a warpgroup
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem =
+        smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
+    bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
+    bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
+    bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
+    bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds_off);
+    float* Ps = reinterpret_cast<float*>(smem + L::p_off);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+    uint64_t* q_full = bars;
+    uint64_t* full = bars + 1;                 // [WIDE_STAGES]
+
+    const int h = blockIdx.x;
+    const int b = blockIdx.y;
+    const int m0 = (gridDim.z - 1 - blockIdx.z) * BM;    // heaviest first
+    const int hk = h / (H / KV);
+    const int tid = threadIdx.x;
+    const int wg = tid / 128;
+    const int ct = tid % 128;
+
+    // Key tiles that a row of this CTA sees (every tile of the range holds
+    // a visible pair).
+    int n_lo = 0;
+    int n_hi = Sk;
+    if (mask_kind != MASK_NONE) {
+        n_hi = min(Sk, q_offset + min(m0 + BM, Sq));
+        if (mask_kind == MASK_WINDOW) n_lo = max(0, q_offset + m0 - window + 1);
+    }
+    const int t_lo = n_lo / BN;
+    const int n_tiles = n_hi > n_lo ? (n_hi + BN - 1) / BN - t_lo : 0;
+
+    if (tid == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < WIDE_STAGES; ++s) mbar_init(full + s, 1);
+        fence_barrier_init();
+    }
+    __syncthreads();
+
+    auto load_tile = [&](int i) {
+        const int s = i % WIDE_STAGES;
+        const int n0 = (t_lo + i) * BN;
+        mbar_arrive_expect_tx(full + s, 2 * L::k_bytes);
+#pragma unroll
+        for (int c = 0; c < D / BOX; ++c) {
+            tma_load_4d(Ks + s * BN * D + c * BN * BOX, &tk, full + s,
+                        c * BOX, hk, n0, b);
+            tma_load_4d(Vs + s * BN * D + c * BN * BOX, &tv, full + s,
+                        c * BOX, hk, n0, b);
+        }
+    };
+    if (tid == 0 && n_tiles > 0) {
+        mbar_arrive_expect_tx(q_full, 2 * L::q_bytes);
+#pragma unroll
+        for (int c = 0; c < D / BOX; ++c) {
+            tma_load_4d(Qs + c * BM * BOX, &tq, q_full, c * BOX, h, m0, b);
+            tma_load_4d(dOs + c * BM * BOX, &tdo, q_full, c * BOX, h, m0, b);
+        }
+        for (int i = 0; i < min(n_tiles, WIDE_STAGES); ++i) load_tile(i);
+    }
+
+    const int warp = (tid / 32) % 4;
+    const int lane = tid % 32;
+    const float scale_log2 = scale * LOG2E;
+    const int row0 = m0 + 16 * warp + lane / 4;
+    const int col_in = 2 * (lane % 4);
+    const float* st_h = stats + ((long long)b * H + h) * 2 * Sq_pad;
+    float lse2[2];
+    float dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        lse2[r] = row < Sq ? st_h[row] : 0.f;
+        dlt[r] = row < Sq ? st_h[Sq_pad + row] : 0.f;
+    }
+
+    float acc[HALF / 2];
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) acc[i] = 0.f;
+    // The first product's A: Q (S = Q K^T) or dO (dP = dO V^T).
+    const uint64_t a_desc = desc_sw128(wg == 0 ? Qs : dOs, 0, 1024);
+    const uint64_t ds_desc = desc_sw128(dSs, 0, 1024);
+
+    if (n_tiles > 0) mbar_wait(q_full, 0, POLLS);
+    for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % WIDE_STAGES;
+        const uint32_t parity = (i / WIDE_STAGES) & 1;
+        const int n0 = (t_lo + i) * BN;
+        const bf16* k_st = Ks + s * BN * D;
+        const bf16* v_st = Vs + s * BN * D;
+        mbar_wait(full + s, parity, POLLS);
+
+        // S or dP: queries x keys, 64 x 64.
+        float x[BN / 2];
+        wgmma_fence();
+        wgmma_ss_tiles<D>(x, per_step(a_desc), BM * BOX * 2,
+                          desc_sw128(wg == 0 ? k_st : v_st, 0, 1024),
+                          BN * BOX * 2);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<BN / 2>(x);
+        if (wg == 0) {
+            const bool edge =
+                edge_tile(m0, n0, Sq, Sk, mask_kind, window, q_offset);
+#pragma unroll
+            for (int j = 0; j < BN / 2; ++j) {
+                const int r = (j >> 1) & 1;
+                float p = ex2(x[j] * scale_log2 - lse2[r]);
+                if (edge) {
+                    const int key = n0 + 8 * (j / 4) + col_in + (j & 1);
+                    const int row = row0 + 8 * r;
+                    const bool ok = (key < Sk) & (row < Sq) &
+                        visible(mask_kind, window, q_offset + row, key);
+                    p = ok ? p : 0.f;
+                }
+                Ps[j * 128 + ct] = p;
+            }
+        }
+        // P of tile i is in place, and both warpgroups are done with tile
+        // i - 1's stage: refill it with tile i + 1.
+        named_barrier_sync(1, KV_THREADS);
+        if (tid == 0 && i >= 1 && i + 1 < n_tiles) load_tile(i + 1);
+        if (wg == 1) {
+            // dS = P (dP - delta), as bf16 into a K-major wgmma tile.
+#pragma unroll
+            for (int j = 0; j < BN / 2; ++j)
+                x[j] = Ps[j * 128 + ct] * (x[j] - dlt[(j >> 1) & 1]);
+            stage_bf16<BN>(dSs, BM * BOX * 2, x, warp, lane);
+            fence_proxy_async();
+        }
+        named_barrier_sync(1, KV_THREADS);
+
+        // dQ[:, half] += dS K[:, half]: K is [keys, D] with D contiguous, an
+        // MN-major B operand; this warpgroup's columns start at box
+        // HALF / 64 w.
+        fence_regs<HALF / 2>(acc);
+        const uint64_t k_mn =
+            desc_sw128(k_st + wg * (HALF / BOX) * BN * BOX, BN * BOX * 2, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+            wgmma_ss<HALF, 0, 1>(acc, desc_at(ds_desc, kk * 32),
+                                 desc_at(k_mn, kk * 16 * BOX * 2), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<HALF / 2>(acc);
+    }
+
+    // Epilogue: scale this warpgroup's columns of dQ, stage them as bf16
+    // over its half of Q (warpgroup 0 last read Q before the last tile's
+    // first barrier) and store them with TMA.
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) acc[i] *= scale;
+    bf16* stage = Qs + wg * (HALF / BOX) * BM * BOX;
+    stage_bf16<HALF>(stage, BM * BOX * 2, acc, warp, lane);
+    fence_proxy_async();
+    named_barrier_sync(2 + wg, 128);
+    if (ct == 0) {
+#pragma unroll
+        for (int c = 0; c < HALF / BOX; ++c)
+            tma_store_4d(&tdq, stage + c * BM * BOX,
+                         (wg * (HALF / BOX) + c) * BOX, h, m0, b);
+        bulk_commit();
+        bulk_wait_read<0>();
+    }
+}
+
 // ------------------------------------------------------------------- host
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -703,6 +1164,20 @@ cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int width, int heads,
                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// The delta pass of either design: lse log2(e) and delta into stats.
+template <int DV>
+cudaError_t launch_delta(const void* out, const void* dout, const void* lse,
+                         void* stats, int B, int Sq, int Sq_pad, int H,
+                         cudaStream_t stream) {
+    const long long threads = (long long)B * Sq_pad * H * (DV / 8);
+    flash_bwd_delta_kernel<DV><<<(unsigned)((threads + 255) / 256), 256, 0,
+                                 stream>>>(
+        static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<float*>(stats), B, Sq,
+        Sq_pad, H);
+    return cudaGetLastError();
+}
+
 template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const void* lse,
@@ -710,13 +1185,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int Sk, int H, int KV, int mask_kind, int window,
                    int q_offset, float scale, cudaStream_t stream) {
     const int Sq_pad = (Sq + BM - 1) / BM * BM;
-    const long long threads = (long long)B * Sq_pad * H * (DV / 8);
-    flash_bwd_delta_kernel<DV><<<(unsigned)((threads + 255) / 256), 256, 0,
-                                 stream>>>(
-        static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<float*>(stats), B, Sq,
-        Sq_pad, H);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err =
+        launch_delta<DV>(out, dout, lse, stats, B, Sq, Sq_pad, H, stream);
     if (err != cudaSuccess) return err;
 
     CUtensorMap tq, tdo, tk, tv, tst, tdk, tdv, tq2, tdo2, tdq;
@@ -763,19 +1233,83 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     return cudaGetLastError();
 }
 
+// The (256, 256) pair: the delta pass, then the two kernels whose
+// warpgroups share each step, with the sum of the dK/dV slices' parts
+// between them.
+template <int D>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const void* out, const void* dout, const void* lse,
+                        void* stats, void* dq, void* dk, void* dv, void* part,
+                        int splits, int B, int Sq, int Sk, int H, int KV,
+                        int mask_kind, int window, int q_offset, float scale,
+                        cudaStream_t stream) {
+    const int Sq_pad = (Sq + BM - 1) / BM * BM;
+    cudaError_t err =
+        launch_delta<D>(out, dout, lse, stats, B, Sq, Sq_pad, H, stream);
+    if (err != cudaSuccess) return err;
+
+    CUtensorMap tq, tdo, tk, tv, tst, tdq;
+    const cuuint64_t st_dims[4] = {(cuuint64_t)Sq_pad, 2, (cuuint64_t)H,
+                                   (cuuint64_t)B};
+    const cuuint32_t st_box[4] = {BM, 2, 1, 1};
+    err = bf16_map(&tq, q, D, H, Sq, B, BM);
+    if (err == cudaSuccess) err = bf16_map(&tdo, dout, D, H, Sq, B, BM);
+    if (err == cudaSuccess) err = bf16_map(&tk, k, D, KV, Sk, B, BN);
+    if (err == cudaSuccess) err = bf16_map(&tv, v, D, KV, Sk, B, BN);
+    if (err == cudaSuccess)
+        err = make_map(&tst, stats, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                       st_dims, st_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err == cudaSuccess) err = bf16_map(&tdq, dq, D, H, Sq, B, BM);
+    if (err != cudaSuccess) return err;
+
+    auto kv_kern = flash_bwd_dkdv_wide_kernel<D>;
+    constexpr int kv_bytes = KvWideLayout<D>::bytes;
+    err = cudaFuncSetAttribute(kv_kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kv_bytes);
+    if (err != cudaSuccess) return err;
+    kv_kern<<<dim3(KV * splits, B, (Sk + BN - 1) / BN), KV_THREADS,
+              kv_bytes, stream>>>(tq, tdo, tk, tv, tst,
+                                  static_cast<float*>(part), splits, Sq, Sk,
+                                  H, KV, mask_kind, window, q_offset, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const long long n = (long long)B * Sk * KV * D;
+    flash_bwd_dkdv_reduce_kernel<<<(unsigned)((2 * n / 4 + 255) / 256), 256,
+                                   0, stream>>>(
+        static_cast<const float*>(part), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), n, splits, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+
+    auto q_kern = flash_bwd_dq_wide_kernel<D>;
+    constexpr int q_bytes = QWideLayout<D>::bytes;
+    err = cudaFuncSetAttribute(q_kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               q_bytes);
+    if (err != cudaSuccess) return err;
+    q_kern<<<dim3(H, B, (Sq + BM - 1) / BM), KV_THREADS, q_bytes, stream>>>(
+        tq, tdo, tk, tv, tdq, static_cast<const float*>(stats), Sq, Sq_pad,
+        Sk, H, KV, mask_kind, window, q_offset, scale);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // Gradients of flash attention.  Sq, Sk and B must be positive (the
 // wrapper answers the empty cases); stats is fp32 scratch [B, H, 2,
-// Sq_pad] with Sq_pad = Sq rounded up to a multiple of 64.
+// Sq_pad] with Sq_pad = Sq rounded up to a multiple of 64.  At (256, 256)
+// the dK/dV kernel takes each KV group's heads in `splits` slices, one
+// CTA each, and part is fp32 scratch [2, splits, B, Sk, KV, 256] for
+// their parts (unused by the other pairs).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const void* lse,
                                    void* stats, void* dq, void* dk, void* dv,
-                                   int B, int Sq, int Sk, int H, int KV,
-                                   int D, int Dv, int mask_kind, int window,
-                                   int q_offset, float scale, int device,
-                                   void* stream) {
+                                   void* part, int splits, int B, int Sq,
+                                   int Sk, int H, int KV, int D, int Dv,
+                                   int mask_kind, int window, int q_offset,
+                                   float scale, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -787,12 +1321,19 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
         return (int)launch<64, 64>(q, k, v, out, dout, lse, stats, dq, dk, dv,
                                    B, Sq, Sk, H, KV, mask_kind, window,
                                    q_offset, scale, st);
+    if (D == 256 && Dv == 256) {  // recurrentgemma's local attention
+        if (splits < 1 || part == nullptr)
+            return (int)cudaErrorInvalidValue;
+        return (int)launch_wide<256>(q, k, v, out, dout, lse, stats, dq, dk,
+                                     dv, part, splits, B, Sq, Sk, H, KV,
+                                     mask_kind, window, q_offset, scale, st);
+    }
     return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of the dK/dV kernel (kernel 0) or the dQ kernel
-// (kernel 1) for a head-dim pair; -1 for a pair the backward is not built
-// for.
+// (kernel 1) for a head-dim pair (at (256, 256) the wide kernels'); -1 for
+// a pair the backward is not built for.
 extern "C" long flash_attention_bwd_smem_bytes(int D, int Dv, int kernel) {
     if (D == 128 && Dv == 128)
         return kernel == 0 ? (long)KvLayout<128, 128>::bytes
@@ -800,6 +1341,9 @@ extern "C" long flash_attention_bwd_smem_bytes(int D, int Dv, int kernel) {
     if (D == 64 && Dv == 64)
         return kernel == 0 ? (long)KvLayout<64, 64>::bytes
                            : (long)QLayout<64, 64>::bytes;
+    if (D == 256 && Dv == 256)
+        return kernel == 0 ? (long)KvWideLayout<256>::bytes
+                           : (long)QWideLayout<256>::bytes;
     return -1;
 }
 

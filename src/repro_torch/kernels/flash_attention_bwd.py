@@ -12,12 +12,17 @@ fp32 ``[B, Sq, H]``, checks them, allocates the gradients and the fp32
 scratch of lse and delta and launches on PyTorch's current stream.  It
 raises on anything the kernel does not take; it never falls back to the
 plain version.  One call of the wrapper is one launch of the kernel (its
-three CUDA kernels: delta, dK/dV, dQ).
+three CUDA kernels: delta, dK/dV, dQ; at (256, 256) a fourth sums the
+slices' parts of dK and dV).
 
-:func:`smem_bytes`, :func:`dkdv_steps` and :func:`dq_tiles` mirror the
-kernel's shared-memory layouts and the work each CTA does, so that the CPU
-tests can hold the schedule to the mask and the tiled arithmetic to the
-plain formula.
+:func:`smem_bytes`, :func:`dkdv_steps`, :func:`dq_tiles` and
+:func:`dq_tiles_wide` mirror the kernel's shared-memory layouts and the
+work each CTA does, so that the CPU tests can hold the schedule to the
+mask and the tiled arithmetic to the plain formula.  At (256, 256) two
+kernels of their own take the pair (``WIDE``): their warpgroups share each
+step, so a thread holds one 64 x 256 accumulator instead of dK's and dV's;
+the dK/dV kernel takes each KV group's heads in :func:`wide_splits`
+slices, whose fp32 parts a fourth CUDA kernel sums.
 """
 
 from __future__ import annotations
@@ -31,12 +36,18 @@ import torch
 from . import _build
 from .flash_attention import MASK_KINDS, mask_for
 
-#: (D, Dv) pairs the backward is built for: yi-6b's and the 100M example's.
-HEAD_DIMS = ((64, 64), (128, 128))
+#: (D, Dv) pairs the backward is built for: yi-6b's, the 100M example's
+#: and recurrentgemma-2b's local attention.
+HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
 #: The kernel's tiles: keys per dK/dV CTA and per dQ ring stage (BN),
 #: queries per dK/dV step and per dQ warpgroup (BM), queries per dQ CTA
 #: (Q_BM), and the depth of both rings.
 BN, BM, Q_BM, STAGES = 64, 64, 128, 4
+#: Head dims from which the wide kernels take the pair: both warpgroups
+#: of a CTA work on one step, one dK/dV step or dQ key tile at a time
+#: (:func:`dkdv_steps`' list, :func:`dq_tiles_wide`), dQ per BM queries,
+#: and their rings have WIDE_STAGES stages.
+WIDE, WIDE_STAGES = 256, 2
 
 
 def smem_bytes(D: int, Dv: int) -> Tuple[int, int]:
@@ -45,8 +56,19 @@ def smem_bytes(D: int, Dv: int) -> Tuple[int, int]:
     delta (fp32), a full mbarrier per stage and K/V's; dQ: Q and dO of 128
     queries, then per stage K and V of 64 keys, a full and an empty
     mbarrier per stage and Q/dO's; both bf16, plus 1024 bytes to align.
-    Mirrors ``KvLayout`` and ``QLayout`` in ``csrc/flash_attention_bwd.cu``.
-    """
+    The wide kernels (D = Dv >= WIDE): dK/dV the same sections over
+    WIDE_STAGES stages, then two fp32 64 x 64 tiles of P^T; dQ: Q and dO
+    of BM queries, WIDE_STAGES stages of K and V, a bf16 tile of dS and an
+    fp32 one of P, a full mbarrier per stage and Q/dO's.  Mirrors
+    ``KvLayout``, ``QLayout``, ``KvWideLayout`` and ``QWideLayout`` in
+    ``csrc/flash_attention_bwd.cu``."""
+    if D >= WIDE:
+        kv = (2 * BN * (D + Dv) + WIDE_STAGES * (2 * BM * (D + Dv)
+                                                 + 2 * BM * 4)
+              + 2 * BN * BM * 4 + 8 * (1 + WIDE_STAGES) + 1024)
+        dq = (2 * BM * (D + Dv) + WIDE_STAGES * 2 * BN * (D + Dv)
+              + BM * BN * (2 + 4) + 8 * (1 + WIDE_STAGES) + 1024)
+        return kv, dq
     kv = (2 * BN * (D + Dv) + STAGES * (2 * BM * (D + Dv) + 2 * BM * 4)
           + 8 * (1 + STAGES) + 1024)
     dq = 2 * Q_BM * (D + Dv) + STAGES * 2 * BN * (D + Dv) \
@@ -111,6 +133,41 @@ def dq_tiles(m0: int, Sq: int, Sk: int, mask_kind: str, window: int = 0,
     return out
 
 
+def dq_tiles_wide(m0: int, Sq: int, Sk: int, mask_kind: str,
+                  window: int = 0, q_offset: int = 0
+                  ) -> List[Tuple[int, bool]]:
+    """The key tiles of the wide dQ CTA of the BM queries from ``m0``, in
+    order: ``(key tile, edge)``.  Its range ends at the last key its last
+    row (before Sq) sees, so every tile holds a visible pair."""
+    n_lo, n_hi = 0, Sk
+    if mask_kind != "none":
+        n_hi = min(Sk, q_offset + min(m0 + BM, Sq))
+        if mask_kind == "window":
+            n_lo = max(0, q_offset + m0 - window + 1)
+    if n_hi <= n_lo:
+        return []
+    t_lo = n_lo // BN
+    return [(t, _edge(m0, t * BN, Sq, Sk, mask_kind, window, q_offset))
+            for t in range(t_lo, (n_hi + BN - 1) // BN)]
+
+
+def wide_splits(B: int, Sq: int, Sk: int, H: int, KV: int, mask_kind: str,
+                window: int = 0, q_offset: int = 0, *, sms: int) -> int:
+    """The slices of each KV group's heads that the wide dK/dV kernel takes
+    one CTA each: the fewest whose heaviest CTA (ceil(G / slices) heads of
+    the key tile with the most query tiles) walks no more steps than the
+    whole grid's average over ``sms`` SMs.  The slices' fp32 parts (one
+    slice included) are summed by a second launch."""
+    G = H // KV
+    n_qt = [len(dkdv_steps(n0, Sq, Sk, 1, mask_kind, window, q_offset))
+            for n0 in range(0, Sk, BN)]
+    per_sm = -(-B * KV * G * sum(n_qt) // sms)
+    for splits in range(1, G + 1):
+        if -(-G // splits) * max(n_qt, default=0) <= per_sm:
+            return splits
+    return G
+
+
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *,
                               mask_kind: str = "causal", window: int = 0,
                               q_offset: int = 0,
@@ -147,7 +204,7 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 10 + [
+    lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 11 + [
         ctypes.c_float, i, p]
     lib.flash_attention_bwd.restype = ctypes.c_int
     lib.flash_attention_bwd_smem_bytes.argtypes = [i, i, i]
@@ -193,11 +250,20 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *,
     # lse log2(e) and delta per (batch, head), queries padded to BM rows
     stats = torch.empty((B, H, 2, -(-Sq // BM) * BM), dtype=torch.float32,
                         device=dev)
+    splits, part = 1, None
+    if D >= WIDE:           # the slices' fp32 parts of dK and dV
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = wide_splits(B, Sq, Sk, H, KV, mask_kind, window, q_offset,
+                             sms=sms)
+        part = torch.empty((2, splits, B, Sk, KV, D), dtype=torch.float32,
+                           device=dev)
     lib = _lib()
     status = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), stats.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, D, Dv,
+        dk.data_ptr(), dv.data_ptr(),
+        part.data_ptr() if part is not None else None, splits, B, Sq, Sk, H,
+        KV, D, Dv,
         MASK_KINDS[mask_kind], int(window), int(q_offset), float(scale),
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "flash_attention_bwd")

@@ -20,9 +20,10 @@ version (the reference formula in float32) otherwise.  :func:`ssd` goes
 through :class:`SSDScan` (the JAX package differentiates its XLA scan):
 the forward saves its inputs, and the backward recomputes the chunk
 states, through the CUDA backward kernel on the card and its plain version
-otherwise.  The RG-LRU scan has no backward kernel yet: on the card
-:func:`rglru` refuses an input that requires grad rather than cut the
-gradient; on the CPU its plain version is differentiated by autograd.
+otherwise.  :func:`rglru` goes through :class:`RGLRUScan` (the JAX package
+differentiates its XLA scan): the forward saves its inputs, and the
+backward recomputes the states, through the CUDA backward kernel on the
+card and its plain version otherwise.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from .flash_attention_bwd import (
     flash_attention_bwd_plain,
 )
 from .rglru_scan import rglru_cuda, rglru_plain
+from .rglru_scan_bwd import rglru_bwd_cuda, rglru_bwd_plain
 from .ssd_scan import ssd_cuda, ssd_plain
 from .ssd_scan_bwd import ssd_bwd_cuda, ssd_bwd_plain
 
@@ -50,7 +52,8 @@ KERNELS = {"flash_attention": flash_attention_cuda,
            "decode_attention": decode_attention_cuda,
            "ssd_scan": ssd_cuda,
            "ssd_scan_bwd": ssd_bwd_cuda,
-           "rglru_scan": rglru_cuda}
+           "rglru_scan": rglru_cuda,
+           "rglru_scan_bwd": rglru_bwd_cuda}
 
 
 def _use_kernel(backend: str, x: torch.Tensor) -> bool:
@@ -62,16 +65,6 @@ def _use_kernel(backend: str, x: torch.Tensor) -> bool:
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in ts)
-
-
-def _refuse_grad(name: str, later: str, *ts) -> None:
-    """A CUDA scan without a backward kernel gives outputs with no autograd
-    history: refuse an input that requires grad instead of treating the
-    scan as a constant."""
-    if _needs_grad(*ts):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet ({later}); "
-            f"training a model with this layer runs on the CPU only")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -127,6 +120,36 @@ class SSDScan(torch.autograd.Function):
         grads = bwd(x, dt, A, Bmat, Cmat, dy.contiguous(),
                     None if dstate is None else dstate.contiguous(),
                     chunk=ctx.chunk, initial_state=h0)
+        return (*grads, None, None)
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The RG-LRU scan with the backward of XLA's autodiff of
+    ``repro.kernels.ops.rglru``: the forward saves its inputs; the
+    backward recomputes the states.  ``kernel`` picks the CUDA forward and
+    backward kernels, else their plain versions.  A final state that
+    nothing uses has no cotangent, and without an initial state none is
+    returned."""
+
+    @staticmethod
+    def forward(ctx, x, gate_a, gate_i, log_a, initial_state, c, kernel):
+        fwd = rglru_cuda if kernel else rglru_plain
+        h, state = fwd(x, gate_a, gate_i, log_a, initial_state=initial_state,
+                       c=c)
+        ctx.save_for_backward(x, gate_a, gate_i, log_a, initial_state)
+        ctx.c, ctx.kernel = c, kernel
+        ctx.set_materialize_grads(False)
+        return h, state
+
+    @staticmethod
+    def backward(ctx, dh, dstate):
+        x, gate_a, gate_i, log_a, h0 = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(x)
+        bwd = rglru_bwd_cuda if ctx.kernel else rglru_bwd_plain
+        grads = bwd(x, gate_a, gate_i, log_a, dh.contiguous(),
+                    None if dstate is None else dstate.contiguous(),
+                    initial_state=h0, c=ctx.c)
         return (*grads, None, None)
 
 
@@ -219,9 +242,9 @@ def rglru(
 ) -> tuple:
     """RG-LRU linear recurrence: (h [B,S,C], final_state [B,C])."""
     kernel = _use_kernel(backend, x)
-    if kernel:
-        _refuse_grad("rglru", "the RG-LRU backward kernel is a later slice",
-                     x, gate_a, gate_i, log_a, initial_state)
+    if _needs_grad(x, gate_a, gate_i, log_a, initial_state):
+        return RGLRUScan.apply(x, gate_a, gate_i, log_a, initial_state, c,
+                               kernel)
     fn = rglru_cuda if kernel else rglru_plain
     return fn(x, gate_a, gate_i, log_a, initial_state=initial_state, c=c)
 

@@ -18,11 +18,14 @@ AdamW moments, 16 bytes a parameter with the gradients, so full yi-6b
 (6.06 B parameters, 97 GB) does not fit one 80 GB card and trains there
 at ``--n-layers 12`` (2.6 B parameters, 41.6 GB of state) with every
 width kept.  On the card the archs whose layers all have a backward
-kernel train: dense GQA (yi-6b, yi-34b, mistral-nemo-12b; head dim 128)
-and Mamba-2 (mamba2-2.7b, through the SSD backward kernel; all 64 layers
-peak at ~71 GiB at B 4 x 1024, ``--n-layers 56`` at ~62 GiB).  MLA's head-dim pairs are not built into the flash
-backward yet, and the RG-LRU scan (recurrentgemma-2b) has no backward
-kernel: those raise on the card and train on the CPU.
+kernel train: dense GQA (yi-6b, yi-34b, mistral-nemo-12b; head dim 128),
+Mamba-2 (mamba2-2.7b, through the SSD backward kernel; all 64 layers
+peak at ~71 GiB at B 4 x 1024, ``--n-layers 56`` at ~62 GiB) and the
+RG-LRU / local-attention hybrid (recurrentgemma-2b, all 26 layers,
+through the RG-LRU backward kernel and the flash backward at head dim
+256).  MLA's head-dim pairs are not built into the flash backward yet:
+minicpm3-4b and deepseek-v2-lite-16b raise on the card and train on the
+CPU.
 
 Examples::
 
@@ -37,6 +40,8 @@ Examples::
         --policy srtf
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
         --n-layers 56 --steps 4 --batch 4 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma-2b --steps 4 --batch 4 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --reduced --arch yi-6b --steps 4 --batch 2 --seq 32
 """

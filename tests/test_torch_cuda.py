@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card (the
-backwards of flash and the SSD scan too, and both under autograd); also
-the MLA layer through flash at full width against its plain route, the
-MoE dispatch and combine on the card bitwise equal to the CPU's, one
-executor-sweep cell, and the serving example at its full-width default.
+backwards of flash, the SSD scan and the RG-LRU scan too, and all three
+under autograd); also the MLA layer through flash at full width against
+its plain route, the MoE dispatch and combine on the card bitwise equal
+to the CPU's, one executor-sweep cell, one recurrentgemma-2b train step
+at three layers, and the serving example at its full-width default.
 
 Marked ``cuda``; each test skips where there is no CUDA device.  On a
 GPU machine::
@@ -335,7 +336,8 @@ def test_ops_route_cuda_tensors_to_the_kernels(gen):
     assert ops.launch_counts() == {"flash_attention": 1,
                                    "flash_attention_bwd": 0,
                                    "decode_attention": 1, "ssd_scan": 1,
-                                   "ssd_scan_bwd": 0, "rglru_scan": 1}
+                                   "ssd_scan_bwd": 0, "rglru_scan": 1,
+                                   "rglru_scan_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -554,6 +556,17 @@ BWD = [
     # warpgroups of the dK/dV kernel.
     (1, 2048, 2048, 8, 1, 64, "causal", 0, 0),           # D 64, G 8
     (2, 1000, 1000, 8, 2, 128, "window", 150, 0),        # ragged, window
+    # (256, 256), the wide kernels: recurrentgemma-2b's local layers at
+    # their training shape (MQA, window 2048 >= S), a window shorter than
+    # S, ragged S with a q_offset, no mask with Sq != Sk, no key in sight,
+    # G 1 and an odd step count.
+    (4, 1024, 1024, 10, 1, 256, "window", 2048, 0),
+    (1, 300, 300, 5, 1, 256, "window", 100, 0),
+    (2, 150, 201, 4, 2, 256, "causal", 0, 51),
+    (1, 77, 190, 4, 1, 256, "none", 0, 0),
+    (1, 8, 8, 2, 2, 256, "window", 2, 20),
+    (2, 5, 0, 4, 2, 256, "none", 0, 0),
+    (1, 200, 200, 3, 3, 256, "causal", 0, 0),
 ]
 # Backward, kernel vs the plain formula in fp32: relative L2 of each
 # gradient within max(2e-2, 2 x floor), the floor the plain formula in
@@ -611,7 +624,7 @@ def test_flash_backward_smem_bytes_match_the_source(gen):
                     for kernel in (0, 1))
         assert got == bwd_smem_bytes(D, Dv)
         assert max(got) <= 232_448
-    assert lib.flash_attention_bwd_smem_bytes(256, 256, 0) == -1
+    assert lib.flash_attention_bwd_smem_bytes(192, 128, 0) == -1
 
 
 @pytest.mark.parametrize("case", [c for c in FLASH if c[2] > 0], ids=str)
@@ -794,14 +807,95 @@ def test_ssd_under_autograd_launches_both_kernels(gen):
         assert ops.launch_counts()["ssd_scan_bwd"] == 0
 
 
-def test_rglru_refuses_to_train_on_the_card(gen):
-    """The CUDA RG-LRU scan has no backward yet: an input that requires
-    grad raises instead of silently cutting the gradient; without grad it
-    launches as when serving."""
-    xr, ga, gi, la, _ = _rglru_inputs(gen, 1, 8, 16, False)
-    with pytest.raises(NotImplementedError, match="RG-LRU backward"):
-        ops.rglru(xr, ga, gi, la.requires_grad_())
-    ops.rglru(xr, ga, gi, la.detach())
+RGLRU_BWD = [
+    # (B, S, C, initial_state, dstate, log_a scale, gate_a scale)
+    (4, 1024, 2560, False, False, 1.0, 1.0),     # recurrentgemma training
+    (2, 130, 100, True, True, 1.0, 1.0),         # ragged C and S
+    (3, 77, 35, False, True, 1.0, 1.0),
+    (2, 0, 256, True, True, 1.0, 1.0),           # S 0
+    (2, 300, 256, True, True, 100.0, 1.0),       # strong decay
+    (2, 300, 256, True, True, 1.0, 1e-3),        # gates near 0: beta small
+    (1, 64, 32, True, False, 1.0, 1.0),          # one whole chunk
+    # gate_a exactly 0 at a fifth of the steps: beta 0, beta's derivative
+    # taken as 0 there
+    (2, 300, 256, True, True, 1.0, 1.0, 0.2),
+]
+# RG-LRU backward, kernel vs the plain formula in fp32 on the same inputs:
+# dx (bf16) within max(3e-2, 2 x floor) relative L2, the floor the plain
+# dx rounded to bf16; the fp32 gradients (the gates, log_a and the initial
+# state) within 1e-4, as on the CPU: the kernel recomputes h_{t-1} in fp32
+# with the plain version's formula, so only the order of fp32 sums differs.
+RGLRU_BWD_REL_L2 = 3e-2
+RGLRU_BWD_F32_REL_L2 = 1e-4
+
+
+def _rglru_bwd_inputs(gen, B, S, C, init, dstate, decay, ga_scale,
+                      zero_share=0.0):
+    x, ga, gi, la, h0 = _rglru_inputs(gen, B, S, C, init, decay)
+    dh = _randn(gen, B, S, C)
+    ds = torch.randn((B, C), generator=gen, device="cuda") if dstate \
+        else None
+    if zero_share:
+        zero = torch.rand((B, S, C), generator=gen, device="cuda") < zero_share
+        ga = ga.masked_fill(zero, 0.0)
+    return x, ga * ga_scale, gi, la, dh, ds, h0
+
+
+@pytest.mark.parametrize("case", RGLRU_BWD, ids=str)
+def test_rglru_backward_kernel_matches_plain(case, gen):
+    from repro_torch.kernels.rglru_scan_bwd import (
+        rglru_bwd_cuda,
+        rglru_bwd_plain,
+    )
+
+    x, ga, gi, la, dh, ds, h0 = _rglru_bwd_inputs(gen, *case)
+    got = rglru_bwd_cuda(x, ga, gi, la, dh, ds, initial_state=h0)
+    again = rglru_bwd_cuda(x, ga, gi, la, dh, ds, initial_state=h0)
+    want = rglru_bwd_plain(x.float(), ga, gi, la, dh, ds, initial_state=h0)
+    torch.cuda.synchronize()
+    assert (got[4] is None) == (h0 is None)
+    for name, g, a, w in zip(("dx", "dga", "dgi", "dla", "dh0"), got, again,
+                             want):
+        if w is None:
+            continue
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert torch.equal(g, a), f"{name}: two launches differ"
+        if not w.any():
+            assert not g.any(), name
+            continue
+        limit = max(RGLRU_BWD_REL_L2, 2 * _rel_l2(w.to(g.dtype), w)) \
+            if g.dtype == torch.bfloat16 else RGLRU_BWD_F32_REL_L2
+        assert _rel_l2(g, w) <= limit, (name, _rel_l2(g, w), limit)
+
+
+def test_rglru_under_grad_on_the_card_matches_the_plain_backward(gen):
+    """Under grad, ops.rglru on CUDA tensors goes through RGLRUScan: one
+    forward and one backward launch, the gradients (x in bf16 within 3e-2
+    relative L2 of the plain backward, the gates, log_a and the initial
+    state in fp32 within 1e-4); without grad only the forward launches."""
+    from repro_torch.kernels.rglru_scan_bwd import rglru_bwd_plain
+
+    x, ga, gi, la, dh, ds, h0 = _rglru_bwd_inputs(gen, 2, 200, 96, True,
+                                                  True, 1.0, 1.0)
+    leaves = [t.clone().requires_grad_() for t in (x, ga, gi, la, h0)]
+    ops.reset_launch_counts()
+    h, state = ops.rglru(*leaves[:4], initial_state=leaves[4])
+    torch.autograd.backward((h, state), (dh, ds))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["rglru_scan"] == 1 and counts["rglru_scan_bwd"] == 1
+    want = rglru_bwd_plain(x.float(), ga, gi, la, dh, ds, initial_state=h0)
+    assert [t.grad.dtype for t in leaves] == [torch.bfloat16] + \
+        [torch.float32] * 4
+    for t, w in zip(leaves, want):
+        assert torch.isfinite(t.grad).all()
+        assert _rel_l2(t.grad, w) <= (
+            RGLRU_BWD_REL_L2 if t.grad.dtype == torch.bfloat16
+            else RGLRU_BWD_F32_REL_L2)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        ops.rglru(x, ga, gi, la)
+        assert ops.launch_counts()["rglru_scan_bwd"] == 0
 
 
 @pytest.mark.parametrize("arch,kernel", [("yi-6b", "flash_attention_bwd"),
@@ -833,6 +927,42 @@ def test_train_step_through_the_kernels_matches_the_plain_route(arch, kernel,
     ops.reset_launch_counts()
     kernels = grads("kernel", torch.bfloat16)
     assert ops.launch_counts()[kernel] == 2
+    plain = grads("ref", torch.bfloat16)
+    truth = grads("ref", torch.float32)
+    for k, p, t in zip(kernels, plain, truth):
+        assert torch.isfinite(k).all()
+        assert _rel_l2(k, p) <= max(5e-2, 2 * _rel_l2(p, t))
+
+
+def test_recurrentgemma_train_step_through_the_kernels(gen):
+    """Full-width recurrentgemma-2b at 3 layers (rec, rec, local), B 2 x
+    256: one step's gradients through the kernels against the plain
+    versions, each stacked leaf within max(5e-2, 2 x floor) relative L2
+    (floor: plain bf16 vs fp32); two RG-LRU and one flash backward
+    launch."""
+    import dataclasses
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import pipeline as data
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_arch("recurrentgemma-2b"), n_layers=3)
+    params = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
+                     stacked=True)
+    ps = [p.requires_grad_() for p in leaves(params)]
+    batch = data.batch_for_step(cfg, InputShape("t", 256, 2, "train"), 0,
+                                device="cuda")
+
+    def grads(backend, dtype):
+        total, _ = lm.loss_fn(cfg, params, batch, backend=backend,
+                              dtype=dtype)
+        return torch.autograd.grad(total, ps)
+
+    ops.reset_launch_counts()
+    kernels = grads("kernel", torch.bfloat16)
+    counts = ops.launch_counts()
+    assert counts["rglru_scan"] == counts["rglru_scan_bwd"] == 2
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 1
     plain = grads("ref", torch.bfloat16)
     truth = grads("ref", torch.float32)
     for k, p, t in zip(kernels, plain, truth):

@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import flash_attention_plain
 
 LOG2E = 1.4426950408889634
 SMEM_LIMIT = 232_448           # the H100's dynamic shared memory per block
+SMS = 132                      # the H100 SXM's SMs
 BWD_REL_L2 = 2e-2              # the card's bound: max(2e-2, 2 x floor)
 
 SCHEDULES = [
@@ -65,6 +66,16 @@ def test_tiles_and_ring_mirror_the_kernel_source():
     assert fb.Q_BM == 2 * fb.BM          # one 64-row block per warpgroup
     # no atomic operation: two launches give the same bits
     assert not re.search(r"\batomic[A-Z]\w*\(|\batom\.|\bred\.", src)
+
+
+def test_wide_ring_mirrors_the_kernel_source():
+    """The (256, 256) kernels' ring depth and the pair they take equal the
+    source's, and the split kernels' pairs stay below it."""
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert int(re.search(r"constexpr int WIDE_STAGES = (\d+);", src)[1]) \
+        == fb.WIDE_STAGES
+    assert "launch_wide<256>" in src and (fb.WIDE, fb.WIDE) in fb.HEAD_DIMS
+    assert all(max(d) < fb.WIDE for d in fb.HEAD_DIMS if d != (256, 256))
 
 
 @pytest.mark.parametrize("dims", fb.HEAD_DIMS, ids=str)
@@ -119,6 +130,75 @@ def test_dq_tiles_cover_every_visible_pair_once(case):
     assert (count == vis).all()
 
 
+@pytest.mark.parametrize("case", SCHEDULES, ids=str)
+def test_dq_tiles_wide_cover_every_visible_pair_once(case):
+    """The wide dQ CTAs of 64 queries: every visible pair once, every tile
+    of a CTA's range holds one, no masked pair in an interior tile."""
+    Sq, Sk, kind, window, off = case
+    vis = _visible(Sq, Sk, kind, window, off)
+    count = np.zeros((Sq, Sk), int)
+    for m0 in range(0, Sq, fb.BM):
+        for t, edge in fb.dq_tiles_wide(m0, Sq, Sk, kind, window, off):
+            rows, keys = slice(m0, m0 + fb.BM), slice(t * fb.BN,
+                                                       (t + 1) * fb.BN)
+            block = vis[rows, keys]
+            assert block.any()
+            count[rows, keys] += block
+            if not edge:
+                assert block.shape == (fb.BM, fb.BN) and block.all()
+    assert (count == vis).all()
+
+
+def test_wide_schedule_at_recurrentgemma_training_shape():
+    """recurrentgemma-2b's local layers at B 4 x 1024 (10 heads over 1 KV
+    head, window 2048 >= S: causal in effect): 64 dK/dV CTAs, key tile 0
+    walking 10 x 16 steps and the last 10; 640 dQ CTAs, the last query
+    tile's walking all 16 key tiles; the window and the causal mask give
+    the same schedule."""
+    B, S, G, KV, H = 4, 1024, 10, 1, 10
+    n_kv = B * KV * (S // fb.BN)
+    n_q = B * H * (S // fb.BM)
+    assert (n_kv, n_q) == (64, 640)
+    for n0 in (0, S - fb.BN):
+        assert fb.dkdv_steps(n0, S, S, G, "window", 2048) == \
+            fb.dkdv_steps(n0, S, S, G, "causal")
+    assert len(fb.dkdv_steps(0, S, S, G, "window", 2048)) == 160
+    assert len(fb.dkdv_steps(S - fb.BN, S, S, G, "window", 2048)) == 10
+    assert len(fb.dq_tiles_wide(S - fb.BM, S, S, "window", 2048)) == 16
+    assert fb.dq_tiles_wide(0, S, S, "window", 2048) == [(0, True)]
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, H, KV, mask_kind, window, q_offset, slices)
+    (4, 1024, 1024, 10, 1, "window", 2048, 0, 5),   # recurrentgemma: 2 heads
+    (4, 1024, 1024, 10, 1, "none", 0, 0, 3),        # every tile 16 steps
+    (1, 300, 300, 5, 1, "window", 100, 0, 5),
+    (1, 200, 200, 3, 3, "causal", 0, 0, 1),         # G 1
+    (1, 8, 8, 2, 2, "window", 2, 20, 1),            # no step at all
+], ids=str)
+def test_wide_splits_fill_the_card(case):
+    """The fewest slices of a group's heads whose heaviest dK/dV CTA walks
+    no more steps than the grid's average SM: at recurrentgemma-2b's
+    training shape 5 slices of 2 heads, 320 CTAs, the heaviest 32 steps
+    against 42 an SM (64 CTAs and 160 steps unsliced)."""
+    B, Sq, Sk, H, KV, kind, window, off, want = case
+    G = H // KV
+    splits = fb.wide_splits(B, Sq, Sk, H, KV, kind, window, off, sms=SMS)
+    assert splits == want
+    n_qt = [len(fb.dkdv_steps(n0, Sq, Sk, 1, kind, window, off))
+            for n0 in range(0, Sk, fb.BN)]
+    per_sm = -(-B * KV * G * sum(n_qt) // SMS)
+
+    def heaviest(s):
+        return -(-G // s) * max(n_qt)
+
+    assert heaviest(splits) <= per_sm or splits == G
+    assert all(heaviest(s) > per_sm for s in range(1, splits))
+    # every slice holds a head: the slices cover the group exactly
+    g_per = -(-G // splits)
+    assert (splits - 1) * g_per < G <= splits * g_per
+
+
 def test_dkdv_steps_split_the_yi6b_schedule_between_the_warpgroups():
     """At yi-6b's training shape (S 1024, G 8, causal) key tile 0 walks
     8 x 16 steps, eight per warpgroup and head; the last key tile 8."""
@@ -152,15 +232,22 @@ def tiled_backward(q, k, v, out, dout, lse, *, mask_kind, window=0,
     dq = torch.zeros(B, Sq, H, D)
     dk = torch.zeros(B, Sk, KV, D)
     dv = torch.zeros(B, Sk, KV, Dv)
+    wide = D >= fb.WIDE
+    # the wide kernel's warpgroups share every step: one accumulator of dK
+    # and one of dV a slice of the group's heads, the slices summed in order
+    splits = fb.wide_splits(B, Sq, Sk, H, KV, mask_kind, window, q_offset,
+                            sms=SMS) if wide else 2
+    g_per = -(-G // splits)
     for b in range(B):
         for hk in range(KV):
             for n0 in range(0, Sk, fb.BN):
                 keys = slice(n0, n0 + fb.BN)
                 nk = min(fb.BN, Sk - n0)
                 part = [(torch.zeros(nk, D), torch.zeros(nk, Dv))
-                        for _ in range(2)]
+                        for _ in range(splits)]
                 for hg, t, wg, edge in fb.dkdv_steps(n0, Sq, Sk, G, mask_kind,
                                                      window, q_offset):
+                    wg = hg // g_per if wide else wg
                     h, rows = hk * G + hg, slice(t * fb.BM, (t + 1) * fb.BM)
                     st = kf[b, keys, hk] @ qf[b, rows, h].T
                     p = torch.exp2(st * sl2 - lse2[b, rows, h][None])
@@ -170,10 +257,24 @@ def tiled_backward(q, k, v, out, dout, lse, *, mask_kind, window=0,
                     ds = p * (dpt - delta[b, rows, h][None])
                     part[wg][1].add_(_bf(p) @ dof[b, rows, h])
                     part[wg][0].add_(_bf(ds) @ qf[b, rows, h])
-                dk[b, keys, hk] = (part[0][0] + part[1][0]) * scale
-                dv[b, keys, hk] = part[0][1] + part[1][1]
+                dk[b, keys, hk] = sum(p[0] for p in part) * scale
+                dv[b, keys, hk] = sum(p[1] for p in part)
         for h in range(H):
             hk = h // G
+            if wide:
+                for m0 in range(0, Sq, fb.BM):
+                    rows = slice(m0, m0 + fb.BM)
+                    for t, edge in fb.dq_tiles_wide(m0, Sq, Sk, mask_kind,
+                                                    window, q_offset):
+                        keys = slice(t * fb.BN, (t + 1) * fb.BN)
+                        s = qf[b, rows, h] @ kf[b, keys, hk].T
+                        p = torch.exp2(s * sl2 - lse2[b, rows, h][:, None])
+                        if edge:
+                            p = torch.where(vis[rows, keys], p, 0.0)
+                        dp = dof[b, rows, h] @ vf[b, keys, hk].T
+                        ds = p * (dp - delta[b, rows, h][:, None])
+                        dq[b, rows, h] += _bf(ds) @ kf[b, keys, hk]
+                continue
             for m0 in range(0, Sq, fb.Q_BM):
                 for t, wg, sees, edge in fb.dq_tiles(m0, Sq, Sk, mask_kind,
                                                      window, q_offset):
@@ -199,6 +300,10 @@ TILED = [
     (2, 100, 60, 2, 2, 64, "window", 40, 30),      # G 1, keyless rows
     (1, 77, 190, 4, 2, 128, "none", 0, 0),         # D 128, ragged
     (1, 130, 200, 4, 2, 128, "causal", 0, 70),
+    # (256, 256), the wide kernels: MQA G 5 with a window shorter than S,
+    # and a ragged causal Sq != Sk with a q_offset
+    (1, 150, 150, 5, 1, 256, "window", 70, 0),
+    (1, 90, 160, 2, 1, 256, "causal", 0, 70),
 ]
 
 
@@ -233,3 +338,40 @@ def test_tiled_arithmetic_matches_the_plain_formula(case):
             continue
         limit = max(BWD_REL_L2, 2 * _rel_l2(f, w))
         assert _rel_l2(g, w) <= limit, (name, _rel_l2(g, w), limit)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, H, KV, mask_kind, window, q_offset)
+    (1, 40, 40, 4, 1, "window", 16, 0),        # MQA, window < S
+    (2, 24, 40, 2, 1, "window", 64, 16),       # window >= S: causal
+], ids=str)
+def test_plain_backward_at_head_dim_256_matches_jax_vjp(case):
+    """The plain formula at (256, 256) with a window and MQA against
+    jax.vjp of the reference's flash_attention (XLA custom_vjp), float32,
+    within 1e-4."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as jops
+
+    B, Sq, Sk, H, KV, kind, window, off = case
+    D = 256
+    rng = np.random.default_rng(sum(case[:5]))
+    q, k, v = (rng.standard_normal(s, dtype=np.float32)
+               for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+    g = rng.standard_normal((B, Sq, H, D), dtype=np.float32)
+
+    def fn(q, k, v):
+        return jops.flash_attention(q, k, v, mask_kind=kind, window=window,
+                                    q_offset=off, backend="xla")
+
+    _, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    kw = dict(mask_kind=kind, window=window, q_offset=off)
+    out, lse = flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    got = fb.flash_attention_bwd_plain(tq, tk, tv, out, tg, lse, **kw)
+    for name, w, gt in zip(("dq", "dk", "dv"), want, got):
+        assert gt.shape == w.shape, name
+        np.testing.assert_allclose(gt.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)

@@ -503,7 +503,7 @@ def test_ssd_state_tiling_covers_the_state_once(shape):
 
 ZERO_COUNTS = {"flash_attention": 0, "flash_attention_bwd": 0,
                "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
-               "rglru_scan": 0}
+               "rglru_scan": 0, "rglru_scan_bwd": 0}
 
 
 def test_cpu_calls_leave_launch_counters_at_zero():
