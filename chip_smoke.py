@@ -1017,9 +1017,12 @@ def kernel_ssd_bwd(gen: torch.Generator) -> dict:
 
 def kernel_rglru(gen: torch.Generator) -> list:
     """The RG-LRU scan against its plain (sequential fp32) version, two
-    launches on one input bitwise equal; times at the recurrentgemma-2b
-    prefill shape and at one request's (B 1).  No single PyTorch call
-    computes the recurrence, so there is no library time."""
+    launches on one input bitwise equal, h and the final state bitwise the
+    same with the entering states asked for (the training path's launch)
+    and those states within SCAN_TOL of the plain forward's; times at the
+    recurrentgemma-2b prefill shape and at one request's (B 1), without
+    and with the entering states.  No single PyTorch call computes the
+    recurrence, so there is no library time."""
     from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
 
     def randn(*shape):
@@ -1052,16 +1055,24 @@ def kernel_rglru(gen: torch.Generator) -> list:
         x, ga, gi, la, h0 = inputs(b, s, c, init, *scales)
         h, state = rglru_cuda(x, ga, gi, la, initial_state=h0)
         again = rglru_cuda(x, ga, gi, la, initial_state=h0)
-        want_h, want_state = rglru_plain(x.float(), ga, gi, la,
-                                         initial_state=h0)
+        with_entering = rglru_cuda(x, ga, gi, la, initial_state=h0,
+                                   entering=True)
+        want_h, want_state, want_entering = rglru_plain(
+            x.float(), ga, gi, la, initial_state=h0, entering=True)
         torch.cuda.synchronize()
         errs.append(check_close(f"rglru_scan {name} h", h, want_h, SCAN_TOL))
         errs.append(check_close(f"rglru_scan {name} state", state,
                                 want_state, SCAN_TOL))
+        errs.append(check_close(f"rglru_scan {name} entering states",
+                                with_entering[2], want_entering, SCAN_TOL))
         if not (torch.equal(h, again[0]) and torch.equal(state, again[1])):
             fail(f"rglru_scan {name}: two launches on one input differ")
-    print("[kernels] rglru_scan: two launches bitwise equal in every case",
-          flush=True)
+        if not (torch.equal(h, with_entering[0])
+                and torch.equal(state, with_entering[1])):
+            fail(f"rglru_scan {name}: h or the state differs with the "
+                 f"entering states asked for")
+    print("[kernels] rglru_scan: two launches bitwise equal in every case, "
+          "and with the entering states asked for", flush=True)
 
     def time_rglru(b, s, c, label):
         """Times with input copies in turn, at least 100 MB of them, so the
@@ -1082,19 +1093,28 @@ def kernel_rglru(gen: torch.Generator) -> list:
         flops = 10.0 * b * s * c
         total = nbytes(x, ga, gi, la, h, state)
         b_ms, b_by = bound(flops, total, PEAK_FP32)
-        ms = device_ms(lambda: run(rglru_cuda), 100)
+
+        def entering(*args):
+            return rglru_cuda(*args, entering=True)
+
+        # without and with the entering states, in turns
+        times = [device_ms(lambda: run(fn), 100)
+                 for fn in (rglru_cuda, entering, entering, rglru_cuda)]
+        ms, entering_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
         # The plain version is a Python loop over the 1024 steps, ~10k small
         # operations: more than the launch queue holds behind device_ms's
         # sleep, so it is timed back to back (host-paced, as it runs).
         plain_ms = wall_ms(lambda: run(rglru_plain), 2)
         print(f"[kernels] rglru_scan {label} B{b} S{s} C{c}: kernel {ms:.4f} "
-              f"ms on the device, plain {plain_ms:.4f} ms (back to back), "
-              f"library none, bound {b_ms:.4f} ms ({b_by}; "
+              f"ms on the device ({times[0]:.4f}, {times[3]:.4f}), with the "
+              f"entering states {entering_ms:.4f} ms ({times[1]:.4f}, "
+              f"{times[2]:.4f}; in turns), plain {plain_ms:.4f} ms (back to "
+              f"back), library none, bound {b_ms:.4f} ms ({b_by}; "
               f"{total / 1e6:.2f} MB; kernel at {b_ms / ms:.1%} of it)",
               flush=True)
         return dict(shape=f"B{b} S{s} C{c}", max_abs_err=max(errs), ms=ms,
-                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None)
+                    entering_ms=entering_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     return [time_rglru(*serve[:3], "serve"),
             time_rglru(*single[:3], "one request")]
@@ -1103,12 +1123,18 @@ def kernel_rglru(gen: torch.Generator) -> list:
 def kernel_rglru_bwd(gen: torch.Generator) -> dict:
     """The RG-LRU backward against its plain version (the sequential
     formula in float32) on the same bf16 x and dh and fp32 gates, log_a,
-    initial state and final-state cotangent: dx within
+    initial state and final-state cotangent, the kernel given the states
+    entering each chunk by the forward kernel: dx within
     max(RGLRU_BWD_REL_L2, 2 x floor) relative L2 and the fp32 gradients
-    within RGLRU_BWD_F32_REL_L2, two launches bitwise equal.  Times at recurrentgemma-2b's training shape (its 18 recurrent
-    layers' shape) against the bound of the bytes it must move.  No single
-    PyTorch call computes the backward, so there is no library time."""
+    within RGLRU_BWD_F32_REL_L2, two launches bitwise equal.  Times at
+    recurrentgemma-2b's training shape (its 18 recurrent layers' shape)
+    against the bound of the bytes it must move, and prints the CTAs an
+    SM holds.  No single PyTorch call computes the backward, so there is
+    no library time."""
+    from repro_torch.kernels.rglru_scan import rglru_cuda
     from repro_torch.kernels.rglru_scan_bwd import (
+        TILE,
+        occupancy,
         rglru_bwd_cuda,
         rglru_bwd_plain,
     )
@@ -1137,6 +1163,10 @@ def kernel_rglru_bwd(gen: torch.Generator) -> dict:
         ("ragged C100 S130 with initial_state and dstate",
          (2, 130, 100, True, True)),
         ("ragged C35 S77 with dstate", (3, 77, 35, False, True)),
+        # TMA route, ragged: C a multiple of 8 but not of the 32-channel
+        # tile, S not a multiple of the 64-step chunk.
+        ("ragged C200 S333 with initial_state and dstate",
+         (2, 333, 200, True, True)),
         ("S0 C256 with initial_state and dstate", (2, 0, 256, True, True)),
         # log_a x 100: a (and its products) underflow to 0
         ("strong decay log_a*100 S300 C256 with initial_state and dstate",
@@ -1153,8 +1183,12 @@ def kernel_rglru_bwd(gen: torch.Generator) -> dict:
     errs = []
     for name, (b, s, c, init, dst, *scales) in cases:
         x, ga, gi, la, dh, ds, h0 = inputs(b, s, c, init, dst, *scales)
-        got = rglru_bwd_cuda(x, ga, gi, la, dh, ds, initial_state=h0)
-        again = rglru_bwd_cuda(x, ga, gi, la, dh, ds, initial_state=h0)
+        entering = rglru_cuda(x, ga, gi, la, initial_state=h0,
+                              entering=True)[2]
+        got = rglru_bwd_cuda(x, ga, gi, la, dh, ds, entering=entering,
+                             initial_state=h0)
+        again = rglru_bwd_cuda(x, ga, gi, la, dh, ds, entering=entering,
+                               initial_state=h0)
         truth = rglru_bwd_plain(x.float(), ga, gi, la, dh, ds,
                                 initial_state=h0)
         torch.cuda.synchronize()
@@ -1196,9 +1230,13 @@ def kernel_rglru_bwd(gen: torch.Generator) -> dict:
 
     b, s, c, _, _ = train
     # Input copies in turn, over 100 MB of them (22 B an element: one copy
-    # of the training shape's 231 MB), so the L2 holds no launch's inputs.
-    copies = [inputs(b, s, c, False, False)[:5]
-              for _ in range(-(-100_000_000 // (b * s * c * 22)))]
+    # of the training shape's 231 MB), so the L2 holds no launch's inputs;
+    # each with the forward kernel's entering states.
+    copies = []
+    for _ in range(-(-100_000_000 // (b * s * c * 22))):
+        x, ga, gi, la, dh = inputs(b, s, c, False, False)[:5]
+        copies.append((x, ga, gi, la, dh,
+                       rglru_cuda(x, ga, gi, la, entering=True)[2]))
     turn = [0]
 
     def run(fn):
@@ -1206,19 +1244,32 @@ def kernel_rglru_bwd(gen: torch.Generator) -> dict:
         turn[0] += 1
         return fn(*args)
 
-    x, ga, gi, la, dh = copies[0]
-    grads = rglru_bwd_cuda(x, ga, gi, la, dh)
-    # the least traffic: read x, dh (bf16) and both gates (fp32), write dx
-    # (bf16) and both gate gradients (fp32); ~25 fp32 operations an
-    # element (3 exp, a sqrt, a divide, the multiply-adds)
-    total = nbytes(x, ga, gi, la, dh) + nbytes(*grads[:4])
+    def kernel(x, ga, gi, la, dh, entering):
+        return rglru_bwd_cuda(x, ga, gi, la, dh, entering=entering)
+
+    def plain(x, ga, gi, la, dh, entering):
+        return rglru_bwd_plain(x, ga, gi, la, dh)
+
+    grads = kernel(*copies[0])
+    # the least traffic: read x, dh (bf16), both gates and the entering
+    # states (fp32), write dx (bf16) and both gate gradients (fp32); ~25
+    # fp32 operations an element (3 exp, a sqrt, a divide, the
+    # multiply-adds)
+    total = nbytes(*copies[0]) + nbytes(*grads[:4])
     flops = 25.0 * b * s * c
     b_ms, b_by = bound(flops, total, PEAK_FP32)
-    ms = device_ms(lambda: run(rglru_bwd_cuda), 50)
+    ms = device_ms(lambda: run(kernel), 50)
     # The plain version is a Python loop over the steps, twice: timed back
     # to back (host-paced, as it runs), as the forward's is.
-    plain_ms = wall_ms(lambda: run(rglru_bwd_plain), 1)
-    parts = kernel_times(lambda: run(rglru_bwd_cuda), 10, r"rglru_bwd_\w+")
+    plain_ms = wall_ms(lambda: run(plain), 1)
+    parts = kernel_times(lambda: run(kernel), 10, r"rglru_bwd_\w+")
+    blocks = occupancy(tma=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = b * -(-c // TILE)
+    print(f"[kernels] rglru_scan_bwd train: the scan kernel holds {blocks} "
+          f"CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+          f"{min(ctas, blocks * sms)} of its {ctas} CTAs resident at once "
+          f"on {sms} SMs", flush=True)
     by_kernel = ", ".join(f"{k} {t:.4f}" for k, t in parts.items())
     print(f"[kernels] rglru_scan_bwd train B{b} S{s} C{c}: kernel {ms:.4f} "
           f"ms on the device, plain {plain_ms:.4f} ms (back to back), "

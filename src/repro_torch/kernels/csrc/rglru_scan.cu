@@ -43,6 +43,11 @@
 //     after a second barrier, out by one TMA store, which leaves out rows
 //     past S and channels past C.  tools/rglru_phases.py times it against
 //     a 2-byte store of every step from every thread ("plain stores").
+//   * The training path asks for the fp32 state entering each chunk
+//     (entering, [B, ceil(S / 64), C]), which the backward
+//     (csrc/rglru_scan_bwd.cu) would otherwise rebuild: the last warp
+//     stores the state it enters each chunk with, one coalesced store a
+//     chunk.  It changes no other output's bits.
 //   * Repeatable: a fixed order and no atomics, so two launches on one
 //     input give bitwise equal outputs; nothing needs a reset between
 //     launches.
@@ -51,8 +56,9 @@
 // below fp32's range either way.
 //
 // Layout: x [B, S, C] bf16, gate_a and gate_i [B, S, C] fp32, log_a [C]
-// fp32, h0 (optional) and state [B, C] fp32, h [B, S, C] bf16, all
-// contiguous.  Grid (ceil(C / 32), B), 256 threads.
+// fp32, h0 (optional) and state [B, C] fp32, h [B, S, C] bf16, entering
+// (optional) [B, ceil(S / 64), C] fp32, all contiguous.  Grid
+// (ceil(C / 32), B), 256 threads.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -102,6 +108,7 @@ struct Args {
     const float* h0;
     bf16* h;
     float* state;
+    float* entering;                    // null: not asked for
     int S, C;
     float c;
 };
@@ -195,6 +202,8 @@ rglru_scan_kernel(Args a, const __grid_constant__ CUtensorMap tx,
                 tma_chunk(smem, bars, &tx, &tga, &tgi, c + STAGES, c0, b);
 
         float h = c == 0 ? h_last : carry[(c % 2) * TILE + lane];
+        if (a.entering && warp == WARPS - 1 && live)
+            a.entering[((long long)b * nc + c) * C + ch] = h;
 #pragma unroll
         for (int j = 0; j < WARPS - 1; ++j) {
             if (j < warp) {
@@ -285,9 +294,9 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type
 
 extern "C" int rglru_scan_fwd(const void* x, const void* gate_a,
                               const void* gate_i, const void* log_a,
-                              const void* h0, void* h, void* state, int B,
-                              int S, int C, float c_const, int device,
-                              void* stream) {
+                              const void* h0, void* h, void* state,
+                              void* entering, int B, int S, int C,
+                              float c_const, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (B <= 0 || C <= 0 || S < 0) return (int)cudaErrorInvalidValue;
@@ -312,7 +321,8 @@ extern "C" int rglru_scan_fwd(const void* x, const void* gate_a,
     Args a{static_cast<const bf16*>(x), static_cast<const float*>(gate_a),
            static_cast<const float*>(gate_i), static_cast<const float*>(log_a),
            static_cast<const float*>(h0), static_cast<bf16*>(h),
-           static_cast<float*>(state), S, C, c_const};
+           static_cast<float*>(state), static_cast<float*>(entering), S, C,
+           c_const};
     kernel<<<dim3((C + TILE - 1) / TILE, B), THREADS, Layout::bytes,
              reinterpret_cast<cudaStream_t>(stream)>>>(a, tx, tga, tgi, th);
     return (int)cudaGetLastError();

@@ -125,31 +125,41 @@ class SSDScan(torch.autograd.Function):
 
 class RGLRUScan(torch.autograd.Function):
     """The RG-LRU scan with the backward of XLA's autodiff of
-    ``repro.kernels.ops.rglru``: the forward saves its inputs; the
-    backward recomputes the states.  ``kernel`` picks the CUDA forward and
-    backward kernels, else their plain versions.  A final state that
-    nothing uses has no cotangent, and without an initial state none is
-    returned."""
+    ``repro.kernels.ops.rglru``: the forward saves its inputs and, on the
+    kernel path, the fp32 state entering each chunk (the plain path saves
+    None there); the backward recomputes the states from them.
+    ``kernel`` picks the CUDA forward and backward kernels, else their
+    plain versions.  A final state that nothing uses has no cotangent,
+    and without an initial state none is returned."""
 
     @staticmethod
     def forward(ctx, x, gate_a, gate_i, log_a, initial_state, c, kernel):
-        fwd = rglru_cuda if kernel else rglru_plain
-        h, state = fwd(x, gate_a, gate_i, log_a, initial_state=initial_state,
-                       c=c)
-        ctx.save_for_backward(x, gate_a, gate_i, log_a, initial_state)
+        entering = None
+        if kernel:
+            h, state, entering = rglru_cuda(
+                x, gate_a, gate_i, log_a, initial_state=initial_state, c=c,
+                entering=True)
+        else:
+            h, state = rglru_plain(x, gate_a, gate_i, log_a,
+                                   initial_state=initial_state, c=c)
+        ctx.save_for_backward(x, gate_a, gate_i, log_a, initial_state,
+                              entering)
         ctx.c, ctx.kernel = c, kernel
         ctx.set_materialize_grads(False)
         return h, state
 
     @staticmethod
     def backward(ctx, dh, dstate):
-        x, gate_a, gate_i, log_a, h0 = ctx.saved_tensors
+        x, gate_a, gate_i, log_a, h0, entering = ctx.saved_tensors
         if dh is None:
             dh = torch.zeros_like(x)
-        bwd = rglru_bwd_cuda if ctx.kernel else rglru_bwd_plain
-        grads = bwd(x, gate_a, gate_i, log_a, dh.contiguous(),
-                    None if dstate is None else dstate.contiguous(),
-                    initial_state=h0, c=ctx.c)
+        args = (x, gate_a, gate_i, log_a, dh.contiguous(),
+                None if dstate is None else dstate.contiguous())
+        if ctx.kernel:
+            grads = rglru_bwd_cuda(*args, entering=entering,
+                                   initial_state=h0, c=ctx.c)
+        else:
+            grads = rglru_bwd_plain(*args, initial_state=h0, c=ctx.c)
         return (*grads, None, None)
 
 

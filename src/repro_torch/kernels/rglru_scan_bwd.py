@@ -8,8 +8,11 @@ cotangent ``dh`` of h and (optionally) ``dstate`` of the final state, it
 returns ``(dx, d gate_a, d gate_i, d log_a, d initial_state)``.  Its
 wrapper takes CUDA tensors in the forward's layout (x and dh ``[B, S, C]``
 bf16, the gates ``[B, S, C]`` fp32, ``log_a`` ``[C]`` fp32, the initial
-state and dstate ``[B, C]`` fp32), checks them, allocates the gradients
-and the kernel's scratch and launches on PyTorch's current stream.  It
+state and dstate ``[B, C]`` fp32) and the fp32 states entering each chunk
+that the forward kernel returns with ``entering=True``
+(:func:`repro_torch.kernels.rglru_scan.rglru_cuda`), checks them,
+allocates the gradients and the kernel's scratch and launches on
+PyTorch's current stream.  It
 raises on anything the kernel does not take; it never falls back to the
 plain version.  One call of the wrapper is one launch of the kernel (its
 two CUDA kernels: the scan, the sum of d log_a over the batch).
@@ -36,9 +39,10 @@ a step: its term of dL_t is dropped, and every gradient stays finite.
 
 The kernel's launch geometry, mirrored here from the source for the
 tests: one CTA per (batch, tile of ``TILE`` channels) walks its chunks of
-``CHUNK`` steps twice, forward to store the fp32 state entering each
-chunk and backward to form the gradients, its ``WARPS`` warps taking
-sub-segments of ``CHUNK // WARPS`` steps.
+``CHUNK`` steps once, from the last, starting each from the forward's
+entering state, its ``WARPS`` warps taking sub-segments of ``CHUNK //
+WARPS`` steps; each chunk's inputs arrive in one of ``STAGES`` shared-
+memory buffers, and its gradients leave from the same buffer.
 """
 
 from __future__ import annotations
@@ -51,8 +55,8 @@ import torch
 
 from . import _build
 
-# csrc/rglru_scan_bwd.cu: T, TILE, WARPS (the forward's).
-CHUNK, TILE, WARPS = 64, 32, 8
+# csrc/rglru_scan_bwd.cu: T, TILE, WARPS (the forward's) and STAGES.
+CHUNK, TILE, WARPS, STAGES = 64, 32, 8, 2
 
 
 def rglru_bwd_plain(x, gate_a, gate_i, log_a, dh, dstate=None, *,
@@ -104,15 +108,30 @@ def rglru_bwd_plain(x, gate_a, gate_i, log_a, dh, dstate=None, *,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rglru_scan_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rglru_scan_bwd.argtypes = [p] * 14 + [i, i, i, ctypes.c_float, i, p]
+    lib.rglru_scan_bwd.argtypes = [p] * 13 + [i, i, i, ctypes.c_float, i, p]
     lib.rglru_scan_bwd.restype = ctypes.c_int
+    lib.rglru_scan_bwd_occupancy.argtypes = [i, ctypes.POINTER(i)]
+    lib.rglru_scan_bwd_occupancy.restype = ctypes.c_int
     return lib
 
 
+def occupancy(tma: bool = True) -> int:
+    """The scan kernel's CTAs an SM holds at once (CUDA's occupancy
+    calculator), of its TMA instantiation or the other."""
+    lib, blocks = _lib(), ctypes.c_int(0)
+    _build.check(lib, lib.rglru_scan_bwd_occupancy(int(tma),
+                                                    ctypes.byref(blocks)),
+                 "rglru_scan_bwd_occupancy")
+    return blocks.value
+
+
 def rglru_bwd_cuda(x, gate_a, gate_i, log_a, dh, dstate=None, *,
+                   entering: torch.Tensor,
                    initial_state: Optional[torch.Tensor] = None,
                    c: float = 8.0) -> Tuple:
-    """Launch the CUDA kernel.  Returns ``(dx`` bf16, ``d gate_a``, ``d
+    """Launch the CUDA kernel.  ``entering`` is the forward's fp32 state
+    entering each chunk (``rglru_cuda(..., entering=True)`` on the same
+    inputs and initial state).  Returns ``(dx`` bf16, ``d gate_a``, ``d
     gate_i``, ``d log_a`` and ``d initial_state`` fp32, the last None
     without an initial state)."""
     if x.dim() != 3:
@@ -125,7 +144,8 @@ def rglru_bwd_cuda(x, gate_a, gate_i, log_a, dh, dstate=None, *,
             ("gate_a", gate_a, torch.float32, (B, S, C)),
             ("gate_i", gate_i, torch.float32, (B, S, C)),
             ("log_a", log_a, torch.float32, (C,)),
-            ("dh", dh, torch.bfloat16, (B, S, C))]
+            ("dh", dh, torch.bfloat16, (B, S, C)),
+            ("entering", entering, torch.float32, (B, -(-S // CHUNK), C))]
     if dstate is not None:
         args.append(("dstate", dstate, torch.float32, (B, C)))
     if initial_state is not None:
@@ -143,9 +163,7 @@ def rglru_bwd_cuda(x, gate_a, gate_i, log_a, dh, dstate=None, *,
         if initial_state is not None else None
     if B == 0 or C == 0:
         return dx, dga, dgi, dla.zero_(), dh0
-    nc = -(-S // CHUNK)
-    # the fp32 state entering each chunk, and each batch row's d log_a
-    entering = torch.empty((B, nc, C), dtype=torch.float32, device=dev)
+    # each batch row's d log_a
     partial = torch.empty((B, C), dtype=torch.float32, device=dev)
 
     def ptr(t):
@@ -153,9 +171,9 @@ def rglru_bwd_cuda(x, gate_a, gate_i, log_a, dh, dstate=None, *,
 
     lib = _lib()
     status = lib.rglru_scan_bwd(
-        ptr(x), ptr(gate_a), ptr(gate_i), ptr(log_a), ptr(initial_state),
-        ptr(dh), ptr(dstate), ptr(dx), ptr(dga), ptr(dgi), ptr(dla),
-        ptr(dh0), ptr(entering), ptr(partial), B, S, C, float(c), dev.index,
+        ptr(x), ptr(gate_a), ptr(gate_i), ptr(log_a), ptr(dh), ptr(dstate),
+        ptr(entering), ptr(dx), ptr(dga), ptr(dgi), ptr(dla), ptr(dh0),
+        ptr(partial), B, S, C, float(c), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "rglru_scan_bwd")
     rglru_bwd_cuda.launches += 1

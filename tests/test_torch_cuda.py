@@ -282,13 +282,18 @@ def _rglru_inputs(gen, B, S, C, init, decay=1.0):
 
 @pytest.mark.parametrize("case", RGLRU, ids=str)
 def test_rglru_kernel_matches_plain(case, gen):
+    """h and the final state within SCAN_TOL of the plain scan, and
+    bitwise the same with the entering states asked for, which are within
+    SCAN_TOL of the plain forward's; two launches bitwise equal."""
     x, ga, gi, la, h0 = _rglru_inputs(gen, *case)
     h, state = rglru_cuda(x, ga, gi, la, initial_state=h0)
-    again = rglru_cuda(x, ga, gi, la, initial_state=h0)
-    want_h, want_state = rglru_plain(x.float(), ga, gi, la, initial_state=h0)
+    again = rglru_cuda(x, ga, gi, la, initial_state=h0, entering=True)
+    want_h, want_state, want_entering = rglru_plain(
+        x.float(), ga, gi, la, initial_state=h0, entering=True)
     torch.cuda.synchronize()
     _close(h, want_h, SCAN_TOL)
     _close(state, want_state, SCAN_TOL)
+    _close(again[2], want_entering, SCAN_TOL)
     assert torch.equal(h, again[0]) and torch.equal(state, again[1]), \
         "two launches on one input differ"
 
@@ -812,6 +817,9 @@ RGLRU_BWD = [
     (4, 1024, 2560, False, False, 1.0, 1.0),     # recurrentgemma training
     (2, 130, 100, True, True, 1.0, 1.0),         # ragged C and S
     (3, 77, 35, False, True, 1.0, 1.0),
+    # TMA route with ragged edges: C a multiple of 8 but not of the tile,
+    # S not a multiple of the chunk
+    (2, 333, 200, True, True, 1.0, 1.0),
     (2, 0, 256, True, True, 1.0, 1.0),           # S 0
     (2, 300, 256, True, True, 100.0, 1.0),       # strong decay
     (2, 300, 256, True, True, 1.0, 1e-3),        # gates near 0: beta small
@@ -849,8 +857,11 @@ def test_rglru_backward_kernel_matches_plain(case, gen):
     )
 
     x, ga, gi, la, dh, ds, h0 = _rglru_bwd_inputs(gen, *case)
-    got = rglru_bwd_cuda(x, ga, gi, la, dh, ds, initial_state=h0)
-    again = rglru_bwd_cuda(x, ga, gi, la, dh, ds, initial_state=h0)
+    entering = rglru_cuda(x, ga, gi, la, initial_state=h0, entering=True)[2]
+    got = rglru_bwd_cuda(x, ga, gi, la, dh, ds, entering=entering,
+                         initial_state=h0)
+    again = rglru_bwd_cuda(x, ga, gi, la, dh, ds, entering=entering,
+                           initial_state=h0)
     want = rglru_bwd_plain(x.float(), ga, gi, la, dh, ds, initial_state=h0)
     torch.cuda.synchronize()
     assert (got[4] is None) == (h0 is None)
@@ -866,6 +877,18 @@ def test_rglru_backward_kernel_matches_plain(case, gen):
         limit = max(RGLRU_BWD_REL_L2, 2 * _rel_l2(w.to(g.dtype), w)) \
             if g.dtype == torch.bfloat16 else RGLRU_BWD_F32_REL_L2
         assert _rel_l2(g, w) <= limit, (name, _rel_l2(g, w), limit)
+
+
+def test_rglru_backward_holds_every_cta_of_the_training_shape(gen):
+    """The scan kernel's TMA instantiation (the training shape's) runs
+    three CTAs an SM, so recurrentgemma-2b's 320 (B 4, 2560 channels in
+    tiles of 32) are resident at once on an H100's 132 SMs."""
+    from repro_torch.kernels import rglru_scan_bwd as rb
+
+    blocks = rb.occupancy(tma=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert blocks >= 3, blocks
+    assert blocks * sms >= 4 * 2560 // rb.TILE
 
 
 def test_rglru_under_grad_on_the_card_matches_the_plain_backward(gen):

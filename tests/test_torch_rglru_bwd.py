@@ -9,9 +9,11 @@ float32 every gradient (x, both gates, log_a, the initial state) agrees
 within 1e-4 relative L2: the same formula summed in another order.  Where
 1 - exp(2 L) <= 0 the port takes the derivative of beta as 0 and the
 reference's autodiff gives inf or NaN (``ROADMAP.md`` C4); a JAX scan
-written with that rule holds the port there.  The CUDA kernel itself
-runs only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``);
-here its geometry is held to the source.
+written with that rule holds the port there.  The fp32 states entering
+each chunk, which the forward hands the backward kernel, are held to the
+reference's states.  The CUDA kernel itself runs only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``); here its geometry is
+held to the source.
 """
 
 import re
@@ -112,6 +114,40 @@ def test_plain_backward_matches_jax_vjp(case, backend):
         assert _rel_l2(g, w) <= F32_REL_L2, (name, _rel_l2(g, w))
 
 
+@pytest.mark.parametrize("case", [
+    (2, 200, 12, True, False, 1.0, 1.0),    # ragged S, an initial state
+    (1, 128, 8, False, False, 1.0, 1.0),    # whole chunks, from zeros
+    (2, 70, 5, True, False, 100.0, 1.0),    # strong decay, ragged C
+    (2, 0, 6, True, False, 1.0, 1.0),       # S 0: no chunk
+], ids=str)
+def test_plain_entering_states_match_the_reference(case):
+    """rglru_plain(entering=True), the forward chunk by chunk: the state
+    entering chunk k is the JAX reference's (``backend="ref"``) fp32 h at
+    step 64 k - 1, and the initial state (or zeros) at chunk 0, within
+    1e-6 relative L2; h and the final state are bitwise those without
+    it."""
+    x, ga, gi, la, _, _, h0 = _inputs(case, 600 + case[1])
+    B, S, C = x.shape
+    t = [None if a is None else torch.from_numpy(a)
+         for a in (x, ga, gi, la, h0)]
+    h, state, entering = rglru_plain(*t[:4], initial_state=t[4],
+                                     entering=True)
+    want_h, want_state = rglru_plain(*t[:4], initial_state=t[4])
+    assert torch.equal(h, want_h) and torch.equal(state, want_state)
+    nc = -(-S // rb.CHUNK)
+    assert entering.shape == (B, nc, C) and entering.dtype == torch.float32
+    ref_h, _ = jops.rglru(*(jnp.asarray(a) for a in (x, ga, gi, la)),
+                          initial_state=None if h0 is None
+                          else jnp.asarray(h0), backend="ref")
+    ref_h = np.asarray(ref_h)
+    first = h0 if h0 is not None else np.zeros((B, C), np.float32)
+    want = np.stack([first] + [ref_h[:, k * rb.CHUNK - 1]
+                               for k in range(1, nc)], 1)[:, :nc]
+    if nc:
+        assert _rel_l2(entering.numpy(), want) <= 1e-6
+        assert np.array_equal(entering[:, 0].numpy(), first)
+
+
 def test_empty_sequence_passes_the_state_cotangent_through():
     """S 0: no step, every sequence gradient empty, d log_a zero and the
     initial state's gradient the final state's cotangent."""
@@ -170,8 +206,9 @@ def test_rule_where_beta_is_zero():
 @pytest.mark.parametrize("init", [False, True], ids=["zero", "init"])
 def test_ops_rglru_under_grad_takes_the_plain_backward(init):
     """Under grad, ops.rglru on CPU tensors goes through RGLRUScan: its
-    forward is bitwise the plain scan's (and the same without grad) and
-    its gradients are bitwise the plain backward's; no kernel launches."""
+    forward is bitwise the plain scan's (and the same without grad), it
+    saves no entering states (None: only the kernels use them) and its
+    gradients are bitwise the plain backward's; no kernel launches."""
     arrays = _inputs((2, 20, 6, init, True, 1.0, 1.0), 21)
     x, ga, gi, la, dh, ds, h0 = (None if a is None else torch.from_numpy(a)
                                  for a in arrays)
@@ -179,6 +216,7 @@ def test_ops_rglru_under_grad_takes_the_plain_backward(init):
     h0g = h0.clone().requires_grad_() if h0 is not None else None
     ops.reset_launch_counts()
     h, state = ops.rglru(*leaves, initial_state=h0g)
+    assert h.grad_fn.saved_tensors[-1] is None
     torch.autograd.backward((h, state), (dh, ds))
     want_h, want_state = rglru_plain(x, ga, gi, la, initial_state=h0)
     assert torch.equal(h.detach(), want_h)
@@ -309,15 +347,20 @@ def test_chunked_composition_matches_the_plain_backward(case):
 
 
 def test_geometry_mirrors_the_kernel_source():
-    """CHUNK, TILE and WARPS equal the constants of
-    ``csrc/rglru_scan_bwd.cu`` (the forward's geometry), and the source
-    uses no atomic operation: two launches give the same bits."""
+    """CHUNK, TILE, WARPS and STAGES equal the constants of
+    ``csrc/rglru_scan_bwd.cu`` (CHUNK, TILE and WARPS also the forward's
+    in ``csrc/rglru_scan.cu``, whose entering states the backward reads),
+    and the source uses no atomic operation: two launches give the same
+    bits."""
     src = (_build.CSRC / "rglru_scan_bwd.cu").read_text()
+    fwd = (_build.CSRC / "rglru_scan.cu").read_text()
 
-    def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    def const(name, text=src):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
 
-    assert (const("T"), const("TILE"), const("WARPS")) == \
+    assert (const("T"), const("TILE"), const("WARPS"), const("STAGES")) == \
+        (rb.CHUNK, rb.TILE, rb.WARPS, rb.STAGES)
+    assert (const("T", fwd), const("TILE", fwd), const("WARPS", fwd)) == \
         (rb.CHUNK, rb.TILE, rb.WARPS)
     assert not re.search(r"\batomic[A-Z]\w*\(|\batom\.|\bred\.", src)
 
@@ -326,8 +369,10 @@ def test_wrapper_refuses_cpu_tensors():
     arrays = _inputs((1, 8, 4, False, False, 1.0, 1.0), 41)
     x, ga, gi, la, dh, _, _ = (None if a is None else torch.from_numpy(a)
                                for a in arrays)
+    entering = torch.zeros((1, 1, 4))
     with pytest.raises(ValueError, match="CUDA"):
-        rb.rglru_bwd_cuda(x.bfloat16(), ga, gi, la, dh.bfloat16())
+        rb.rglru_bwd_cuda(x.bfloat16(), ga, gi, la, dh.bfloat16(),
+                          entering=entering)
     assert rb.rglru_bwd_cuda.launches == 0
 
 

@@ -164,12 +164,16 @@ def main() -> None:
     libs = {}
     for name in names:
         lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
-        lib.rglru_scan_fwd.argtypes = [p] * 7 + [i] * 3 + [ctypes.c_float,
-                                                           i, p]
-        libs[name] = lib
+        # A source before the optional entering states takes one pointer
+        # fewer.
+        source = args.baseline if name == "baseline" else OUT / "phases.cu"
+        ptrs = 8 if "void* entering" in source.read_text() else 7
+        lib.rglru_scan_fwd.argtypes = [p] * ptrs + [i] * 3 + [
+            ctypes.c_float, i, p]
+        libs[name] = (lib, ptrs)
     print(f"[rglru_phases] CTAs an SM holds: TMA route "
-          f"{libs['full'].blocks_per_sm(1)}, plain loads "
-          f"{libs['full'].blocks_per_sm(0)}", flush=True)
+          f"{libs['full'][0].blocks_per_sm(1)}, plain loads "
+          f"{libs['full'][0].blocks_per_sm(0)}", flush=True)
     stream = torch.cuda.current_stream().cuda_stream
     for label, (B, S, C) in SHAPES.items():
         copies = [((randn(B, S, C) * 0.5).to(torch.bfloat16),
@@ -179,7 +183,7 @@ def main() -> None:
                   for _ in range(-(-100_000_000 // (B * S * C * 10)))]
         h = torch.empty((B, S, C), dtype=torch.bfloat16, device="cuda")
         state = torch.empty((B, C), device="cuda")
-        for name, lib in libs.items():
+        for name, (lib, ptrs) in libs.items():
             turn = [0]
 
             def run():
@@ -187,8 +191,9 @@ def main() -> None:
                 turn[0] += 1
                 status = lib.rglru_scan_fwd(
                     x.data_ptr(), ga.data_ptr(), gi.data_ptr(), la.data_ptr(),
-                    None, h.data_ptr(), state.data_ptr(), B, S, C, 8.0,
-                    x.device.index, stream)
+                    None, h.data_ptr(), state.data_ptr(),
+                    *[None] * (ptrs - 7), B, S, C, 8.0, x.device.index,
+                    stream)
                 if status:
                     raise SystemExit(f"{name}: launch failed with CUDA error "
                                      f"{status}")
