@@ -493,8 +493,11 @@ def time_flash_bwd(gen: torch.Generator, max_abs_err: float, name, b, sq,
         mask_for,
     )
     from repro_torch.kernels.flash_attention_bwd import (
+        WIDE,
         flash_attention_bwd_cuda,
         flash_attention_bwd_plain,
+        wide_ctas,
+        wide_splits,
     )
 
     def randn(*shape):
@@ -547,6 +550,13 @@ def time_flash_bwd(gen: torch.Generator, max_abs_err: float, name, b, sq,
     print(f"[kernels] flash_attention_bwd {name}: device ms per call by "
           f"CUDA kernel (torch.profiler, 10 calls): "
           f"{by_kernel or 'not measured'}", flush=True)
+    if d >= WIDE:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = wide_splits(b, sq, sk, h, kv, kind, window, off, sms=sms)
+        print(f"[kernels] flash_attention_bwd {name}: CTAs an SM (dK/dV, "
+              f"dQ) {wide_ctas(torch.device('cuda', 0))}; dK/dV in "
+              f"{splits} head slices, {kv * splits * b * -(-sk // 64)} CTAs "
+              f"on {sms} SMs", flush=True)
     return dict(shape=f"B{b} S{sq} H{h} KV{kv} D{d} {kind}",
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)

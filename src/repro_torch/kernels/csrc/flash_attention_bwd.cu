@@ -655,39 +655,80 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 // At D = Dv = 256 the split-step design above fits neither registers nor
 // shared memory: a thread of it holds dK and dV (256 fp32) beside S^T and
 // dP^T, and K, V and a four-stage ring of Q and dO take 323 KB.  Here the
-// two warpgroups of a CTA work on the same step instead: warpgroup 0 forms
-// S^T = K Q^T and P^T, hands P^T (fp32) to warpgroup 1 through shared
-// memory and accumulates dV += P^T dO; warpgroup 1 forms dP^T = V dO^T,
-// then dS^T from P^T, and accumulates dK += dS^T Q.  Both run the same
-// wgmma sequence on other operands, so each thread holds one 64 x 256
-// accumulator (128 fp32) and one 64 x 64 product (32).  The ring has two
-// stages of Q, dO, lse and delta; thread 0 refills the stage of step
-// i - 1 at step i's barrier, where both warpgroups are done with it.  P^T
-// is double buffered by step parity, so one barrier a step orders its
-// writes and reads.  Under MQA one CTA per (KV head, 64 keys) leaves most
-// SMs idle (64 CTAs at recurrentgemma-2b's training shape, key tile 0
-// walking 160 steps), so a CTA takes a slice of its group's heads instead
-// (`splits` slices, chosen by the wrapper so that the heaviest CTA walks
-// no more steps than the average SM): each slice writes fp32 parts of dK
-// and dV, and flash_bwd_dkdv_reduce_kernel sums them in slice order (one
-// slice included).  Mirrored by smem_bytes and wide_splits in
+// two warpgroups of a CTA work on the same steps instead: warpgroup 0
+// forms S^T = K Q^T and P^T, hands P^T (bf16, the values its own dV
+// product takes) to warpgroup 1 through shared memory and accumulates dV
+// += P^T dO; warpgroup 1 forms dP^T = V dO^T, then dS^T from P^T, and
+// accumulates dK += dS^T Q.  Each thread holds one 64 x 256 accumulator
+// (128 fp32) and one 64 x 64 product (32).  The ring has WKV_STAGES
+// stages of Q, dO, lse and delta (64.5 KB each; a third does not fit
+// beside K and V).
+//
+// What bounds it: the data the ring brings in.  Timed alone, the first
+// design's loads took 0.078 of its 0.135 ms at recurrentgemma-2b's
+// training shape (359 MB into the SMs, ~35 GB/s an SM), its products
+// with the ring 0.097, the rest being the exponentials and dS^T behind a
+// CTA-wide barrier a step.  Here the loop runs at the pace of its
+// products with the ring: the elementwise work hides behind the other
+// warpgroup's products.  Four stages of 32 queries loaded faster, but
+// their 64 x 32 products ran slower.  What the design does:
+// - No CTA-wide barrier in the loop: mbarriers decouple the warpgroups.
+//   P^T goes through HANDOFF buffers behind full and empty mbarriers
+//   (each warp arrives once); each stage's two halves have empty
+//   mbarriers of their own, which both warpgroups arrive on when done
+//   with the half: dO (warpgroup 1's dP^T, warpgroup 0's dV) frees before
+//   Q and the stats (warpgroup 0's S^T and lse, warpgroup 1's dS^T and
+//   dK), and each half is refilled as soon as it is free, dO by a thread
+//   of warpgroup 0 and Q by one of warpgroup 1.
+// - Each warpgroup issues a step's first product before it waits on the
+//   previous step's accumulation, so its two products run back to back.
+// - Under MQA one CTA per (KV head, 64 keys) leaves most SMs idle (64 CTAs
+//   at recurrentgemma-2b's training shape, key tile 0 walking 160 steps),
+//   so a CTA takes a slice of its group's heads instead (`splits` slices,
+//   chosen by the wrapper so that the heaviest CTA walks no more steps
+//   than the average SM): each slice writes fp32 parts of dK and dV, and
+//   flash_bwd_dkdv_reduce_kernel sums them in slice order (one slice
+//   included).  Summed inside a thread block cluster of the slices
+//   instead, through distributed shared memory, the sum took longer than
+//   the parts and the fourth launch, and clusters of 5 CTAs of this size
+//   fit only 22 at once on 132 SMs.
+// Mirrored by smem_bytes, wide_splits and slice_heads in
 // kernels/flash_attention_bwd.py.
-constexpr int WIDE_STAGES = 2;       // ring depth of both (256, 256) kernels
+constexpr int WKV_STAGES = 2;        // ring depth of the wide dK/dV kernel
+constexpr int HANDOFF = 2;           // P^T buffers between the warpgroups
+
+// Variants of the wide kernels that tools/flash_bwd_time.py --variants
+// times (built with -DFLASH_BWD_VARIANT=n; their gradients are wrong): 1
+// loads only, 2 products only (no exponential, mask or hand-off), 3 the
+// hand-off without its waits (each warpgroup takes its own product as P;
+// the dQ kernel hands nothing over, so it runs in full), 4 no sum (no
+// fp32 parts stored, no fourth launch).
+#ifndef FLASH_BWD_VARIANT
+#define FLASH_BWD_VARIANT 0
+#endif
+constexpr int VARIANT = FLASH_BWD_VARIANT;
+constexpr bool V_PRODUCTS = VARIANT != 1;
+constexpr bool V_SOFTMAX = VARIANT == 0 || VARIANT >= 3;
+constexpr bool V_HANDOFF = VARIANT == 0 || VARIANT == 4;
+constexpr bool V_SUM = VARIANT != 4;
 
 template <int D>
 struct KvWideLayout {
     static constexpr uint32_t k_bytes = BN * D * 2;
     static constexpr uint32_t q_bytes = BM * D * 2;
     static constexpr uint32_t st_bytes = 2 * BM * 4;
-    static constexpr uint32_t p_bytes = BN * BM * 4;
+    static constexpr uint32_t p_bytes = BN * BM * 2;     // bf16 P^T
     static constexpr uint32_t k_off = 0;
     static constexpr uint32_t v_off = k_off + k_bytes;
     static constexpr uint32_t q_off = v_off + k_bytes;
-    static constexpr uint32_t do_off = q_off + WIDE_STAGES * q_bytes;
-    static constexpr uint32_t st_off = do_off + WIDE_STAGES * q_bytes;
-    static constexpr uint32_t p_off = st_off + WIDE_STAGES * st_bytes;
-    static constexpr uint32_t bar_off = p_off + 2 * p_bytes;
-    static constexpr uint32_t bytes = bar_off + 8 * (1 + WIDE_STAGES) + 1024;
+    static constexpr uint32_t do_off = q_off + WKV_STAGES * q_bytes;
+    static constexpr uint32_t st_off = do_off + WKV_STAGES * q_bytes;
+    static constexpr uint32_t p_off = st_off + WKV_STAGES * st_bytes;
+    static constexpr uint32_t bar_off = p_off + HANDOFF * p_bytes;
+    // K/V's; per stage: full, Q's empty, dO's empty; per buffer: P's full
+    // and empty
+    static constexpr int n_bars = 1 + 3 * WKV_STAGES + 2 * HANDOFF;
+    static constexpr uint32_t bytes = bar_off + 8 * n_bars + 1024;
     static constexpr uint32_t stage_tx = 2 * q_bytes + st_bytes;
 };
 static_assert(KvWideLayout<256>::bytes <= 232448, "dK/dV (256, 256) fits");
@@ -703,6 +744,7 @@ flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
                            int Sk, int H, int KV, int mask_kind, int window,
                            int q_offset, float scale) {
     using L = KvWideLayout<D>;
+    constexpr int BOXES = D / BOX;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem =
         smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -711,10 +753,14 @@ flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
     bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
     bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
     float* Sts = reinterpret_cast<float*>(smem + L::st_off);
-    float* Ps = reinterpret_cast<float*>(smem + L::p_off);
+    uint32_t* Ps = reinterpret_cast<uint32_t*>(smem + L::p_off);
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
     uint64_t* kv_full = bars;
-    uint64_t* full = bars + 1;                 // [WIDE_STAGES]
+    uint64_t* full = bars + 1;                 // [WKV_STAGES] each
+    uint64_t* q_empty = full + WKV_STAGES;
+    uint64_t* do_empty = q_empty + WKV_STAGES;
+    uint64_t* p_full = do_empty + WKV_STAGES;  // [HANDOFF] each
+    uint64_t* p_empty = p_full + HANDOFF;
 
     const int hk = blockIdx.x / splits;
     const int split = blockIdx.x % splits;     // slice of the group's heads
@@ -727,6 +773,8 @@ flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
     const int tid = threadIdx.x;
     const int wg = tid / 128;
     const int ct = tid % 128;
+    const int warp = (tid / 32) % 4;
+    const int lane = tid % 32;
 
     // The steps, as in flash_bwd_dkdv_kernel: the query tiles that can see
     // a key of this tile, for each head of this CTA's slice, head-major.
@@ -743,37 +791,54 @@ flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
 
     if (tid == 0) {
         mbar_init(kv_full, 1);
-        for (int s = 0; s < WIDE_STAGES; ++s) mbar_init(full + s, 1);
+        for (int s = 0; s < WKV_STAGES; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(q_empty + s, 8);          // every warp of both groups
+            mbar_init(do_empty + s, 8);
+        }
+        for (int s = 0; s < HANDOFF; ++s) {
+            mbar_init(p_full + s, 4);           // every warp of one group
+            mbar_init(p_empty + s, 4);
+        }
         fence_barrier_init();
     }
     __syncthreads();
 
-    auto load_step = [&](int i) {
-        const int s = i % WIDE_STAGES;
+    // Step i's dO, behind the expected bytes of its whole stage, and its Q
+    // and stats; the two halves may come in either order.
+    auto load_do = [&](int i) {
+        const int s = i % WKV_STAGES;
         const int h = hk * G + g_lo + i / n_qt;
         const int m0 = (t_lo + i % n_qt) * BM;
         mbar_arrive_expect_tx(full + s, L::stage_tx);
 #pragma unroll
-        for (int c = 0; c < D / BOX; ++c) {
-            tma_load_4d(Qs + s * BM * D + c * BM * BOX, &tq, full + s,
-                        c * BOX, h, m0, b);
+        for (int c = 0; c < BOXES; ++c)
             tma_load_4d(dOs + s * BM * D + c * BM * BOX, &tdo, full + s,
                         c * BOX, h, m0, b);
-        }
+    };
+    auto load_q = [&](int i) {
+        const int s = i % WKV_STAGES;
+        const int h = hk * G + g_lo + i / n_qt;
+        const int m0 = (t_lo + i % n_qt) * BM;
+#pragma unroll
+        for (int c = 0; c < BOXES; ++c)
+            tma_load_4d(Qs + s * BM * D + c * BM * BOX, &tq, full + s,
+                        c * BOX, h, m0, b);
         tma_load_4d(Sts + s * 2 * BM, &tst, full + s, m0, 0, h, b);
     };
     if (tid == 0) {
         mbar_arrive_expect_tx(kv_full, 2 * L::k_bytes);
 #pragma unroll
-        for (int c = 0; c < D / BOX; ++c) {
+        for (int c = 0; c < BOXES; ++c) {
             tma_load_4d(Ks + c * BN * BOX, &tk, kv_full, c * BOX, hk, n0, b);
             tma_load_4d(Vs + c * BN * BOX, &tv, kv_full, c * BOX, hk, n0, b);
         }
-        for (int i = 0; i < min(n_steps, WIDE_STAGES); ++i) load_step(i);
+        for (int i = 0; i < min(n_steps, WKV_STAGES); ++i) {
+            load_do(i);
+            load_q(i);
+        }
     }
 
-    const int warp = (tid / 32) % 4;
-    const int lane = tid % 32;
     const float scale_log2 = scale * LOG2E;
     const int key0 = n0 + 16 * warp + lane / 4;
     const int col_in = 2 * (lane % 4);
@@ -784,77 +849,136 @@ flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     // The first product's A: K (S^T = K Q^T) or V (dP^T = V dO^T).
     const uint64_t a_desc = desc_sw128(wg == 0 ? Ks : Vs, 0, 1024);
+    // A fragments of P^T or dS^T, read by the step's second product until
+    // the next step's wait.
+    uint32_t xa[BM / 16][4];
     mbar_wait(kv_full, 0, POLLS);
     for (int i = 0; i < n_steps; ++i) {
-        const int s = i % WIDE_STAGES;
-        const uint32_t parity = (i / WIDE_STAGES) & 1;
+        const int s = i % WKV_STAGES;
+        const uint32_t parity = (i / WKV_STAGES) & 1;
+        const int hb = i % HANDOFF;
+        const uint32_t hparity = (i / HANDOFF) & 1;
         const int m0 = (t_lo + i % n_qt) * BM;
         const bf16* q_st = Qs + s * BM * D;
         const bf16* do_st = dOs + s * BM * D;
         const float* lse_st = Sts + s * 2 * BM;
         const float* dlt_st = lse_st + BM;
-        float* p_st = Ps + (i % 2) * BN * BM;
+        uint32_t* p_st = Ps + hb * (BN * BM / 2);
         mbar_wait(full + s, parity, POLLS);
+        __syncwarp();
 
-        // S^T or dP^T: keys x queries, 64 x 64.
+        // S^T or dP^T: keys x queries, 64 x 64; the wait also retires the
+        // previous step's dV or dK product.
         float x[BM / 2];
-        wgmma_fence();
-        wgmma_ss_tiles<D>(x, per_step(a_desc), BN * BOX * 2,
-                          desc_sw128(wg == 0 ? q_st : do_st, 0, 1024),
-                          BM * BOX * 2);
-        wgmma_commit();
-        wgmma_wait<0>();
+        if constexpr (V_PRODUCTS) {
+            wgmma_fence();
+            wgmma_ss_tiles<D>(x, per_step(a_desc), BN * BOX * 2,
+                              desc_sw128(wg == 0 ? q_st : do_st, 0, 1024),
+                              BM * BOX * 2);
+            wgmma_commit();
+            wgmma_wait<0>();
+        } else {
+#pragma unroll
+            for (int j = 0; j < BM / 2; ++j) x[j] = 0.f;
+        }
         fence_regs<BM / 2>(x);
+        fence_regs<D / 2>(acc);
+        __syncwarp();
+        // The stage of step i - 1, whose halves this step frees.
+        const int sp = (i + WKV_STAGES - 1) % WKV_STAGES;
+        const uint32_t was = ((i - 1) / WKV_STAGES) & 1;
+        const bool refill = i >= 1 && i - 1 + WKV_STAGES < n_steps;
         if (wg == 0) {
-            // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked;
-            // warpgroup 1 reads it in this thread's accumulator order.
-            const bool edge =
-                edge_tile(m0, n0, Sq, Sk, mask_kind, window, q_offset);
-#pragma unroll
-            for (int j = 0; j < BM / 2; ++j) {
-                const int col = 8 * (j / 4) + col_in + (j & 1);
-                float p = ex2(x[j] * scale_log2 - lse_st[col]);
-                if (edge) {
-                    const int key = key0 + ((j & 2) ? 8 : 0);
-                    const int row = m0 + col;
-                    const bool ok = (key < Sk) & (row < Sq) &
-                        visible(mask_kind, window, q_offset + row, key);
-                    p = ok ? p : 0.f;
+            // dV of step i - 1 is done, and warpgroup 1 took its dP^T
+            // before P^T: dO's half of that stage is free.
+            if (i >= 1) {
+                if (lane == 0) mbar_arrive(do_empty + sp);
+                if (ct == 0 && refill) {
+                    mbar_wait(do_empty + sp, was, POLLS);
+                    load_do(i - 1 + WKV_STAGES);
                 }
-                x[j] = p;
-                p_st[j * 128 + ct] = p;
             }
-        }
-        // P^T of step i is in place, and both warpgroups are done with
-        // step i - 1's stage: refill it with step i + 1.
-        named_barrier_sync(1, KV_THREADS);
-        if (tid == 0 && i >= 1 && i + 1 < n_steps) load_step(i + 1);
-        if (wg == 1) {
-            // dS^T = P^T (dP^T - delta), in place of dP^T.
+            // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked.
+            if constexpr (V_SOFTMAX) {
+                const bool edge =
+                    edge_tile(m0, n0, Sq, Sk, mask_kind, window, q_offset);
 #pragma unroll
-            for (int j = 0; j < BM / 2; ++j) {
-                const int col = 8 * (j / 4) + col_in + (j & 1);
-                x[j] = p_st[j * 128 + ct] * (x[j] - dlt_st[col]);
+                for (int j = 0; j < BM / 2; ++j) {
+                    const int col = 8 * (j / 4) + col_in + (j & 1);
+                    float p = ex2(x[j] * scale_log2 - lse_st[col]);
+                    if (edge) {
+                        const int key = key0 + ((j & 2) ? 8 : 0);
+                        const int row = m0 + col;
+                        const bool ok = (key < Sk) & (row < Sq) &
+                            visible(mask_kind, window, q_offset + row, key);
+                        p = ok ? p : 0.f;
+                    }
+                    x[j] = p;
+                }
             }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(q_empty + s);   // S^T and lse read
+            to_a<BM>(xa, x);
+            // P^T to warpgroup 1, each thread's pairs in its own column.
+            if constexpr (V_HANDOFF) {
+                if (i >= HANDOFF) mbar_wait(p_empty + hb, hparity ^ 1, POLLS);
+#pragma unroll
+                for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        p_st[(4 * kk + e) * 128 + ct] = xa[kk][e];
+                __syncwarp();
+                if (lane == 0) mbar_arrive(p_full + hb);
+            }
+        } else {
+            // dO of step i is read: its half of the stage is free for this
+            // warpgroup.  dK of step i - 1 is done: Q's half of that stage
+            // too, and warpgroup 0 read it before it handed over P^T.
+            if (lane == 0) mbar_arrive(do_empty + s);
+            if (i >= 1) {
+                if (lane == 0) mbar_arrive(q_empty + sp);
+                if (ct == 0 && refill) {
+                    mbar_wait(q_empty + sp, was, POLLS);
+                    load_q(i - 1 + WKV_STAGES);
+                }
+            }
+            // dS^T = P^T (dP^T - delta), in place of dP^T.
+            if constexpr (V_SOFTMAX) {
+                if constexpr (V_HANDOFF) mbar_wait(p_full + hb, hparity, POLLS);
+#pragma unroll
+                for (int j = 0; j < BM / 4; ++j) {
+                    const float2 p = V_HANDOFF ? unpack_bf16(p_st[j * 128 + ct])
+                                               : make_float2(x[2 * j], x[2 * j + 1]);
+                    const int col = 8 * (j / 2) + col_in;
+                    x[2 * j] = p.x * (x[2 * j] - dlt_st[col]);
+                    x[2 * j + 1] = p.y * (x[2 * j + 1] - dlt_st[col + 1]);
+                }
+                if constexpr (V_HANDOFF) {
+                    __syncwarp();
+                    if (lane == 0) mbar_arrive(p_empty + hb);
+                }
+            }
+            to_a<BM>(xa, x);
         }
-        uint32_t xa[BM / 16][4];
-        to_a<BM>(xa, x);
 
         // dV += P^T dO or dK += dS^T Q: dO and Q are [queries, width]
-        // with the width contiguous, MN-major B operands.
-        fence_regs<D / 2>(acc);
+        // with the width contiguous, MN-major B operands.  Not waited on
+        // here: the next step's first product goes in behind it.
+        if constexpr (V_PRODUCTS) {
+            __syncwarp();
 #pragma unroll
-        for (int kk = 0; kk < BM / 16; ++kk) fence_regs<4>(xa[kk]);
-        const uint64_t b_mn =
-            desc_sw128(wg == 0 ? do_st : q_st, BM * BOX * 2, 1024);
-        wgmma_fence();
+            for (int kk = 0; kk < BM / 16; ++kk) fence_regs<4>(xa[kk]);
+            const uint64_t b_mn =
+                desc_sw128(wg == 0 ? do_st : q_st, BM * BOX * 2, 1024);
+            wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BM / 16; ++kk)
-            wgmma_rs<D>(acc, xa[kk], desc_at(b_mn, kk * 16 * BOX * 2));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs<D / 2>(acc);
+            for (int kk = 0; kk < BM / 16; ++kk)
+                wgmma_rs<D>(acc, xa[kk], desc_at(b_mn, kk * 16 * BOX * 2));
+            wgmma_commit();
+        }
     }
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
 
     // This slice's fp32 part of dK or dV into part[wg == 0 ? 1 : 0, split,
     // b, key, hk, :] ([2, splits, B, Sk, KV, D]), summed over the slices
@@ -867,7 +991,7 @@ flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
             const int key = key0 + 8 * r;
-            if (key < Sk)
+            if (V_SUM && key < Sk)
                 *reinterpret_cast<float2*>(
                     out + (long long)key * KV * D + 8 * j + col_in) =
                     make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
@@ -903,29 +1027,50 @@ flash_bwd_dkdv_reduce_kernel(const float* __restrict__ part,
 }
 
 // ---------------------------------------------------- (256, 256): dQ
-// One CTA per (batch, head, 64 queries), 256 threads, no producer
-// warpgroup: warpgroup 0 forms S = Q K^T and P, which it hands to
-// warpgroup 1 (fp32) through shared memory; warpgroup 1 forms dP = dO V^T
-// and dS, which it stages as a bf16 wgmma operand; then each warpgroup
-// accumulates its half of dQ's columns, dQ[:, 128 w ..] += dS K[:, 128 w
-// ..], from shared memory (64 fp32 a thread).  Q and dO load once; K and
-// V through a two-stage ring that thread 0 refills as in the dK/dV kernel.
-// Two barriers a key tile: P in place, then dS.  Mirrored by smem_bytes
-// and dq_tiles_wide in kernels/flash_attention_bwd.py.
+// One CTA per (batch, head, 64 queries), 256 threads.  The two
+// warpgroups split each 64-key tile: warpgroup w takes keys 32w .. 32w +
+// 31 and computes, for all 64 queries, S = Q K_w^T, P, dP = dO V_w^T, dS
+// and dQ_w += dS K_w (dS from registers, 64 x 256 fp32 a thread).  So
+// neither waits for the other inside the loop, each one's exponentials
+// run while the other's products do, and no P or dS passes between them;
+// the two dQ_w are summed once at the end, warpgroup 0's plus warpgroup
+// 1's.
+//
+// What bounds it: the K/V ring.  Timed alone, the first design's loads
+// took 0.055 of its 0.107 ms: a key tile's K and V are 64 KB, two such
+// stages fit beside Q and dO, and a stage was refilled only once its
+// tile was done.  What the design does about it:
+// - K and V have rings of their own: V (read only by dP) WQ_V_STAGES
+//   deep, K (read by S and by dQ) WQ_K_STAGES deep, each refilled by one
+//   thread as soon as both warpgroups have released it, so V is loaded
+//   about a tile and a half ahead and K two.
+// - Each warpgroup issues the next tile's S and dP before it waits on
+//   this tile's dQ product.
+// Tried and dropped: each warpgroup forming all 64 keys of S or dP and
+// handing P and dS to the other (as the dK/dV kernel does) behind
+// mbarriers, with Q and dO in registers and a three-stage ring, took
+// 0.125 ms, 0.028 ms more than without its hand-offs; K and V multicast
+// to the 5 heads of a cluster moved nothing (the time follows the bytes
+// each SM takes in, not those L2 serves) and left 22 of 132 SMs idle.
+// Mirrored by smem_bytes and dq_tiles_wide in
+// kernels/flash_attention_bwd.py.
+constexpr int WQ_K_STAGES = 3;       // K ring of the wide dQ kernel
+constexpr int WQ_V_STAGES = 2;       // V ring of the wide dQ kernel
+
 template <int D>
 struct QWideLayout {
     static constexpr uint32_t q_bytes = BM * D * 2;
-    static constexpr uint32_t k_bytes = BN * D * 2;
-    static constexpr uint32_t ds_bytes = BM * BN * 2;
-    static constexpr uint32_t p_bytes = BM * BN * 4;
+    static constexpr uint32_t k_bytes = BN * D * 2;      // K or V of a tile
     static constexpr uint32_t q_off = 0;
     static constexpr uint32_t do_off = q_off + q_bytes;
     static constexpr uint32_t k_off = do_off + q_bytes;
-    static constexpr uint32_t v_off = k_off + WIDE_STAGES * k_bytes;
-    static constexpr uint32_t ds_off = v_off + WIDE_STAGES * k_bytes;
-    static constexpr uint32_t p_off = ds_off + ds_bytes;
-    static constexpr uint32_t bar_off = p_off + p_bytes;
-    static constexpr uint32_t bytes = bar_off + 8 * (1 + WIDE_STAGES) + 1024;
+    static constexpr uint32_t v_off = k_off + WQ_K_STAGES * k_bytes;
+    static constexpr uint32_t bar_off = v_off + WQ_V_STAGES * k_bytes;
+    // Q/dO's; per K stage full and empty; per V stage full and empty.
+    static constexpr int n_bars = 1 + 2 * WQ_K_STAGES + 2 * WQ_V_STAGES;
+    static constexpr uint32_t bytes = bar_off + 8 * n_bars + 1024;
+    // After the loop, warpgroup 1's fp32 dQ lies over the K stages.
+    static_assert(BM * D * 4 <= WQ_K_STAGES * k_bytes, "dQ part fits K's ring");
 };
 static_assert(QWideLayout<256>::bytes <= 232448, "dQ (256, 256) fits");
 
@@ -940,7 +1085,8 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
                          int Sk, int H, int KV, int mask_kind, int window,
                          int q_offset, float scale) {
     using L = QWideLayout<D>;
-    constexpr int HALF = D / 2;                // dQ columns a warpgroup
+    constexpr int KW = BN / 2;                 // keys a warpgroup
+    constexpr int BOXES = D / BOX;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem =
         smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -948,11 +1094,12 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
     bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
     bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
     bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-    bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds_off);
-    float* Ps = reinterpret_cast<float*>(smem + L::p_off);
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
     uint64_t* q_full = bars;
-    uint64_t* full = bars + 1;                 // [WIDE_STAGES]
+    uint64_t* k_full = bars + 1;                    // [WQ_K_STAGES] each
+    uint64_t* k_empty = k_full + WQ_K_STAGES;
+    uint64_t* v_full = k_empty + WQ_K_STAGES;       // [WQ_V_STAGES] each
+    uint64_t* v_empty = v_full + WQ_V_STAGES;
 
     const int h = blockIdx.x;
     const int b = blockIdx.y;
@@ -961,6 +1108,8 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
     const int tid = threadIdx.x;
     const int wg = tid / 128;
     const int ct = tid % 128;
+    const int warp = (tid / 32) % 4;
+    const int lane = tid % 32;
 
     // Key tiles that a row of this CTA sees (every tile of the range holds
     // a visible pair).
@@ -975,35 +1124,45 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
 
     if (tid == 0) {
         mbar_init(q_full, 1);
-        for (int s = 0; s < WIDE_STAGES; ++s) mbar_init(full + s, 1);
+        for (int s = 0; s < WQ_K_STAGES; ++s) {
+            mbar_init(k_full + s, 1);
+            mbar_init(k_empty + s, 8);          // every warp of both groups
+        }
+        for (int s = 0; s < WQ_V_STAGES; ++s) {
+            mbar_init(v_full + s, 1);
+            mbar_init(v_empty + s, 8);
+        }
         fence_barrier_init();
     }
     __syncthreads();
 
-    auto load_tile = [&](int i) {
-        const int s = i % WIDE_STAGES;
-        const int n0 = (t_lo + i) * BN;
-        mbar_arrive_expect_tx(full + s, 2 * L::k_bytes);
+    auto load_k = [&](int i) {
+        const int s = i % WQ_K_STAGES;
+        mbar_arrive_expect_tx(k_full + s, L::k_bytes);
 #pragma unroll
-        for (int c = 0; c < D / BOX; ++c) {
-            tma_load_4d(Ks + s * BN * D + c * BN * BOX, &tk, full + s,
-                        c * BOX, hk, n0, b);
-            tma_load_4d(Vs + s * BN * D + c * BN * BOX, &tv, full + s,
-                        c * BOX, hk, n0, b);
-        }
+        for (int c = 0; c < BOXES; ++c)
+            tma_load_4d(Ks + s * BN * D + c * BN * BOX, &tk, k_full + s,
+                        c * BOX, hk, (t_lo + i) * BN, b);
+    };
+    auto load_v = [&](int i) {
+        const int s = i % WQ_V_STAGES;
+        mbar_arrive_expect_tx(v_full + s, L::k_bytes);
+#pragma unroll
+        for (int c = 0; c < BOXES; ++c)
+            tma_load_4d(Vs + s * BN * D + c * BN * BOX, &tv, v_full + s,
+                        c * BOX, hk, (t_lo + i) * BN, b);
     };
     if (tid == 0 && n_tiles > 0) {
         mbar_arrive_expect_tx(q_full, 2 * L::q_bytes);
 #pragma unroll
-        for (int c = 0; c < D / BOX; ++c) {
+        for (int c = 0; c < BOXES; ++c) {
             tma_load_4d(Qs + c * BM * BOX, &tq, q_full, c * BOX, h, m0, b);
             tma_load_4d(dOs + c * BM * BOX, &tdo, q_full, c * BOX, h, m0, b);
         }
-        for (int i = 0; i < min(n_tiles, WIDE_STAGES); ++i) load_tile(i);
+        for (int i = 0; i < min(n_tiles, WQ_K_STAGES); ++i) load_k(i);
+        for (int i = 0; i < min(n_tiles, WQ_V_STAGES); ++i) load_v(i);
     }
 
-    const int warp = (tid / 32) % 4;
-    const int lane = tid % 32;
     const float scale_log2 = scale * LOG2E;
     const int row0 = m0 + 16 * warp + lane / 4;
     const int col_in = 2 * (lane % 4);
@@ -1017,94 +1176,170 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
         dlt[r] = row < Sq ? st_h[Sq_pad + row] : 0.f;
     }
 
-    float acc[HALF / 2];
+    // dQ over this warpgroup's keys, 64 queries x D.
+    float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < HALF / 2; ++i) acc[i] = 0.f;
-    // The first product's A: Q (S = Q K^T) or dO (dP = dO V^T).
-    const uint64_t a_desc = desc_sw128(wg == 0 ? Qs : dOs, 0, 1024);
-    const uint64_t ds_desc = desc_sw128(dSs, 0, 1024);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // The zeros are in place before the first product is issued: a write
+    // of an accumulator while a product is in flight makes ptxas
+    // serialize the kernel's wgmma.
+    fence_regs<D / 2>(acc);
+    const uint64_t q_desc = desc_sw128(Qs, 0, 1024);
+    const uint64_t do_desc = desc_sw128(dOs, 0, 1024);
+    // This warpgroup's 32 keys start 32 rows (4 KB) into each box of K/V.
+    const uint32_t key_off = wg * KW * 128;
 
-    if (n_tiles > 0) mbar_wait(q_full, 0, POLLS);
-    for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % WIDE_STAGES;
-        const uint32_t parity = (i / WIDE_STAGES) & 1;
-        const int n0 = (t_lo + i) * BN;
-        const bf16* k_st = Ks + s * BN * D;
-        const bf16* v_st = Vs + s * BN * D;
-        mbar_wait(full + s, parity, POLLS);
-
-        // S or dP: queries x keys, 64 x 64.
-        float x[BN / 2];
+    // S = Q K_w^T and dP = dO V_w^T of tile i (64 x 32 each), written only
+    // by the products (a write of an accumulator in flight would serialize
+    // them).
+    float s_acc[KW / 2];
+    float dp_acc[KW / 2];
+    auto first = [&](int i) {
+        const int ks = i % WQ_K_STAGES;
+        const int vs = i % WQ_V_STAGES;
+        mbar_wait(k_full + ks, (i / WQ_K_STAGES) & 1, POLLS);
+        mbar_wait(v_full + vs, (i / WQ_V_STAGES) & 1, POLLS);
+        __syncwarp();
         wgmma_fence();
-        wgmma_ss_tiles<D>(x, per_step(a_desc), BM * BOX * 2,
-                          desc_sw128(wg == 0 ? k_st : v_st, 0, 1024),
-                          BN * BOX * 2);
+        wgmma_ss_tiles<D, KW>(
+            s_acc, per_step(q_desc), BM * BOX * 2,
+            desc_at(desc_sw128(Ks + ks * BN * D, 0, 1024), key_off),
+            BN * BOX * 2);
         wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs<BN / 2>(x);
-        if (wg == 0) {
+        wgmma_ss_tiles<D, KW>(
+            dp_acc, per_step(do_desc), BM * BOX * 2,
+            desc_at(desc_sw128(Vs + vs * BN * D, 0, 1024), key_off),
+            BN * BOX * 2);
+        wgmma_commit();
+    };
+    if (n_tiles > 0) mbar_wait(q_full, 0, POLLS);
+    if (V_PRODUCTS && n_tiles > 0) first(0);
+    // dS as A fragments, read by tile i's dQ product until the next wait.
+    uint32_t dsa[KW / 16][4];
+    for (int i = 0; i < n_tiles; ++i) {
+        const int ks = i % WQ_K_STAGES;
+        const int vs = i % WQ_V_STAGES;
+        const int n0 = (t_lo + i) * BN;
+        const int key0 = n0 + wg * KW;
+        float p[KW / 2];
+        float ds[KW / 2];
+        if constexpr (V_PRODUCTS) {
+            // S of tile i is done (issued before its dP and the previous
+            // tile's dQ product).
+            if (i == 0) wgmma_wait<1>();
+            else wgmma_wait<2>();
+            fence_regs<KW / 2>(s_acc);
+#pragma unroll
+            for (int j = 0; j < KW / 2; ++j) p[j] = s_acc[j];
+        } else {
+            mbar_wait(k_full + ks, (i / WQ_K_STAGES) & 1, POLLS);
+            mbar_wait(v_full + vs, (i / WQ_V_STAGES) & 1, POLLS);
+#pragma unroll
+            for (int j = 0; j < KW / 2; ++j) p[j] = 0.f;
+        }
+        // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked.
+        if constexpr (V_SOFTMAX) {
             const bool edge =
                 edge_tile(m0, n0, Sq, Sk, mask_kind, window, q_offset);
 #pragma unroll
-            for (int j = 0; j < BN / 2; ++j) {
+            for (int j = 0; j < KW / 2; ++j) {
                 const int r = (j >> 1) & 1;
-                float p = ex2(x[j] * scale_log2 - lse2[r]);
+                float v = ex2(p[j] * scale_log2 - lse2[r]);
                 if (edge) {
-                    const int key = n0 + 8 * (j / 4) + col_in + (j & 1);
+                    const int key = key0 + 8 * (j / 4) + col_in + (j & 1);
                     const int row = row0 + 8 * r;
                     const bool ok = (key < Sk) & (row < Sq) &
                         visible(mask_kind, window, q_offset + row, key);
-                    p = ok ? p : 0.f;
+                    v = ok ? v : 0.f;
                 }
-                Ps[j * 128 + ct] = p;
+                p[j] = v;
             }
         }
-        // P of tile i is in place, and both warpgroups are done with tile
-        // i - 1's stage: refill it with tile i + 1.
-        named_barrier_sync(1, KV_THREADS);
-        if (tid == 0 && i >= 1 && i + 1 < n_tiles) load_tile(i + 1);
-        if (wg == 1) {
-            // dS = P (dP - delta), as bf16 into a K-major wgmma tile.
+        // dP of tile i and the previous tile's dQ product are done: V's
+        // stage of tile i and K's of tile i - 1 are free for this
+        // warpgroup; one thread refills them with tiles i + WQ_V_STAGES
+        // and i - 1 + WQ_K_STAGES once the other warpgroup is done too.
+        if constexpr (V_PRODUCTS) {
+            wgmma_wait<0>();
+            fence_regs<KW / 2>(dp_acc);
+            fence_regs<D / 2>(acc);
 #pragma unroll
-            for (int j = 0; j < BN / 2; ++j)
-                x[j] = Ps[j * 128 + ct] * (x[j] - dlt[(j >> 1) & 1]);
-            stage_bf16<BN>(dSs, BM * BOX * 2, x, warp, lane);
-            fence_proxy_async();
+            for (int j = 0; j < KW / 2; ++j) ds[j] = dp_acc[j];
+        } else {
+#pragma unroll
+            for (int j = 0; j < KW / 2; ++j) ds[j] = 0.f;
         }
-        named_barrier_sync(1, KV_THREADS);
-
-        // dQ[:, half] += dS K[:, half]: K is [keys, D] with D contiguous, an
-        // MN-major B operand; this warpgroup's columns start at box
-        // HALF / 64 w.
-        fence_regs<HALF / 2>(acc);
-        const uint64_t k_mn =
-            desc_sw128(k_st + wg * (HALF / BOX) * BN * BOX, BN * BOX * 2, 1024);
-        wgmma_fence();
+        __syncwarp();
+        if (lane == 0) {
+            mbar_arrive(v_empty + vs);
+            if (i >= 1) mbar_arrive(k_empty + (i - 1) % WQ_K_STAGES);
+        }
+        if (tid == 0) {
+            if (i + WQ_V_STAGES < n_tiles) {
+                mbar_wait(v_empty + vs, (i / WQ_V_STAGES) & 1, POLLS);
+                load_v(i + WQ_V_STAGES);
+            }
+            if (i >= 1 && i - 1 + WQ_K_STAGES < n_tiles) {
+                mbar_wait(k_empty + (i - 1) % WQ_K_STAGES,
+                          ((i - 1) / WQ_K_STAGES) & 1, POLLS);
+                load_k(i - 1 + WQ_K_STAGES);
+            }
+        }
+        // dS = P (dP - delta), as A fragments.
+        if constexpr (V_SOFTMAX) {
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk)
-            wgmma_ss<HALF, 0, 1>(acc, desc_at(ds_desc, kk * 32),
-                                 desc_at(k_mn, kk * 16 * BOX * 2), 1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs<HALF / 2>(acc);
+            for (int j = 0; j < KW / 2; ++j)
+                ds[j] = p[j] * (ds[j] - dlt[(j >> 1) & 1]);
+        }
+        to_a<KW>(dsa, ds);
+        // The next tile's S and dP go in before this tile's dQ product.
+        if (V_PRODUCTS && i + 1 < n_tiles) first(i + 1);
+        // dQ += dS K_w: K is [keys, D] with D contiguous, an MN-major B
+        // operand; this warpgroup's keys start 32 rows into each box.
+        if constexpr (V_PRODUCTS) {
+            __syncwarp();
+#pragma unroll
+            for (int kk = 0; kk < KW / 16; ++kk) fence_regs<4>(dsa[kk]);
+            const uint64_t k_mn = desc_at(
+                desc_sw128(Ks + ks * BN * D, BN * BOX * 2, 1024), key_off);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < KW / 16; ++kk)
+                wgmma_rs<D>(acc, dsa[kk], desc_at(k_mn, kk * 16 * BOX * 2));
+            wgmma_commit();
+        }
     }
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
 
-    // Epilogue: scale this warpgroup's columns of dQ, stage them as bf16
-    // over its half of Q (warpgroup 0 last read Q before the last tile's
-    // first barrier) and store them with TMA.
+    // Epilogue: warpgroup 1 hands its dQ (fp32 pairs [pair][thread]) over
+    // the K stages to warpgroup 0, which adds it to its own, scales, stages
+    // the sum as bf16 over Q and stores it with TMA.
+    __syncthreads();
+    float2* part = reinterpret_cast<float2*>(smem + L::k_off);
+    if (wg == 1) {
 #pragma unroll
-    for (int i = 0; i < HALF / 2; ++i) acc[i] *= scale;
-    bf16* stage = Qs + wg * (HALF / BOX) * BM * BOX;
-    stage_bf16<HALF>(stage, BM * BOX * 2, acc, warp, lane);
-    fence_proxy_async();
-    named_barrier_sync(2 + wg, 128);
-    if (ct == 0) {
+        for (int j = 0; j < D / 4; ++j)
+            part[j * 128 + ct] = make_float2(acc[2 * j], acc[2 * j + 1]);
+    }
+    __syncthreads();
+    if (wg == 0) {
 #pragma unroll
-        for (int c = 0; c < HALF / BOX; ++c)
-            tma_store_4d(&tdq, stage + c * BM * BOX,
-                         (wg * (HALF / BOX) + c) * BOX, h, m0, b);
-        bulk_commit();
-        bulk_wait_read<0>();
+        for (int j = 0; j < D / 4; ++j) {
+            const float2 o = part[j * 128 + ct];
+            acc[2 * j] = (acc[2 * j] + o.x) * scale;
+            acc[2 * j + 1] = (acc[2 * j + 1] + o.y) * scale;
+        }
+        stage_bf16<D>(Qs, BM * BOX * 2, acc, warp, lane);
+        fence_proxy_async();
+        named_barrier_sync(1, 128);
+        if (ct == 0) {
+#pragma unroll
+            for (int c = 0; c < BOXES; ++c)
+                tma_store_4d(&tdq, Qs + c * BM * BOX, c * BOX, h, m0, b);
+            bulk_commit();
+            bulk_wait_read<0>();
+        }
     }
 }
 
@@ -1274,13 +1509,15 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
                                   H, KV, mask_kind, window, q_offset, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const long long n = (long long)B * Sk * KV * D;
-    flash_bwd_dkdv_reduce_kernel<<<(unsigned)((2 * n / 4 + 255) / 256), 256,
-                                   0, stream>>>(
-        static_cast<const float*>(part), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), n, splits, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (V_SUM) {
+        const long long n = (long long)B * Sk * KV * D;
+        flash_bwd_dkdv_reduce_kernel<<<(unsigned)((2 * n / 4 + 255) / 256),
+                                       256, 0, stream>>>(
+            static_cast<const float*>(part), static_cast<bf16*>(dk),
+            static_cast<bf16*>(dv), n, splits, scale);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+    }
 
     auto q_kern = flash_bwd_dq_wide_kernel<D>;
     constexpr int q_bytes = QWideLayout<D>::bytes;
@@ -1345,6 +1582,34 @@ extern "C" long flash_attention_bwd_smem_bytes(int D, int Dv, int kernel) {
         return kernel == 0 ? (long)KvWideLayout<256>::bytes
                            : (long)QWideLayout<256>::bytes;
     return -1;
+}
+
+// How many CTAs of the wide dK/dV kernel (kernel 0) or dQ kernel (kernel
+// 1) an SM holds at once, into *out
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int flash_attention_bwd_wide_ctas(int kernel, int* out,
+                                             int device) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (kernel == 0) {
+        err = cudaFuncSetAttribute(flash_bwd_dkdv_wide_kernel<256>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)KvWideLayout<256>::bytes);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                out, flash_bwd_dkdv_wide_kernel<256>, KV_THREADS,
+                KvWideLayout<256>::bytes);
+        return (int)err;
+    }
+    if (kernel != 1) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<256>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)QWideLayout<256>::bytes);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            out, flash_bwd_dq_wide_kernel<256>, KV_THREADS,
+            QWideLayout<256>::bytes);
+    return (int)err;
 }
 
 extern "C" const char* error_string(int code) {

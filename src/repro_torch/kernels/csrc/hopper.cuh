@@ -463,6 +463,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The two bf16 values of a pack_bf16 word as floats (`lo` in .x).
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
 template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate) {

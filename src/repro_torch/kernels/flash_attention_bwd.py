@@ -19,10 +19,13 @@ slices' parts of dK and dV).
 :func:`dq_tiles_wide` mirror the kernel's shared-memory layouts and the
 work each CTA does, so that the CPU tests can hold the schedule to the
 mask and the tiled arithmetic to the plain formula.  At (256, 256) two
-kernels of their own take the pair (``WIDE``): their warpgroups share each
-step, so a thread holds one 64 x 256 accumulator instead of dK's and dV's;
-the dK/dV kernel takes each KV group's heads in :func:`wide_splits`
-slices, whose fp32 parts a fourth CUDA kernel sums.
+kernels of their own take the pair (``WIDE``), in which a thread holds
+one 64 x 256 accumulator: in the dK/dV kernel both warpgroups work on
+the same steps and warpgroup 0 hands P^T over in bf16 behind mbarriers,
+and each KV group's heads are taken in :func:`wide_splits` slices
+(:func:`slice_heads`), whose fp32 parts a fourth CUDA kernel sums; in
+the dQ kernel each warpgroup takes half of every key tile, and K and V
+have rings of their own.
 """
 
 from __future__ import annotations
@@ -44,10 +47,12 @@ HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
 #: (Q_BM), and the depth of both rings.
 BN, BM, Q_BM, STAGES = 64, 64, 128, 4
 #: Head dims from which the wide kernels take the pair: both warpgroups
-#: of a CTA work on one step, one dK/dV step or dQ key tile at a time
-#: (:func:`dkdv_steps`' list, :func:`dq_tiles_wide`), dQ per BM queries,
-#: and their rings have WIDE_STAGES stages.
-WIDE, WIDE_STAGES = 256, 2
+#: of a CTA work on the same dK/dV steps (:func:`dkdv_steps`' list) or dQ
+#: key tiles (:func:`dq_tiles_wide`, BM queries a CTA, BN / 2 keys of each
+#: tile a warpgroup).  The dK/dV ring has WKV_STAGES stages and P^T passes
+#: between its warpgroups through HANDOFF bf16 buffers; the dQ kernel's K
+#: and V rings have WQ_K_STAGES and WQ_V_STAGES.
+WIDE, WKV_STAGES, HANDOFF, WQ_K_STAGES, WQ_V_STAGES = 256, 2, 2, 3, 2
 
 
 def smem_bytes(D: int, Dv: int) -> Tuple[int, int]:
@@ -57,17 +62,20 @@ def smem_bytes(D: int, Dv: int) -> Tuple[int, int]:
     queries, then per stage K and V of 64 keys, a full and an empty
     mbarrier per stage and Q/dO's; both bf16, plus 1024 bytes to align.
     The wide kernels (D = Dv >= WIDE): dK/dV the same sections over
-    WIDE_STAGES stages, then two fp32 64 x 64 tiles of P^T; dQ: Q and dO
-    of BM queries, WIDE_STAGES stages of K and V, a bf16 tile of dS and an
-    fp32 one of P, a full mbarrier per stage and Q/dO's.  Mirrors
+    WKV_STAGES stages, then HANDOFF bf16 64 x 64 tiles of P^T, K/V's
+    mbarrier, three a stage and two a tile; dQ: Q and dO of BM queries,
+    WQ_K_STAGES stages of K and WQ_V_STAGES of V, Q/dO's mbarrier and two
+    a stage.  Mirrors
     ``KvLayout``, ``QLayout``, ``KvWideLayout`` and ``QWideLayout`` in
     ``csrc/flash_attention_bwd.cu``."""
     if D >= WIDE:
-        kv = (2 * BN * (D + Dv) + WIDE_STAGES * (2 * BM * (D + Dv)
-                                                 + 2 * BM * 4)
-              + 2 * BN * BM * 4 + 8 * (1 + WIDE_STAGES) + 1024)
-        dq = (2 * BM * (D + Dv) + WIDE_STAGES * 2 * BN * (D + Dv)
-              + BM * BN * (2 + 4) + 8 * (1 + WIDE_STAGES) + 1024)
+        kv = (2 * BN * (D + Dv) + WKV_STAGES * (2 * BM * (D + Dv)
+                                                + 2 * BM * 4)
+              + HANDOFF * BN * BM * 2
+              + 8 * (1 + 3 * WKV_STAGES + 2 * HANDOFF) + 1024)
+        dq = (2 * BM * (D + Dv) + 2 * BN * (WQ_K_STAGES * D
+                                             + WQ_V_STAGES * Dv)
+              + 8 * (1 + 2 * WQ_K_STAGES + 2 * WQ_V_STAGES) + 1024)
         return kv, dq
     kv = (2 * BN * (D + Dv) + STAGES * (2 * BM * (D + Dv) + 2 * BM * 4)
           + 8 * (1 + STAGES) + 1024)
@@ -168,6 +176,28 @@ def wide_splits(B: int, Sq: int, Sk: int, H: int, KV: int, mask_kind: str,
     return G
 
 
+def slice_heads(G: int, splits: int) -> List[range]:
+    """The heads of a KV group (0 .. G - 1) that each slice of the wide
+    dK/dV kernel takes, in the order the parts are summed: ceil(G /
+    splits) a slice, the last cut at G."""
+    per = -(-G // splits)
+    return [range(r * per, min(G, (r + 1) * per)) for r in range(splits)]
+
+
+def wide_ctas(device: torch.device) -> Tuple[int, int]:
+    """CTAs of the wide (dK/dV, dQ) kernels an SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = _lib()
+    out = []
+    for kernel in (0, 1):
+        n = ctypes.c_int(0)
+        status = lib.flash_attention_bwd_wide_ctas(kernel, ctypes.byref(n),
+                                                   device.index)
+        _build.check(lib, status, "flash_attention_bwd_wide_ctas")
+        out.append(n.value)
+    return out[0], out[1]
+
+
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *,
                               mask_kind: str = "causal", window: int = 0,
                               q_offset: int = 0,
@@ -209,6 +239,8 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_bwd.restype = ctypes.c_int
     lib.flash_attention_bwd_smem_bytes.argtypes = [i, i, i]
     lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_long
+    lib.flash_attention_bwd_wide_ctas.argtypes = [i, ctypes.POINTER(i), i]
+    lib.flash_attention_bwd_wide_ctas.restype = ctypes.c_int
     return lib
 
 

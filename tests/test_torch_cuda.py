@@ -632,6 +632,15 @@ def test_flash_backward_smem_bytes_match_the_source(gen):
     assert lib.flash_attention_bwd_smem_bytes(192, 128, 0) == -1
 
 
+def test_wide_flash_backward_holds_one_cta_an_sm(gen):
+    """The wide kernels' shared memory (dK/dV's two-stage ring, dQ's K and
+    V rings) leaves one CTA of each an SM, as their mirrors say."""
+    from repro_torch.kernels.flash_attention_bwd import smem_bytes, wide_ctas
+
+    assert wide_ctas(torch.device("cuda", 0)) == (1, 1)
+    assert all(2 * b > 232_448 for b in smem_bytes(256, 256))
+
+
 @pytest.mark.parametrize("case", [c for c in FLASH if c[2] > 0], ids=str)
 def test_flash_forward_gives_the_same_out_with_lse(case, gen):
     """Asking for the lse changes nothing the serving path reads; the lse

@@ -69,13 +69,89 @@ def test_tiles_and_ring_mirror_the_kernel_source():
 
 
 def test_wide_ring_mirrors_the_kernel_source():
-    """The (256, 256) kernels' ring depth and the pair they take equal the
-    source's, and the split kernels' pairs stay below it."""
+    """The (256, 256) kernels' ring depths, hand-off buffers and the pair
+    they take equal the source's, and the split kernels' pairs stay below
+    it."""
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    assert int(re.search(r"constexpr int WIDE_STAGES = (\d+);", src)[1]) \
-        == fb.WIDE_STAGES
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    names = ("WKV_STAGES", "HANDOFF", "WQ_K_STAGES", "WQ_V_STAGES")
+    assert [const(n) for n in names] == [getattr(fb, n) for n in names]
+    # P^T goes through HANDOFF buffers indexed by the step, apart from the
+    # ring's stages; the dQ warpgroups hand nothing over
+    assert src.count("Ps + hb * (") == 1
+    assert "constexpr int KW = BN / 2;" in src
     assert "launch_wide<256>" in src and (fb.WIDE, fb.WIDE) in fb.HEAD_DIMS
     assert all(max(d) < fb.WIDE for d in fb.HEAD_DIMS if d != (256, 256))
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_dkdv_wide_kernel",
+                                    "flash_bwd_dq_wide_kernel"])
+def test_wide_loops_have_no_cta_wide_barrier(kernel):
+    """The wide kernels' loops synchronise their warpgroups by mbarriers
+    only: no __syncthreads or named barrier between the loop's first ring
+    wait and its end."""
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    body = src[src.index(f"{kernel}(const __grid_constant__"):]
+    loop = body[re.search(r"for \(int i = 0; i < n_(steps|tiles); \+\+i\) \{",
+                          body).start():]
+    loop = loop[:loop.index("wgmma_wait<0>();\n    fence_regs<")]
+    assert "mbar_wait(" in loop and "wgmma_wait<" in loop
+    for sync in ("__syncthreads", "named_barrier_sync", "bar.sync"):
+        assert sync not in loop, sync
+
+
+def test_wide_smem_mirror_matches_the_source_layouts():
+    """smem_bytes(256, 256) is the sum of the sections the source's
+    KvWideLayout and QWideLayout lay out, read from their initializers."""
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    env = {"BN": fb.BN, "BM": fb.BM, "BOX": 64, "D": fb.WIDE,
+           "WKV_STAGES": fb.WKV_STAGES, "HANDOFF": fb.HANDOFF,
+           "WQ_K_STAGES": fb.WQ_K_STAGES, "WQ_V_STAGES": fb.WQ_V_STAGES}
+
+    def layout(name):
+        body = src[src.index(f"struct {name} {{"):]
+        body = body[:body.index("};")]
+        vals = dict(env)
+        for key, expr in re.findall(
+                r"static constexpr (?:uint32_t|int) (\w+) = ([^;]+);", body):
+            vals[key] = eval(expr.replace("\n", " "), {}, vals)
+        return vals["bytes"]
+
+    assert (layout("KvWideLayout"), layout("QWideLayout")) == \
+        fb.smem_bytes(fb.WIDE, fb.WIDE)
+    # each dQ warpgroup's keys start a whole number of swizzle atoms (8
+    # rows) into a K or V box, and form whole k16 slices of dQ's product
+    assert (fb.BN // 2) % 16 == 0
+
+
+@pytest.mark.parametrize("ring", ["K", "V"])
+@pytest.mark.parametrize("n_tiles", range(0, 9))
+def test_wide_dq_rings_load_two_tiles_ahead(n_tiles, ring):
+    """The wide dQ kernel's K and V rings: tile i on stage i % stages.
+    The first `stages` tiles load at the start; at step i (after its dP
+    and the previous tile's dQ product are done) one thread refills V's
+    stage of tile i with tile i + WQ_V_STAGES and K's stage of tile i - 1
+    with tile i - 1 + WQ_K_STAGES, once both warpgroups released them (V
+    after dP of that tile, K after its dQ product, at the next step).  So
+    every refilled tile is issued two steps before its own, on the stage
+    its last occupant left."""
+    S = fb.WQ_K_STAGES if ring == "K" else fb.WQ_V_STAGES
+    freed = (lambda t: t + 1) if ring == "K" else (lambda t: t)
+    loads = {i: -1 for i in range(min(n_tiles, S))}
+    for step in range(n_tiles):               # the kernel's refill rule
+        j = step - 1 + S if ring == "K" else step + S
+        if (ring == "V" or step >= 1) and j < n_tiles:
+            assert j not in loads
+            loads[j] = step
+    assert sorted(loads) == list(range(n_tiles))
+    for j, at in loads.items():
+        if at < 0:
+            continue
+        assert j % S == (j - S) % S and freed(j - S) <= at
+        assert j - at == 2
 
 
 @pytest.mark.parametrize("dims", fb.HEAD_DIMS, ids=str)
@@ -175,6 +251,8 @@ def test_wide_schedule_at_recurrentgemma_training_shape():
     (1, 300, 300, 5, 1, "window", 100, 0, 5),
     (1, 200, 200, 3, 3, "causal", 0, 0, 1),         # G 1
     (1, 8, 8, 2, 2, "window", 2, 20, 1),            # no step at all
+    (1, 128, 128, 16, 1, "none", 0, 0, 16),         # too few steps: a head
+    (2, 512, 512, 8, 2, "causal", 0, 0, 4),         # GQA, G 4: a head
 ], ids=str)
 def test_wide_splits_fill_the_card(case):
     """The fewest slices of a group's heads whose heaviest dK/dV CTA walks
@@ -197,6 +275,20 @@ def test_wide_splits_fill_the_card(case):
     # every slice holds a head: the slices cover the group exactly
     g_per = -(-G // splits)
     assert (splits - 1) * g_per < G <= splits * g_per
+
+
+@pytest.mark.parametrize("G", range(1, 17))
+def test_slices_cover_their_group_once_in_order(G):
+    """The wide dK/dV kernel's slices of a (batch, KV head, key tile): at
+    the slice count the wrapper picks for G heads (at recurrentgemma-2b's
+    training shape and without a mask), slice r takes the next heads of
+    the group, every head once, no slice empty, and the reduce kernel sums
+    the slices' parts in that order."""
+    for kind in ("window", "none"):
+        splits = fb.wide_splits(4, 1024, 1024, G, 1, kind, 2048, sms=SMS)
+        heads = fb.slice_heads(G, splits)
+        assert len(heads) == splits and all(len(r) for r in heads)
+        assert [h for r in heads for h in r] == list(range(G))
 
 
 def test_dkdv_steps_split_the_yi6b_schedule_between_the_warpgroups():
@@ -254,7 +346,8 @@ def tiled_backward(q, k, v, out, dout, lse, *, mask_kind, window=0,
                     if edge:
                         p = torch.where(vis[rows, keys].T, p, 0.0)
                     dpt = vf[b, keys, hk] @ dof[b, rows, h].T
-                    ds = p * (dpt - delta[b, rows, h][None])
+                    # the wide kernel hands P^T over in bf16
+                    ds = (_bf(p) if wide else p) * (dpt - delta[b, rows, h][None])
                     part[wg][1].add_(_bf(p) @ dof[b, rows, h])
                     part[wg][0].add_(_bf(ds) @ qf[b, rows, h])
                 dk[b, keys, hk] = sum(p[0] for p in part) * scale

@@ -1,6 +1,8 @@
-"""Time the flash backward kernel on the card, against a baseline source.
+"""Time the flash backward kernel on the card, against a baseline source,
+and time variants of its (256, 256) kernels.
 
     python3 tools/flash_bwd_time.py [--baseline OTHER/flash_attention_bwd.cu]
+    python3 tools/flash_bwd_time.py --variants [SOURCE]
 
 At yi-6b's training shape (B 4, S 1024, 32 heads / 4 KV of 128, causal),
 the 100M example's (B 8, S 128, 10 / 2 of 64, causal) and
@@ -11,22 +13,46 @@ out and lse):
 - the device time of one wrapper call (``chip_smoke.device_ms``: CUDA
   events over 20 calls, the host's enqueueing hidden behind a device
   sleep), in turns with the baseline (baseline, kernel, kernel,
-  baseline) when one is given;
+  baseline) when one is given; at (64, 64) and (128, 128) the gradients
+  must be bitwise equal to the baseline's (the tool exits non-zero
+  otherwise), at (256, 256) it prints the largest difference;
 - each CUDA kernel's own time (torch.profiler over 10 calls);
 - SDPA's backward on the same inputs (``torch.autograd.grad`` through
   ``F.scaled_dot_product_attention``; a yardstick the port never calls);
 - the least time the card could take: the formula's five products and
   the design's seven over the causal half at 989 TFLOP/s bf16, against
-  the inputs and gradients once at 3.35 TB/s.
+  the inputs and gradients once at 3.35 TB/s;
+- the CTAs of this tree's wide kernels an SM holds at once.
 
 ``--baseline`` builds another version of the kernel source as it is (for
 example the parent commit's, from an unpacked ``git archive``, with its
 ``hopper.cuh`` beside it) into the git-ignored
-``kernels/_cuda_build/flash_bwd_time/``; it must export a
-``flash_attention_bwd`` C entry, with or without the (part, splits)
-arguments of the (256, 256) kernels (read from its source; it is given
-the wrapper's slices and scratch), and is timed only at the pairs it is
-built for.  Prints the card's name and power limit, one line per
+``kernels/_cuda_build/flash_bwd_time/``.  Its C entry is read from its
+source: with the (part, splits) arguments of the (256, 256) kernels
+(given the wrapper's slices and their fp32 scratch) or without; it is
+timed only at the pairs it is built for.
+
+``--variants`` builds variants of the (256, 256) kernels of SOURCE (by
+default this tree's ``csrc/flash_attention_bwd.cu``) into the same
+git-ignored directory and times each in turns against SOURCE's full
+build at recurrentgemma's shape.  A variant's gradients are not correct;
+only its time is read:
+
+- ``loads_only``: the rings and their barriers, no product, no
+  exponential, no hand-off;
+- ``products_only``: the products and the rings, no exponential, no
+  mask, no hand-off between the warpgroups;
+- ``no_handoff``: the hand-off without its wait: each warpgroup takes its
+  own product as P (the first design keeps its CTA-wide barrier, which
+  also gates the ring's refill; this tree's dQ kernel hands nothing over
+  and runs in full);
+- ``no_sum``: the head slices' sum left out: no fp32 parts written, no
+  fourth launch.
+
+The first design (a CTA-wide barrier in every step) is varied by
+replacing anchors of its text; this tree's design by compiling its
+source with ``-DFLASH_BWD_VARIANT=<n>``.  Prints the card's name and
+power limit, the ``-Xptxas -v`` lines of the build, one line per
 measurement and a last JSON line.  Needs a GPU and ``nvcc``; exits
 non-zero without them.
 """
@@ -36,6 +62,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import subprocess
 from pathlib import Path
 
 import torch
@@ -43,6 +70,7 @@ import torch
 # baseline puts the repo root and src/ on sys.path
 from baseline import build_baseline, card, in_turns
 from chip_smoke import bound, device_ms, kernel_times, nbytes, sdpa
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (
     MASK_KINDS,
     flash_attention_cuda,
@@ -50,7 +78,9 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.flash_attention_bwd import (
     BM,
     WIDE,
+    _lib,
     flash_attention_bwd_cuda,
+    wide_ctas,
     wide_splits,
 )
 
@@ -59,82 +89,245 @@ SHAPES = {   # name: (B, S, H, KV, D)
     "example": (8, 128, 10, 2, 64),
     "recurrentgemma-2b train": (4, 1024, 10, 1, 256),
 }
+WIDE_SHAPE = "recurrentgemma-2b train"
+OUT = _build.BUILD_DIR / "flash_bwd_time"
+VARIANTS = ("loads_only", "products_only", "no_handoff", "no_sum")
+NEVER = "(Sq < 0)"      # false at run time, unknown to the compiler
+
+
+def convention(src: str) -> str:
+    """The C entry's arguments: "part" (a pointer to fp32 parts and the
+    slice count) or "plain" (neither)."""
+    return "part" if "int splits" in src else "plain"
+
+
+def argtypes(kind: str) -> list:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    extra = kind == "part"
+    return [p] * (10 + extra) + [i] * (10 + extra) + [ctypes.c_float, i, p]
+
+
+def _swap(src: str, old: str, new: str) -> str:
+    if src.count(old) != 1:
+        raise SystemExit(f"anchor found {src.count(old)} times, not once: "
+                         f"{old!r}")
+    return src.replace(old, new)
+
+
+def first_design_variants(src: str) -> dict:
+    """The variants of the first (256, 256) design (fp32 parts summed by a
+    fourth launch), by replacing anchors of its text."""
+    products = [
+        "        wgmma_ss_tiles<D>(x, per_step(a_desc), BN * BOX * 2,",
+        "            wgmma_rs<D>(acc, xa[kk], desc_at(b_mn, kk * 16 * BOX * 2));",
+        "        wgmma_ss_tiles<D>(x, per_step(a_desc), BM * BOX * 2,",
+        "            wgmma_ss<HALF, 0, 1>(acc, desc_at(ds_desc, kk * 32),",
+    ]
+    elementwise = [
+        ("        if (wg == 0) {\n            // P^T = exp2",
+         f"        if (wg == 0 && {NEVER}) {{\n            // P^T = exp2"),
+        ("        if (wg == 1) {\n            // dS^T = P^T",
+         f"        if (wg == 1 && {NEVER}) {{\n            // dS^T = P^T"),
+        ("        if (wg == 0) {\n            const bool edge =",
+         f"        if (wg == 0 && {NEVER}) {{\n            const bool edge ="),
+        ("        if (wg == 1) {\n            // dS = P (dP - delta)",
+         f"        if (wg == 1 && {NEVER}) {{\n            // dS = P (dP - delta)"),
+    ]
+    out = {}
+    s = src
+    for old, new in elementwise:
+        s = _swap(s, old, new)
+    out["products_only"] = s
+    for old in products:
+        s = _swap(s, old, old.replace(old.lstrip(),
+                                      f"if ({NEVER}) " + old.lstrip()))
+    out["loads_only"] = s
+    s = _swap(src, "                p_st[j * 128 + ct] = p;",
+              "                if (p == -1.f) p_st[j * 128 + ct] = p;")
+    s = _swap(s, "x[j] = p_st[j * 128 + ct] * (x[j] - dlt_st[col]);",
+              "x[j] = x[j] * (x[j] - dlt_st[col]);")
+    s = _swap(s, "                Ps[j * 128 + ct] = p;",
+              "                if (p == -1.f) Ps[j * 128 + ct] = p;")
+    out["no_handoff"] = _swap(
+        s, "x[j] = Ps[j * 128 + ct] * (x[j] - dlt[(j >> 1) & 1]);",
+        "x[j] = x[j] * (x[j] - dlt[(j >> 1) & 1]);")
+    s = _swap(src, "            if (key < Sk)\n",
+              f"            if (key < Sk && {NEVER})\n")
+    out["no_sum"] = _swap(s, "    flash_bwd_dkdv_reduce_kernel<<<",
+                          "    if (splits < 0) flash_bwd_dkdv_reduce_kernel<<<")
+    return out
+
+
+def build_variants(source: Path) -> tuple:
+    """Build SOURCE and its variants at once, each into its own directory
+    with SOURCE's ``hopper.cuh``; returns ({name: library}, full's log)."""
+    src = source.read_text()
+    if "FLASH_BWD_VARIANT" in src:
+        jobs = {"full": (src, [])}
+        jobs.update({name: (src, [f"-DFLASH_BWD_VARIANT={n}"])
+                     for n, name in enumerate(VARIANTS, start=1)})
+    else:
+        jobs = {"full": (src, [])}
+        jobs.update({name: (text, []) for name, text in
+                     first_design_variants(src).items()})
+    procs = {}
+    for name, (text, defines) in jobs.items():
+        d = OUT / "variants" / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "hopper.cuh").write_text((source.parent / "hopper.cuh")
+                                      .read_text())
+        (d / "flash_attention_bwd.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *defines, "-o",
+             str(d / "libvariant.so"), str(d / "flash_attention_bwd.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, log = {}, ""
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on variant {name}:\n{text}")
+        if name == "full":
+            log = text
+        lib = ctypes.CDLL(str(OUT / "variants" / name / "libvariant.so"))
+        lib.flash_attention_bwd.argtypes = argtypes(convention(src))
+        lib.flash_attention_bwd.restype = ctypes.c_int
+        libs[name] = lib
+    return libs, log
+
+
+class Inputs:
+    """One shape's bf16 inputs, the forward kernel's out and lse, and the
+    scratch and gradients a raw call of a C entry writes."""
+
+    def __init__(self, gen, b, s, h, kv, d):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+
+        self.shape = (b, s, h, kv, d)
+        self.q, self.k, self.v = randn(b, s, h, d), randn(b, s, kv, d), \
+            randn(b, s, kv, d)
+        self.dout = randn(b, s, h, d)
+        self.out, self.lse = flash_attention_cuda(self.q, self.k, self.v,
+                                                  return_lse=True)
+        self.grads = [torch.empty_like(t) for t in (self.q, self.k, self.v)]
+        self.stats = torch.empty(b * h * 2 * (-(-s // BM) * BM),
+                                 dtype=torch.float32, device="cuda")
+        self.part = None
+
+    def call(self, lib, kind: str) -> None:
+        """Call ``lib``'s C entry with the arguments of its convention."""
+        b, s, h, kv, d = self.shape
+        extra = ()
+        if kind == "part":
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            splits = wide_splits(b, s, s, h, kv, "causal", sms=sms) \
+                if d >= WIDE else 1
+            if d >= WIDE and self.part is None:
+                self.part = torch.empty((2, splits, b, s, kv, d),
+                                        dtype=torch.float32, device="cuda")
+            extra = (self.part.data_ptr() if d >= WIDE else None, splits)
+        ptrs = [t.data_ptr() for t in (self.q, self.k, self.v, self.out,
+                                       self.dout, self.lse, self.stats,
+                                       *self.grads)]
+        status = lib.flash_attention_bwd(
+            *ptrs, *extra, b, s, s, h, kv, d, d, MASK_KINDS["causal"], 0, 0,
+            d ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            raise SystemExit(f"flash_attention_bwd failed with CUDA error "
+                             f"{status}")
+
+
+def time_variants(source: Path, gen) -> dict:
+    libs, log = build_variants(source)
+    for line in log.splitlines():
+        if any(w in line for w in ("Function properties", "registers",
+                                   "spill", "wgmma")):
+            print(f"[ptxas] {line.strip()}", flush=True)
+    kind = convention(source.read_text())
+    x = Inputs(gen, *SHAPES[WIDE_SHAPE])
+    full = libs["full"]
+    rows = {"full": {"kernels": kernel_times(lambda: x.call(full, kind), 10,
+                                             r"flash_bwd_\w+")}}
+    print(f"[variants] full: by CUDA kernel {rows['full']['kernels']}",
+          flush=True)
+    for name in VARIANTS:
+        lib = libs[name]
+        row = in_turns(lambda: x.call(full, kind), lambda: x.call(lib, kind))
+        row["kernels"] = kernel_times(lambda: x.call(lib, kind), 10,
+                                      r"flash_bwd_\w+")
+        rows[name] = row
+        print(f"[variants] {name}: {row['ms']} ms against the full "
+              f"{row['baseline_ms']} ms in turns; by CUDA kernel "
+              f"{row['kernels']}", flush=True)
+    return rows
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None)
+    ap.add_argument("--variants", type=Path, nargs="?", default=None,
+                    const=_build.CSRC / "flash_attention_bwd.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     smi = card()
-    p, i = ctypes.c_void_p, ctypes.c_int
-    src = args.baseline.read_text() if args.baseline else ""
-    sliced = "int splits" in src           # the (part, splits) arguments
-    base = build_baseline(args.baseline, "flash_bwd_time",
-                          "flash_attention_bwd",
-                          [p] * (10 + sliced) + [i] * (10 + sliced)
-                          + [ctypes.c_float, i, p]) \
-        if args.baseline else None
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    results = {}
+    if args.variants is not None:
+        rows = time_variants(args.variants, gen)
+        print(json.dumps({"device": smi, "shape": WIDE_SHAPE,
+                          "source": str(args.variants), "variants": rows},
+                         allow_nan=False))
+        return
+    src = args.baseline.read_text() if args.baseline else ""
+    kind = convention(src)
+    base = build_baseline(args.baseline, "flash_bwd_time",
+                          "flash_attention_bwd", argtypes(kind)) \
+        if args.baseline else None
+    log = (_build.BUILD_DIR / "flash_attention_bwd.log")
+    _lib()
+    for line in log.read_text().splitlines() if log.exists() else []:
+        if any(w in line for w in ("Function properties", "registers",
+                                   "spill", "wgmma")):
+            print(f"[ptxas] {line.strip()}", flush=True)
+    ctas = wide_ctas(torch.device("cuda", 0))
+    print(f"[occupancy] CTAs an SM of the wide dK/dV and dQ kernels: {ctas}",
+          flush=True)
+    results = {"wide_ctas_an_sm": list(ctas)}
     for name, (b, s, h, kv, d) in SHAPES.items():
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(
-                torch.bfloat16)
-
-        q, k, v, dout = randn(b, s, h, d), randn(b, s, kv, d), \
-            randn(b, s, kv, d), randn(b, s, h, d)
-        out, lse = flash_attention_cuda(q, k, v, return_lse=True)
-        grads = [torch.empty_like(t) for t in (q, k, v)]
-        pad = -(-s // BM) * BM
-        scratch = torch.empty(b * h * 2 * pad, dtype=torch.float32,
-                              device="cuda")
-        splits, part = 1, None
-        if sliced and d >= WIDE:     # the wrapper's slices and their parts
-            splits = wide_splits(b, s, s, h, kv, "causal",
-                                 sms=torch.cuda.get_device_properties(0)
-                                 .multi_processor_count)
-            part = torch.empty((2, splits, b, s, kv, d), dtype=torch.float32,
-                               device="cuda")
+        x = Inputs(gen, b, s, h, kv, d)
+        q, k, v, out, dout, lse = x.q, x.k, x.v, x.out, x.dout, x.lse
 
         def kernel():
             flash_attention_bwd_cuda(q, k, v, out, dout, lse)
 
-        def baseline():
-            status = base.flash_attention_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-                *(g.data_ptr() for g in grads),
-                *((part.data_ptr() if part is not None else None, splits)
-                  if sliced else ()), b, s, s, h, kv, d, d,
-                MASK_KINDS["causal"], 0, 0, d ** -0.5, 0,
-                torch.cuda.current_stream().cuda_stream)
-            if status != 0:
-                raise SystemExit(f"baseline failed with CUDA error {status}")
-
         row = {}
+        base_here = base
         if base is not None and d == 256 and "launch_wide<256>" not in src:
             print(f"[{name}] the baseline is not built for (256, 256)",
                   flush=True)
             base_here = None
-        else:
-            base_here = base
         if base_here is not None:
-            row.update(in_turns(baseline, kernel))
+            row.update(in_turns(lambda: x.call(base, kind), kernel))
             got = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
-            baseline()
+            x.call(base, kind)
             torch.cuda.synchronize()
-            row["max_abs_diff_vs_baseline"] = max(
-                float((x.float() - y.float()).abs().max())
-                for x, y in zip(got, grads))
+            diffs = [float((g.float() - w.float()).abs().max())
+                     for g, w in zip(got, x.grads)]
+            row["max_abs_diff_vs_baseline"] = dict(zip(("dq", "dk", "dv"),
+                                                       diffs))
+            row["bitwise_equal_to_baseline"] = all(
+                torch.equal(g, w) for g, w in zip(got, x.grads))
+            if d < WIDE and not row["bitwise_equal_to_baseline"]:
+                raise SystemExit(f"[{name}] gradients differ from the "
+                                 f"baseline's: {diffs}")
         else:
             row["ms"] = [device_ms(kernel, 20), device_ms(kernel, 20)]
         row["kernels"] = kernel_times(kernel, 10, r"flash_bwd_\w+")
         if base_here is not None:
-            row["baseline_kernels"] = kernel_times(baseline, 10,
-                                                   r"flash_bwd_\w+")
+            row["baseline_kernels"] = kernel_times(
+                lambda: x.call(base, kind), 10, r"flash_bwd_\w+")
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         lib_out = sdpa(qg, kg, vg, causal=True)
         row["sdpa_backward_ms"] = device_ms(lambda: torch.autograd.grad(
@@ -149,8 +342,10 @@ def main() -> None:
         ms = min(row["ms"])
         print(f"[{name}] B{b} S{s} H{h} KV{kv} D{d} causal: kernel "
               f"{row['ms']} ms" + (f", baseline {row['baseline_ms']} ms "
-                                   f"(max |diff| "
-                                   f"{row['max_abs_diff_vs_baseline']:.3e})"
+                                   f"(bitwise equal: "
+                                   f"{row['bitwise_equal_to_baseline']}; "
+                                   f"max |diff| "
+                                   f"{row['max_abs_diff_vs_baseline']})"
                                    if base_here is not None else "")
               + f"; sdpa backward {row['sdpa_backward_ms']:.4f} ms; bounds "
               f"{row['bound5_ms']:.4f} (five products, {five / 1e9:.2f} "
