@@ -21,18 +21,26 @@ ends the script with a non-zero exit and no result line:
               and the least time the card could take for the same work.
               The flash backward against its plain formula (fp32) at
               yi-6b's training shape, the 100M example's, a ragged S, a
-              window with q_offset and no mask with Sq != Sk, and at head
+              window with q_offset and no mask with Sq != Sk; at head
               dim 256 (its wide kernels) at recurrentgemma-2b's training
               shape (MQA, window 2048), a window shorter than S, a ragged
-              S with a q_offset and no mask with Sq != Sk: relative L2
+              S with a q_offset and no mask with Sq != Sk; at MLA's
+              pairs, minicpm3-4b's training shape (40 heads over 40, qk
+              96 zero-padded to 128 beside v 64, scale 96^-0.5; the split
+              kernels) and deepseek-v2-lite's (16 over 16 of (192, 128);
+              the wide kernels), each pair also with a ragged S and a
+              q_offset and with no mask at Sq != Sk: relative L2
               of dq, dk, dv within max(2e-2, 2 x the plain formula's bf16
-              floor), two launches bitwise equal, the forward's lse within
+              floor), two launches bitwise equal, the padded columns of
+              dq and dk zero, the forward's lse within
               1e-3 of the plain lse and its out unchanged by asking for
-              lse; times at yi-6b's and recurrentgemma-2b's training
-              shapes against SDPA's backward (and which of SDPA's kernels
-              ran) and both bounds (the formula's five products, the
-              design's seven), and each of its CUDA kernels' own time
-              (delta, dK/dV, dQ; torch.profiler).
+              lse; times at yi-6b's, recurrentgemma-2b's, minicpm3-4b's
+              and deepseek-v2-lite's training shapes against SDPA's
+              backward on the same inputs (and which of SDPA's kernels
+              ran) and both bounds (the formula's five products at the
+              function's own qk, the design's seven at the padded D), and
+              each of its CUDA kernels' own time (delta, dK/dV, dQ and the
+              wide pairs' sum of slices; torch.profiler).
               The SSD backward against its plain formula (fp32) at
               mamba2-2.7b's training shape and at G 2 and 4, chunks 64 and
               256, S equal to the chunk, an initial state and a final-state
@@ -94,11 +102,21 @@ ends the script with a non-zero exit and no result line:
               forward and backward launch per recurrent layer and one
               flash forward and backward per local layer and step, the
               peak under 72 GiB, the step wall and device split.  Then
+              ``--arch minicpm3-4b --n-layers 40 --steps 4`` and ``--arch
+              deepseek-v2-lite-16b --n-layers 5 --steps 4`` (full width,
+              MLA through the flash backward at (128, 64) and (192, 128);
+              deepseek one dense and four MoE layers): every loss finite,
+              one flash forward and backward launch per layer and step,
+              the peak under 64 GiB, the step wall and device split.  Then
               one step's gradients through the kernels against the plain
-              versions, yi-6b at 12 layers, mamba2-2.7b at 16 and
-              recurrentgemma-2b at 9 (three (rec, rec, local) units), each
-              stacked leaf within max(5e-2, 2 x floor) relative L2 (floor:
-              plain bf16 vs plain fp32).
+              versions, yi-6b at 12 layers, mamba2-2.7b at 16,
+              recurrentgemma-2b at 9 (three (rec, rec, local) units),
+              minicpm3-4b at 16 and deepseek-v2-lite-16b at 2 (one dense
+              and one MoE layer, without remat; all three runs take the
+              plain bf16 run's experts, and the share of routings the
+              other two would have changed is printed), each stacked leaf
+              within max(5e-2, 2 x floor) relative L2 (floor: plain bf16
+              vs plain fp32).
 7. scenario kernels -- ``--scenario poisson-open --scenario-kernels
               --time-scale 1e-6 --max-blocks 16``: the scenario's first
               workload (8 arrivals) as jobs of synthetic blocks on the
@@ -113,8 +131,9 @@ ends the script with a non-zero exit and no result line:
 
 The line before the last is a JSON object with one entry per kernel and
 timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's and
-deepseek-v2-lite's prefill; the flash backward: yi-6b's and
-recurrentgemma-2b's training shapes; the SSD backward: mamba2-2.7b's;
+deepseek-v2-lite's prefill; the flash backward: yi-6b's,
+recurrentgemma-2b's, minicpm3-4b's and deepseek-v2-lite's training
+shapes; the SSD backward: mamba2-2.7b's;
 decode: yi-6b's and recurrentgemma-2b's decode steps; RG-LRU:
 recurrentgemma-2b's prefill at B 4 and at B 1; the RG-LRU backward:
 recurrentgemma-2b's training shape; launches summed over the serve and
@@ -237,6 +256,27 @@ MAMBA_LAYERS, MAMBA_STEPS, MAMBA_CHECK_LAYERS = 56, 4, 16
 # activations (the run fails past it).  Its gradient check: three (rec,
 # rec, local) units.
 RG_LAYERS, RG_STEPS, RG_CHECK_LAYERS, RG_PEAK_GIB = 26, 4, 9, 72.0
+# MLA, B 4 x 1024, MLA_STEPS steps each, peak under MLA_PEAK_GIB: 15 GiB
+# of the card's 79.2 GiB kept free, since the caching allocator's
+# fragmentation ran the next depths out of memory (minicpm3-4b at 48
+# layers with 47.7 GiB allocated and 29.7 GiB reserved but unallocated,
+# deepseek at 6 with 64.9 and 12.8; launch.train on an NVIDIA H100 80GB
+# HBM3).  Full-width minicpm3-4b: 4.07 B parameters, 60.7 GiB of fp32
+# weights, gradients and AdamW moments (ArchConfig.n_params x 16 B) at all
+# 62 layers, 2.8 GiB of embedding and head and 0.93 GiB a layer; at 40
+# layers 40.2 GiB of state and a 58.5 GiB peak with the activations (~0.46
+# GiB a layer).  Its gradient check computes three gradient sets beside
+# the weights, two held at once (12 B a parameter; 1.19 B parameters at 16
+# layers, 13.3 GiB).
+MLA_LAYERS, MLA_STEPS, MLA_CHECK_LAYERS, MLA_PEAK_GIB = 40, 4, 16, 64.0
+# Full-width deepseek-v2-lite-16b: 16.21 B parameters, 241.6 GiB of state
+# at 27 layers; the first layer is dense (1.00 B parameters with the
+# embedding and head, 15.0 GiB of state) and each MoE layer (64 experts
+# top 6 + 2 shared) adds 0.585 B, 8.7 GiB: 49.8 GiB at 5 layers (one
+# dense, four MoE), a 58.9 GiB peak.  Its gradient check: one dense and
+# one MoE layer (1.59 B parameters, 17.8 GiB at the check's 12 B a
+# parameter).
+DSV2_LAYERS, DSV2_CHECK_LAYERS, DSV2_PEAK_GIB = 5, 2, 64.0
 SLEEP_CYCLES = 200_000_000            # device sleep before a timed run
 
 
@@ -385,9 +425,12 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
     L2, the floor being the plain formula in bf16 against it in fp32; two
     launches bitwise equal.  Also the forward's lse against the plain lse
     (within LSE_TOL absolute) and its out with and without lse bitwise
-    equal.  Cases at head dims 64 and 128 (the split kernels) and 256
-    (the wide kernels).  Times at yi-6b's and recurrentgemma-2b's training
-    shapes, against SDPA's backward (:func:`time_flash_bwd`)."""
+    equal.  Cases at the pairs (64, 64), (128, 128) and (128, 64) (the
+    split kernels; minicpm3-4b's qk 96 zero-padded to 128 as ``mla_apply``
+    pads it, at the scale of 96) and (256, 256) and (192, 128) (the wide
+    kernels).  Times at yi-6b's, recurrentgemma-2b's, minicpm3-4b's and
+    deepseek-v2-lite's training shapes, against SDPA's backward
+    (:func:`time_flash_bwd`)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda,
         flash_attention_plain,
@@ -397,39 +440,53 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
         flash_attention_bwd_plain,
     )
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
-
     cases = [
-        # name, B, Sq, Sk, H, KV, D, mask, window, q_offset
+        # name, B, Sq, Sk, H, KV, qk, D, Dv, mask, window, q_offset: q and
+        # k of width qk zero-padded to D, at the scale of qk
         ("yi-6b train B4 S1024 H32 KV4 D128 causal", B, 1024, 1024, 32, 4,
-         128, "causal", 0, 0),
-        ("example B8 S128 H10 KV2 D64 causal", 8, 128, 128, 10, 2, 64,
-         "causal", 0, 0),
+         128, 128, 128, "causal", 0, 0),
+        ("example B8 S128 H10 KV2 D64 causal", 8, 128, 128, 10, 2, 64, 64,
+         64, "causal", 0, 0),
         ("ragged B2 S1000 H32 KV4 D128 causal", 2, 1000, 1000, 32, 4, 128,
-         "causal", 0, 0),
+         128, 128, "causal", 0, 0),
         ("window B2 Sq300 Sk600 H8 KV2 D128 w150 q_offset300", 2, 300, 600,
-         8, 2, 128, "window", 150, 300),
-        ("none B2 Sq77 Sk150 H8 KV2 D64", 2, 77, 150, 8, 2, 64, "none", 0,
-         0),
+         8, 2, 128, 128, 128, "window", 150, 300),
+        ("none B2 Sq77 Sk150 H8 KV2 D64", 2, 77, 150, 8, 2, 64, 64, 64,
+         "none", 0, 0),
         # (256, 256), the wide kernels: recurrentgemma-2b's local layers
         # (MQA, window 2048 >= S: causal in effect), a window shorter than
         # S, ragged S with a q_offset, and no mask with Sq != Sk.
         ("recurrentgemma train B4 S1024 H10 KV1 D256 window2048", B, 1024,
-         1024, 10, 1, 256, "window", 2048, 0),
-        ("window B1 S300 H5 KV1 D256 w100", 1, 300, 300, 5, 1, 256,
-         "window", 100, 0),
+         1024, 10, 1, 256, 256, 256, "window", 2048, 0),
+        ("window B1 S300 H5 KV1 D256 w100", 1, 300, 300, 5, 1, 256, 256,
+         256, "window", 100, 0),
         ("ragged B2 Sq150 Sk201 H4 KV2 D256 causal q_offset51", 2, 150, 201,
-         4, 2, 256, "causal", 0, 51),
-        ("none B1 Sq77 Sk190 H4 KV1 D256", 1, 77, 190, 4, 1, 256, "none", 0,
-         0),
+         4, 2, 256, 256, 256, "causal", 0, 51),
+        ("none B1 Sq77 Sk190 H4 KV1 D256", 1, 77, 190, 4, 1, 256, 256, 256,
+         "none", 0, 0),
+        # MLA: minicpm3-4b's training shape (40 heads, the rope key
+        # expanded over them: G 1; qk 96 run as 128 beside v 64, the split
+        # kernels) and deepseek-v2-lite's (16 heads of (192, 128), the
+        # wide kernels, one slice a group), then for each pair ragged S
+        # with a q_offset and no mask with Sq != Sk.
+        ("minicpm3 train B4 S1024 H40 KV40 qk96->128 Dv64 causal", B, 1024,
+         1024, 40, 40, 96, 128, 64, "causal", 0, 0),
+        ("deepseek train B4 S1024 H16 KV16 D192 Dv128 causal", B, 1024,
+         1024, 16, 16, 192, 192, 128, "causal", 0, 0),
+        ("ragged B2 Sq150 Sk201 H8 KV8 qk96->128 Dv64 causal q_offset51", 2,
+         150, 201, 8, 8, 96, 128, 64, "causal", 0, 51),
+        ("none B1 Sq77 Sk190 H4 KV2 qk96->128 Dv64", 1, 77, 190, 4, 2, 96,
+         128, 64, "none", 0, 0),
+        ("ragged B2 Sq150 Sk201 H4 KV4 D192 Dv128 causal q_offset51", 2, 150,
+         201, 4, 4, 192, 192, 128, "causal", 0, 51),
+        ("none B1 Sq77 Sk190 H4 KV2 D192 Dv128", 1, 77, 190, 4, 2, 192, 192,
+         128, "none", 0, 0),
     ]
     results = {}
-    for name, b, sq, sk, h, kv, d, kind, window, off in cases:
-        q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
-        dout = randn(b, sq, h, d)
-        kw = dict(mask_kind=kind, window=window, q_offset=off)
+    for name, b, sq, sk, h, kv, qk, d, dv, kind, window, off in cases:
+        q, k, v, dout = flash_bwd_inputs(gen, b, sq, sk, h, kv, qk, d, dv)
+        kw = dict(mask_kind=kind, window=window, q_offset=off,
+                  scale=qk ** -0.5)
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         alone = flash_attention_cuda(q, k, v, **kw)
         _, want_lse = flash_attention_plain(q.float(), k.float(), v.float(),
@@ -464,6 +521,9 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
             if not ok:
                 fail(f"flash_attention_bwd {name} {grad} disagrees with its "
                      f"plain version")
+        if qk < d and any(g[..., qk:].any() for g in got[:2]):
+            fail(f"flash_attention_bwd {name}: dq or dk non-zero in the "
+                 f"padded columns")
         print(f"[kernels] flash_attention {name}: lse max abs err "
               f"{lse_err:.3e} (tol {LSE_TOL}), out with and without lse "
               f"bitwise equal", flush=True)
@@ -471,51 +531,72 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
     print("[kernels] flash_attention_bwd: two launches bitwise equal in every "
           "case", flush=True)
 
-    # Times at yi-6b's and recurrentgemma-2b's training shapes, each entry
-    # with the largest error of the cases built like it (the wide kernels
-    # at head dim 256, the split ones below).
-    def err(wide):
+    # Times at the training shapes of yi-6b, recurrentgemma-2b, minicpm3-4b
+    # and deepseek-v2-lite, each entry with the largest error of the cases
+    # at its pair.
+    def err(case):
         return max(e for c, e in zip(cases, results.values())
-                   if (c[6] == 256) == wide)
+                   if c[7:9] == case[7:9])
 
-    return [time_flash_bwd(gen, err(False), *cases[0]),
-            time_flash_bwd(gen, err(True), *cases[5])]
+    return [time_flash_bwd(gen, err(cases[i]), *cases[i])
+            for i in (0, 5, 9, 10)]
+
+
+def flash_bwd_inputs(gen: torch.Generator, b, sq, sk, h, kv, qk, d, dv):
+    """bf16 q, k, v and dout of a flash backward case, drawn in that
+    order: q and k of width qk, zero-padded to d as ``mla_apply`` pads
+    them."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def padded(t):
+        return torch.cat([t, t.new_zeros(t.shape[:-1] + (d - qk,))], -1)
+
+    q, k = padded(randn(b, sq, h, qk)), padded(randn(b, sk, kv, qk))
+    return q, k, randn(b, sk, kv, dv), randn(b, sq, h, dv)
 
 
 def time_flash_bwd(gen: torch.Generator, max_abs_err: float, name, b, sq,
-                   sk, h, kv, d, kind, window, off) -> dict:
+                   sk, h, kv, qk, d, dv, kind, window, off) -> dict:
     """The flash backward's device time at one shape against SDPA's
-    backward (causal: every timed shape's mask is causal in effect) and
-    both bounds, each of its CUDA kernels' own time, and which of SDPA's
-    kernels ran."""
+    backward on the same (padded) inputs (causal: every timed shape's mask
+    is causal in effect) and both bounds, each of its CUDA kernels' own
+    time, and which of SDPA's kernels ran.  The bound counts the work of
+    the function at its own qk (inputs and gradients at width qk, the five
+    products over qk and dv); the work at the padded d is printed beside
+    it."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda,
         mask_for,
     )
     from repro_torch.kernels.flash_attention_bwd import (
-        WIDE,
+        WIDE_PAIRS,
         flash_attention_bwd_cuda,
         flash_attention_bwd_plain,
         wide_ctas,
         wide_splits,
     )
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
-
-    q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
-    dout = randn(b, sq, h, d)
-    kw = dict(mask_kind=kind, window=window, q_offset=off)
+    q, k, v, dout = flash_bwd_inputs(gen, b, sq, sk, h, kv, qk, d, dv)
+    kw = dict(mask_kind=kind, window=window, q_offset=off,
+              scale=qk ** -0.5)
     mask = mask_for(kind, sq, sk, window, off, "cuda")
     if not torch.equal(mask, mask_for("causal", sq, sk, 0, 0, "cuda")):
         fail(f"flash_attention_bwd {name}: timed shapes must be causal in "
              f"effect (SDPA's backward runs is_causal)")
     out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     pairs = int(mask.sum())
-    flops = 2.0 * b * h * pairs * (3 * d + 2 * d)          # five products
-    flops_done = 2.0 * b * h * pairs * (4 * d + 3 * d)     # as designed
-    total = nbytes(q, k, v, out, dout, lse) + nbytes(q, k, v)
+
+    def five(w):                       # the formula's products at qk = w
+        return 2.0 * b * h * pairs * (3 * w + 2 * dv)
+
+    def moved(w):                      # inputs and gradients once, bytes
+        return 2 * 2 * (b * sq * h * w + b * sk * kv * (w + dv)) \
+            + nbytes(out, dout, lse)
+
+    flops, total = five(qk), moved(qk)
+    flops_done = 2.0 * b * h * pairs * (4 * d + 3 * dv)    # as designed
     b_ms, b_by = bound(flops, total)
 
     def kernel():
@@ -525,7 +606,7 @@ def time_flash_bwd(gen: torch.Generator, max_abs_err: float, name, b, sq,
     plain_ms = device_ms(
         lambda: flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw), 3)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    lib_out = sdpa(qg, kg, vg, causal=True)
+    lib_out = sdpa(qg, kg, vg, causal=True, scale=qk ** -0.5)
     lib_dout = dout.transpose(1, 2)
 
     def library():
@@ -535,14 +616,18 @@ def time_flash_bwd(gen: torch.Generator, max_abs_err: float, name, b, sq,
     lib_ms = device_ms(library, 20)
     ran = kernel_times(library, 1,
                        r"(?i)^.*(fmha|flash|attn|attention|cudnn|mha).*$")
-    b7_ms = bound(flops_done, total)[0]
+    b7_ms = bound(flops_done, moved(d))[0]
+    padded = "" if qk == d else (
+        f"; at the padded {d}: {five(d) / 1e9:.2f} GFLOP, "
+        f"{moved(d) / 1e6:.2f} MB, bound {bound(five(d), moved(d))[0]:.4f} "
+        f"ms")
     print(f"[kernels] flash_attention_bwd {name}: kernel {ms:.4f} ms on the "
           f"device, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP in the five "
-          f"products; {flops_done / 1e9:.2f} GFLOP as designed = "
-          f"{b7_ms:.4f} ms; {total / 1e6:.2f} MB); kernel at {b_ms / ms:.1%} "
-          f"of the five-product bound and {b7_ms / ms:.1%} of the "
-          f"seven-product one; SDPA's backward ran "
+          f"products; {total / 1e6:.2f} MB{padded}; {flops_done / 1e9:.2f} "
+          f"GFLOP as designed = {b7_ms:.4f} ms); kernel at "
+          f"{b_ms / ms:.1%} of the five-product bound and {b7_ms / ms:.1%} "
+          f"of the seven-product one; SDPA's backward ran "
           f"{[k[:90] for k in ran] or 'not measured'}", flush=True)
     # Each of the wrapper's CUDA kernels on its own (delta, dK/dV, dQ).
     parts = kernel_times(kernel, 10, r"flash_bwd_\w+")
@@ -550,14 +635,14 @@ def time_flash_bwd(gen: torch.Generator, max_abs_err: float, name, b, sq,
     print(f"[kernels] flash_attention_bwd {name}: device ms per call by "
           f"CUDA kernel (torch.profiler, 10 calls): "
           f"{by_kernel or 'not measured'}", flush=True)
-    if d >= WIDE:
+    if (d, dv) in WIDE_PAIRS:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         splits = wide_splits(b, sq, sk, h, kv, kind, window, off, sms=sms)
         print(f"[kernels] flash_attention_bwd {name}: CTAs an SM (dK/dV, "
-              f"dQ) {wide_ctas(torch.device('cuda', 0))}; dK/dV in "
+              f"dQ) {wide_ctas(torch.device('cuda', 0), d, dv)}; dK/dV in "
               f"{splits} head slices, {kv * splits * b * -(-sk // 64)} CTAs "
               f"on {sms} SMs", flush=True)
-    return dict(shape=f"B{b} S{sq} H{h} KV{kv} D{d} {kind}",
+    return dict(shape=f"B{b} S{sq} H{h} KV{kv} qk{qk} D{d} Dv{dv} {kind}",
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
@@ -1796,16 +1881,20 @@ def phase_train() -> dict:
     return launches
 
 
-def phase_train_check(arch: str = "yi-6b",
-                      layers: int = TRAIN_LAYERS) -> None:
+def phase_train_check(arch: str = "yi-6b", layers: int = TRAIN_LAYERS,
+                      remat: bool = True) -> None:
     """One step's gradients of ``arch`` at full width and ``layers``
     layers, from the same fp32 weights and batch, through the kernels and
     through the plain versions (``backend="ref"``): each stacked leaf
     within max(MODEL_REL_L2, 2 x floor) relative L2, the floor being the
     plain path in bf16 against it in fp32.  Gradients only, no optimizer
-    state, so that two sets fit beside the weights; the plain runs
-    recompute each layer in the backward (remat) to keep their quadratic
-    attention's (and chunked scan's) activations small."""
+    state, so that two sets fit beside the weights; with ``remat`` the
+    plain runs recompute each layer in the backward to keep their
+    quadratic attention's (and chunked scan's) activations small.  In a
+    MoE arch the plain bf16 run's experts are replayed in the other two
+    (:class:`Routes`, call by call, so without remat, whose backward
+    would route each layer again), and the share of routings each would
+    have changed is printed."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1822,19 +1911,38 @@ def phase_train_check(arch: str = "yi-6b",
     batch = data.batch_for_step(cfg, InputShape("check", PROMPT, B, "train"),
                                 0, device="cuda")
 
-    def grads(backend, dtype, remat):
-        total, _ = lm.loss_fn(cfg, params, batch, backend=backend,
-                              dtype=dtype, remat=remat)
-        g = torch.autograd.grad(total, leaves)
+    if cfg.moe is not None and remat:
+        fail(f"train check {arch}: the routing replay counts calls, which "
+             f"remat repeats")
+    routes = {}
+
+    def grads(backend, dtype, recompute, name):
+        replay = routes.get("plain bf16")
+        with Routes(replay) as picks:
+            total, _ = lm.loss_fn(cfg, params, batch, backend=backend,
+                                  dtype=dtype, remat=recompute)
+            g = torch.autograd.grad(total, leaves)
         torch.cuda.synchronize()
+        routes[name] = picks
         return float(total.detach()), g
 
     t0 = time.perf_counter()
-    loss_ref, plain = grads("ref", torch.bfloat16, True)
-    loss_truth, truth = grads("ref", torch.float32, True)
+    loss_ref, plain = grads("ref", torch.bfloat16, remat, "plain bf16")
+    loss_truth, truth = grads("ref", torch.float32, remat, "plain fp32")
     floors = [rel_l2(p, t) for p, t in zip(plain, truth)]
     del truth
-    loss_kernel, kernel = grads("kernel", torch.bfloat16, False)
+    loss_kernel, kernel = grads("kernel", torch.bfloat16, False, "kernels")
+    if cfg.moe is not None:
+        calls = {name: len(p) for name, p in routes.items()}
+        if len(set(calls.values())) != 1 or not routes["kernels"]:
+            fail(f"train check {arch}: routing calls {calls}")
+        print(f"[train-check] {arch} MoE routings the other runs would have "
+              f"sent to another set of experts (all three take the plain "
+              f"bf16 run's): kernels vs plain bf16 "
+              f"{rerouted(routes['plain bf16'], routes['kernels'])}, plain "
+              f"fp32 vs plain bf16 "
+              f"{rerouted(routes['plain bf16'], routes['plain fp32'])}",
+              flush=True)
     worst = 0.0
     for path, k, p, floor in zip(paths, kernel, plain, floors):
         if not torch.isfinite(k).all():
@@ -1854,7 +1962,7 @@ def phase_train_check(arch: str = "yi-6b",
           f"{loss_ref!r}, plain fp32 {loss_truth!r}; worst error at "
           f"{worst:.1%} of its bound; {time.perf_counter() - t0:.1f}s",
           flush=True)
-    del params, leaves, kernel, plain
+    del params, leaves, kernel, plain, routes
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1911,6 +2019,41 @@ def phase_train_recurrentgemma() -> dict:
     return run["launches"]
 
 
+def phase_train_mla(arch: str, layers: int, peak_gib: float) -> dict:
+    """Full-width ``arch`` (minicpm3-4b or deepseek-v2-lite-16b) cut to
+    ``layers`` layers for MLA_STEPS steps: every loss finite, one flash
+    forward and one flash backward launch per layer and step (at (128,
+    64) or (192, 128)), the peak under ``peak_gib``; then where a step's
+    device time goes."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.mla import padded_qk_dim
+
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    m = cfg.mla
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    dense = min(layers, cfg.moe.first_dense_layers) if cfg.moe else layers
+    print(f"[train] {arch} at full width, depth cut {full.n_layers} -> "
+          f"{layers} layers ({dense} dense"
+          + (f", {layers - dense} MoE of {cfg.moe.n_experts} experts top "
+             f"{cfg.moe.top_k}" if cfg.moe else "")
+          + f"; {cfg.n_heads} heads, qk {qk} run as "
+          f"{padded_qk_dim(qk, m.v_head_dim)} beside v {m.v_head_dim}); "
+          f"{cfg.n_params() / 1e9:.3f} B parameters, "
+          f"{cfg.n_params() * 16 / 2**30:.2f} GiB of fp32 weights, "
+          f"gradients and AdamW moments", flush=True)
+    run = train_run(train_args(layers, arch) + ["--steps", str(MLA_STEPS)],
+                    layers, MLA_STEPS)
+    peak = run["run"]["peak_bytes"] / 2**30
+    if peak > peak_gib:
+        fail(f"{arch} at {layers} layers peaked at {peak:.2f} GiB, over the "
+             f"{peak_gib} GiB headroom rule")
+    profile_train_step(arch, layers)
+    return run["launches"]
+
+
 def phase_train_multi() -> dict:
     """``--jobs yi-6b:8,yi-6b:2`` at full width and 2 layers under SRTF and
     FIFO: every job finishes."""
@@ -1964,9 +2107,13 @@ def main() -> None:
         counts = timed("serve", phase_serve, jobs, path_kernels, pacing)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
-    for phase in (phase_train, phase_train_mamba2,
-                  phase_train_recurrentgemma, phase_train_multi):
-        counts = timed("train", phase)
+    for phase, *args in (
+            (phase_train,), (phase_train_mamba2,),
+            (phase_train_recurrentgemma,), (phase_train_multi,),
+            (phase_train_mla, "minicpm3-4b", MLA_LAYERS, MLA_PEAK_GIB),
+            (phase_train_mla, "deepseek-v2-lite-16b", DSV2_LAYERS,
+             DSV2_PEAK_GIB)):
+        counts = timed("train", phase, *args)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     timed("train-check", phase_train_check)
@@ -1974,6 +2121,10 @@ def main() -> None:
           MAMBA_CHECK_LAYERS)
     timed("train-check", phase_train_check, "recurrentgemma-2b",
           RG_CHECK_LAYERS)
+    timed("train-check", phase_train_check, "minicpm3-4b",
+          MLA_CHECK_LAYERS)
+    timed("train-check", phase_train_check, "deepseek-v2-lite-16b",
+          DSV2_CHECK_LAYERS, False)
     timed("scenario", phase_scenario_kernels)
     timed("sweep", phase_executor_sweep)
     sources = {

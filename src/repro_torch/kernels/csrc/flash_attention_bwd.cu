@@ -67,11 +67,14 @@
 // Left for later: overlapping one step's softmax with the next step's
 // products inside a warpgroup, persistent CTAs.
 //
-// Head dims (D, Dv): (64, 64) and (128, 128) by the kernels above; (256,
-// 256), recurrentgemma-2b's local attention, by two kernels of their own
-// (flash_bwd_dkdv_wide_kernel, flash_bwd_dq_wide_kernel, below the dQ
-// kernel) whose two warpgroups share each step, since a thread of the
-// split design would need 320 registers there.
+// Head dims (D, Dv): (64, 64), (128, 128) and (128, 64) (minicpm3-4b's
+// MLA, qk 96 zero-padded to 128) by the kernels above; (256, 256),
+// recurrentgemma-2b's local attention, and (192, 128), deepseek-v2-lite's
+// MLA, by two kernels of their own (flash_bwd_dkdv_wide_kernel,
+// flash_bwd_dq_wide_kernel, below the dQ kernel) whose two warpgroups
+// share each step, since a thread of the split design would need 320 (at
+// (256, 256)) or ~256 (at (192, 128)) registers there, and (192, 128)'s
+// split dQ tiles 245,760 B of shared memory.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -104,6 +107,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t POLLS = 1u << 22;
 
 enum MaskKind { MASK_NONE = 0, MASK_CAUSAL = 1, MASK_WINDOW = 2 };
+
+// A compile-time int as a value, to instantiate a generic lambda per role.
+template <int V>
+struct Int {
+    static constexpr int value = V;
+};
 
 // Whether the query at position qpos (q_offset included) sees `key`;
 // without branches, so that an edge tile masks by selects.
@@ -651,18 +660,22 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
-// ------------------------------------------------- (256, 256): dK/dV
+// ------------------------------------------- wide pairs: dK/dV
 // At D = Dv = 256 the split-step design above fits neither registers nor
 // shared memory: a thread of it holds dK and dV (256 fp32) beside S^T and
-// dP^T, and K, V and a four-stage ring of Q and dO take 323 KB.  Here the
+// dP^T, and K, V and a four-stage ring of Q and dO take 323 KB.  At (192,
+// 128) a thread of it would hold 96 + 64 fp32 of dK and dV beside S^T,
+// dP^T and their bf16 fragments, about 256 registers.  Here the
 // two warpgroups of a CTA work on the same steps instead: warpgroup 0
 // forms S^T = K Q^T and P^T, hands P^T (bf16, the values its own dV
 // product takes) to warpgroup 1 through shared memory and accumulates dV
 // += P^T dO; warpgroup 1 forms dP^T = V dO^T, then dS^T from P^T, and
-// accumulates dK += dS^T Q.  Each thread holds one 64 x 256 accumulator
-// (128 fp32) and one 64 x 64 product (32).  The ring has WKV_STAGES
-// stages of Q, dO, lse and delta (64.5 KB each; a third does not fit
-// beside K and V).
+// accumulates dK += dS^T Q.  Each thread holds one 64 x D accumulator
+// (128 fp32 at D 256; at (192, 128) warpgroup 0's dV uses the first 64 of
+// its 96) and one 64 x 64 product (32).  S^T and dK run over D, dP^T and
+// dV over Dv.  The ring has WKV_STAGES stages of Q, dO, lse and delta
+// (64.5 KB each at (256, 256), a third does not fit beside K and V; 40.5
+// KB at (192, 128)).
 //
 // What bounds it: the data the ring brings in.  Timed alone, the first
 // design's loads took 0.078 of its 0.135 ms at recurrentgemma-2b's
@@ -687,8 +700,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 //   so a CTA takes a slice of its group's heads instead (`splits` slices,
 //   chosen by the wrapper so that the heaviest CTA walks no more steps
 //   than the average SM): each slice writes fp32 parts of dK and dV, and
-//   flash_bwd_dkdv_reduce_kernel sums them in slice order (one slice
-//   included).  Summed inside a thread block cluster of the slices
+//   flash_bwd_dkdv_reduce_kernel sums them in slice order.  At one slice
+//   (G 1: deepseek-v2-lite's MLA, whose rope key is expanded over the
+//   heads) the CTA stages the bf16 gradients where K and V lay and stores
+//   them by TMA (the ONE instantiation); the parts and the fourth launch
+//   took 0.046 ms and more of 0.376 ms at its training shape (H100 at 700
+//   W).  Summed inside a thread block cluster of the slices
 //   instead, through distributed shared memory, the sum took longer than
 //   the parts and the fourth launch, and clusters of 5 CTAs of this size
 //   fit only 22 at once on 132 SMs.
@@ -712,39 +729,48 @@ constexpr bool V_SOFTMAX = VARIANT == 0 || VARIANT >= 3;
 constexpr bool V_HANDOFF = VARIANT == 0 || VARIANT == 4;
 constexpr bool V_SUM = VARIANT != 4;
 
-template <int D>
+template <int D, int DV>
 struct KvWideLayout {
     static constexpr uint32_t k_bytes = BN * D * 2;
+    static constexpr uint32_t v_bytes = BN * DV * 2;
     static constexpr uint32_t q_bytes = BM * D * 2;
+    static constexpr uint32_t do_bytes = BM * DV * 2;
     static constexpr uint32_t st_bytes = 2 * BM * 4;
     static constexpr uint32_t p_bytes = BN * BM * 2;     // bf16 P^T
     static constexpr uint32_t k_off = 0;
     static constexpr uint32_t v_off = k_off + k_bytes;
-    static constexpr uint32_t q_off = v_off + k_bytes;
+    static constexpr uint32_t q_off = v_off + v_bytes;
     static constexpr uint32_t do_off = q_off + WKV_STAGES * q_bytes;
-    static constexpr uint32_t st_off = do_off + WKV_STAGES * q_bytes;
+    static constexpr uint32_t st_off = do_off + WKV_STAGES * do_bytes;
     static constexpr uint32_t p_off = st_off + WKV_STAGES * st_bytes;
     static constexpr uint32_t bar_off = p_off + HANDOFF * p_bytes;
     // K/V's; per stage: full, Q's empty, dO's empty; per buffer: P's full
     // and empty
     static constexpr int n_bars = 1 + 3 * WKV_STAGES + 2 * HANDOFF;
     static constexpr uint32_t bytes = bar_off + 8 * n_bars + 1024;
-    static constexpr uint32_t stage_tx = 2 * q_bytes + st_bytes;
+    static constexpr uint32_t stage_tx = q_bytes + do_bytes + st_bytes;
 };
-static_assert(KvWideLayout<256>::bytes <= 232448, "dK/dV (256, 256) fits");
+static_assert(KvWideLayout<256, 256>::bytes <= 232448, "dK/dV (256, 256) fits");
+static_assert(KvWideLayout<192, 128>::bytes <= 232448, "dK/dV (192, 128) fits");
 
-template <int D>
+// ONE: the grid takes each group's heads in one slice (splits == 1), and
+// the CTA stores the bf16 gradients itself instead of fp32 parts.
+template <int D, int DV, bool ONE>
 __global__ void __launch_bounds__(KV_THREADS, 1)
 flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tdo,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tst,
+                           const __grid_constant__ CUtensorMap tdk,
+                           const __grid_constant__ CUtensorMap tdv,
                            float* __restrict__ part, int splits, int Sq,
                            int Sk, int H, int KV, int mask_kind, int window,
                            int q_offset, float scale) {
-    using L = KvWideLayout<D>;
+    using L = KvWideLayout<D, DV>;
     constexpr int BOXES = D / BOX;
+    constexpr int VBOXES = DV / BOX;
+    static_assert(D >= DV, "K's boxes cover V's");
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem =
         smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -812,8 +838,8 @@ flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
         const int m0 = (t_lo + i % n_qt) * BM;
         mbar_arrive_expect_tx(full + s, L::stage_tx);
 #pragma unroll
-        for (int c = 0; c < BOXES; ++c)
-            tma_load_4d(dOs + s * BM * D + c * BM * BOX, &tdo, full + s,
+        for (int c = 0; c < VBOXES; ++c)
+            tma_load_4d(dOs + s * BM * DV + c * BM * BOX, &tdo, full + s,
                         c * BOX, h, m0, b);
     };
     auto load_q = [&](int i) {
@@ -827,11 +853,13 @@ flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
         tma_load_4d(Sts + s * 2 * BM, &tst, full + s, m0, 0, h, b);
     };
     if (tid == 0) {
-        mbar_arrive_expect_tx(kv_full, 2 * L::k_bytes);
+        mbar_arrive_expect_tx(kv_full, L::k_bytes + L::v_bytes);
 #pragma unroll
         for (int c = 0; c < BOXES; ++c) {
             tma_load_4d(Ks + c * BN * BOX, &tk, kv_full, c * BOX, hk, n0, b);
-            tma_load_4d(Vs + c * BN * BOX, &tv, kv_full, c * BOX, hk, n0, b);
+            if (c < VBOXES)
+                tma_load_4d(Vs + c * BN * BOX, &tv, kv_full, c * BOX, hk, n0,
+                            b);
         }
         for (int i = 0; i < min(n_steps, WKV_STAGES); ++i) {
             load_do(i);
@@ -843,174 +871,223 @@ flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
     const int key0 = n0 + 16 * warp + lane / 4;
     const int col_in = 2 * (lane % 4);
 
-    // dV (warpgroup 0) or dK (warpgroup 1), 64 keys x D.
-    float acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    // The first product's A: K (S^T = K Q^T) or V (dP^T = V dO^T).
-    const uint64_t a_desc = desc_sw128(wg == 0 ? Ks : Vs, 0, 1024);
-    // A fragments of P^T or dS^T, read by the step's second product until
-    // the next step's wait.
-    uint32_t xa[BM / 16][4];
     mbar_wait(kv_full, 0, POLLS);
-    for (int i = 0; i < n_steps; ++i) {
-        const int s = i % WKV_STAGES;
-        const uint32_t parity = (i / WKV_STAGES) & 1;
-        const int hb = i % HANDOFF;
-        const uint32_t hparity = (i / HANDOFF) & 1;
-        const int m0 = (t_lo + i % n_qt) * BM;
-        const bf16* q_st = Qs + s * BM * D;
-        const bf16* do_st = dOs + s * BM * D;
-        const float* lse_st = Sts + s * 2 * BM;
-        const float* dlt_st = lse_st + BM;
-        uint32_t* p_st = Ps + hb * (BN * BM / 2);
-        mbar_wait(full + s, parity, POLLS);
-        __syncwarp();
-
-        // S^T or dP^T: keys x queries, 64 x 64; the wait also retires the
-        // previous step's dV or dK product.
-        float x[BM / 2];
-        if constexpr (V_PRODUCTS) {
-            wgmma_fence();
-            wgmma_ss_tiles<D>(x, per_step(a_desc), BN * BOX * 2,
-                              desc_sw128(wg == 0 ? q_st : do_st, 0, 1024),
-                              BM * BOX * 2);
-            wgmma_commit();
-            wgmma_wait<0>();
-        } else {
+    // Warpgroup 0 forms S^T over D and P^T and accumulates dV (64 keys x
+    // Dv); warpgroup 1 forms dP^T over Dv and dS^T and accumulates dK (64
+    // keys x D).  Each runs the loop of its own role (WG fixed at compile
+    // time), so that no wgmma lies behind a branch on the warpgroup:
+    // products of two widths behind such a branch made ptxas serialize
+    // every wgmma of the kernel (C7520).
+    auto role = [&](auto wg_tag) {
+        constexpr int WG = decltype(wg_tag)::value;
+        constexpr int W = WG == 0 ? DV : D;      // accumulator columns
+        constexpr int DEPTH = WG == 0 ? D : DV;  // first product's depth
+        float acc[W / 2];
 #pragma unroll
-            for (int j = 0; j < BM / 2; ++j) x[j] = 0.f;
-        }
-        fence_regs<BM / 2>(x);
-        fence_regs<D / 2>(acc);
-        __syncwarp();
-        // The stage of step i - 1, whose halves this step frees.
-        const int sp = (i + WKV_STAGES - 1) % WKV_STAGES;
-        const uint32_t was = ((i - 1) / WKV_STAGES) & 1;
-        const bool refill = i >= 1 && i - 1 + WKV_STAGES < n_steps;
-        if (wg == 0) {
-            // dV of step i - 1 is done, and warpgroup 1 took its dP^T
-            // before P^T: dO's half of that stage is free.
-            if (i >= 1) {
-                if (lane == 0) mbar_arrive(do_empty + sp);
-                if (ct == 0 && refill) {
-                    mbar_wait(do_empty + sp, was, POLLS);
-                    load_do(i - 1 + WKV_STAGES);
-                }
-            }
-            // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked.
-            if constexpr (V_SOFTMAX) {
-                const bool edge =
-                    edge_tile(m0, n0, Sq, Sk, mask_kind, window, q_offset);
-#pragma unroll
-                for (int j = 0; j < BM / 2; ++j) {
-                    const int col = 8 * (j / 4) + col_in + (j & 1);
-                    float p = ex2(x[j] * scale_log2 - lse_st[col]);
-                    if (edge) {
-                        const int key = key0 + ((j & 2) ? 8 : 0);
-                        const int row = m0 + col;
-                        const bool ok = (key < Sk) & (row < Sq) &
-                            visible(mask_kind, window, q_offset + row, key);
-                        p = ok ? p : 0.f;
-                    }
-                    x[j] = p;
-                }
-            }
+        for (int j = 0; j < W / 2; ++j) acc[j] = 0.f;
+        // The first product's A: K (S^T = K Q^T) or V (dP^T = V dO^T).
+        const uint64_t a_desc = desc_sw128(WG == 0 ? Ks : Vs, 0, 1024);
+        // A fragments of P^T or dS^T, read by the step's second product
+        // until the next step's wait.
+        uint32_t xa[BM / 16][4];
+        for (int i = 0; i < n_steps; ++i) {
+            const int s = i % WKV_STAGES;
+            const uint32_t parity = (i / WKV_STAGES) & 1;
+            const int hb = i % HANDOFF;
+            const uint32_t hparity = (i / HANDOFF) & 1;
+            const int m0 = (t_lo + i % n_qt) * BM;
+            const bf16* q_st = Qs + s * BM * D;
+            const bf16* do_st = dOs + s * BM * DV;
+            const float* lse_st = Sts + s * 2 * BM;
+            const float* dlt_st = lse_st + BM;
+            uint32_t* p_st = Ps + hb * (BN * BM / 2);
+            mbar_wait(full + s, parity, POLLS);
             __syncwarp();
-            if (lane == 0) mbar_arrive(q_empty + s);   // S^T and lse read
-            to_a<BM>(xa, x);
-            // P^T to warpgroup 1, each thread's pairs in its own column.
-            if constexpr (V_HANDOFF) {
-                if (i >= HANDOFF) mbar_wait(p_empty + hb, hparity ^ 1, POLLS);
+
+            // S^T or dP^T: keys x queries, 64 x 64; the wait also retires
+            // the previous step's dV or dK product.
+            float x[BM / 2];
+            if constexpr (V_PRODUCTS) {
+                wgmma_fence();
+                wgmma_ss_tiles<DEPTH>(
+                    x, per_step(a_desc), BN * BOX * 2,
+                    desc_sw128(WG == 0 ? q_st : do_st, 0, 1024),
+                    BM * BOX * 2);
+                wgmma_commit();
+                wgmma_wait<0>();
+            } else {
+#pragma unroll
+                for (int j = 0; j < BM / 2; ++j) x[j] = 0.f;
+            }
+            fence_regs<BM / 2>(x);
+            fence_regs<W / 2>(acc);
+            __syncwarp();
+            // The stage of step i - 1, whose halves this step frees.
+            const int sp = (i + WKV_STAGES - 1) % WKV_STAGES;
+            const uint32_t was = ((i - 1) / WKV_STAGES) & 1;
+            const bool refill = i >= 1 && i - 1 + WKV_STAGES < n_steps;
+            if constexpr (WG == 0) {
+                // dV of step i - 1 is done, and warpgroup 1 took its dP^T
+                // before P^T: dO's half of that stage is free.
+                if (i >= 1) {
+                    if (lane == 0) mbar_arrive(do_empty + sp);
+                    if (ct == 0 && refill) {
+                        mbar_wait(do_empty + sp, was, POLLS);
+                        load_do(i - 1 + WKV_STAGES);
+                    }
+                }
+                // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where
+                // masked.
+                if constexpr (V_SOFTMAX) {
+                    const bool edge = edge_tile(m0, n0, Sq, Sk, mask_kind,
+                                                window, q_offset);
+#pragma unroll
+                    for (int j = 0; j < BM / 2; ++j) {
+                        const int col = 8 * (j / 4) + col_in + (j & 1);
+                        float p = ex2(x[j] * scale_log2 - lse_st[col]);
+                        if (edge) {
+                            const int key = key0 + ((j & 2) ? 8 : 0);
+                            const int row = m0 + col;
+                            const bool ok = (key < Sk) & (row < Sq) &
+                                visible(mask_kind, window, q_offset + row,
+                                        key);
+                            p = ok ? p : 0.f;
+                        }
+                        x[j] = p;
+                    }
+                }
+                __syncwarp();
+                if (lane == 0) mbar_arrive(q_empty + s);   // S^T, lse read
+                to_a<BM>(xa, x);
+                // P^T to warpgroup 1, each thread's pairs in its own
+                // column.
+                if constexpr (V_HANDOFF) {
+                    if (i >= HANDOFF)
+                        mbar_wait(p_empty + hb, hparity ^ 1, POLLS);
+#pragma unroll
+                    for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            p_st[(4 * kk + e) * 128 + ct] = xa[kk][e];
+                    __syncwarp();
+                    if (lane == 0) mbar_arrive(p_full + hb);
+                }
+            } else {
+                // dO of step i is read: its half of the stage is free for
+                // this warpgroup.  dK of step i - 1 is done: Q's half of
+                // that stage too, and warpgroup 0 read it before it
+                // handed over P^T.
+                if (lane == 0) mbar_arrive(do_empty + s);
+                if (i >= 1) {
+                    if (lane == 0) mbar_arrive(q_empty + sp);
+                    if (ct == 0 && refill) {
+                        mbar_wait(q_empty + sp, was, POLLS);
+                        load_q(i - 1 + WKV_STAGES);
+                    }
+                }
+                // dS^T = P^T (dP^T - delta), in place of dP^T.
+                if constexpr (V_SOFTMAX) {
+                    if constexpr (V_HANDOFF)
+                        mbar_wait(p_full + hb, hparity, POLLS);
+#pragma unroll
+                    for (int j = 0; j < BM / 4; ++j) {
+                        const float2 p =
+                            V_HANDOFF ? unpack_bf16(p_st[j * 128 + ct])
+                                      : make_float2(x[2 * j], x[2 * j + 1]);
+                        const int col = 8 * (j / 2) + col_in;
+                        x[2 * j] = p.x * (x[2 * j] - dlt_st[col]);
+                        x[2 * j + 1] = p.y * (x[2 * j + 1] - dlt_st[col + 1]);
+                    }
+                    if constexpr (V_HANDOFF) {
+                        __syncwarp();
+                        if (lane == 0) mbar_arrive(p_empty + hb);
+                    }
+                }
+                to_a<BM>(xa, x);
+            }
+
+            // dV += P^T dO or dK += dS^T Q: dO and Q are [queries, width]
+            // with the width contiguous, MN-major B operands.  Not waited
+            // on here: the next step's first product goes in behind it.
+            if constexpr (V_PRODUCTS) {
+                __syncwarp();
+#pragma unroll
+                for (int kk = 0; kk < BM / 16; ++kk) fence_regs<4>(xa[kk]);
+                const uint64_t b_mn =
+                    desc_sw128(WG == 0 ? do_st : q_st, BM * BOX * 2, 1024);
+                wgmma_fence();
 #pragma unroll
                 for (int kk = 0; kk < BM / 16; ++kk)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e)
-                        p_st[(4 * kk + e) * 128 + ct] = xa[kk][e];
-                __syncwarp();
-                if (lane == 0) mbar_arrive(p_full + hb);
+                    wgmma_rs<W>(acc, xa[kk], desc_at(b_mn, kk * 16 * BOX * 2));
+                wgmma_commit();
             }
-        } else {
-            // dO of step i is read: its half of the stage is free for this
-            // warpgroup.  dK of step i - 1 is done: Q's half of that stage
-            // too, and warpgroup 0 read it before it handed over P^T.
-            if (lane == 0) mbar_arrive(do_empty + s);
-            if (i >= 1) {
-                if (lane == 0) mbar_arrive(q_empty + sp);
-                if (ct == 0 && refill) {
-                    mbar_wait(q_empty + sp, was, POLLS);
-                    load_q(i - 1 + WKV_STAGES);
-                }
-            }
-            // dS^T = P^T (dP^T - delta), in place of dP^T.
-            if constexpr (V_SOFTMAX) {
-                if constexpr (V_HANDOFF) mbar_wait(p_full + hb, hparity, POLLS);
-#pragma unroll
-                for (int j = 0; j < BM / 4; ++j) {
-                    const float2 p = V_HANDOFF ? unpack_bf16(p_st[j * 128 + ct])
-                                               : make_float2(x[2 * j], x[2 * j + 1]);
-                    const int col = 8 * (j / 2) + col_in;
-                    x[2 * j] = p.x * (x[2 * j] - dlt_st[col]);
-                    x[2 * j + 1] = p.y * (x[2 * j + 1] - dlt_st[col + 1]);
-                }
-                if constexpr (V_HANDOFF) {
-                    __syncwarp();
-                    if (lane == 0) mbar_arrive(p_empty + hb);
-                }
-            }
-            to_a<BM>(xa, x);
         }
+        wgmma_wait<0>();
+        fence_regs<W / 2>(acc);
 
-        // dV += P^T dO or dK += dS^T Q: dO and Q are [queries, width]
-        // with the width contiguous, MN-major B operands.  Not waited on
-        // here: the next step's first product goes in behind it.
-        if constexpr (V_PRODUCTS) {
-            __syncwarp();
+        if constexpr (ONE) {
+            // One slice (G 1, as MLA's expanded heads are): the bf16
+            // gradient, dK scaled with the reduction's arithmetic (so the
+            // same bits), staged where V (dV) or K (dK) lay once both
+            // warpgroups are done with them, and stored by TMA.
+            if constexpr (WG == 1) {
 #pragma unroll
-            for (int kk = 0; kk < BM / 16; ++kk) fence_regs<4>(xa[kk]);
-            const uint64_t b_mn =
-                desc_sw128(wg == 0 ? do_st : q_st, BM * BOX * 2, 1024);
-            wgmma_fence();
+                for (int j = 0; j < W / 2; ++j) acc[j] *= scale;
+            }
+            named_barrier_sync(1, KV_THREADS);
+            bf16* tile = WG == 0 ? Vs : Ks;
+            stage_bf16<W>(tile, BN * BOX * 2, acc, warp, lane);
+            fence_proxy_async();
+            named_barrier_sync(2 + WG, 128);
+            if (ct == 0) {
 #pragma unroll
-            for (int kk = 0; kk < BM / 16; ++kk)
-                wgmma_rs<D>(acc, xa[kk], desc_at(b_mn, kk * 16 * BOX * 2));
-            wgmma_commit();
+                for (int c = 0; c < W / BOX; ++c)
+                    tma_store_4d(WG == 0 ? &tdv : &tdk, tile + c * BN * BOX,
+                                 c * BOX, hk, n0, b);
+                bulk_commit();
+                bulk_wait_read<0>();
+            }
+            return;
         }
-    }
-    wgmma_wait<0>();
-    fence_regs<D / 2>(acc);
-
-    // This slice's fp32 part of dK or dV into part[wg == 0 ? 1 : 0, split,
-    // b, key, hk, :] ([2, splits, B, Sk, KV, D]), summed over the slices
-    // (and dK scaled) by flash_bwd_dkdv_reduce_kernel.
-    const long long n = (long long)gridDim.y * Sk * KV * D;
-    float* out = part + ((wg == 0 ? (long long)splits : 0) + split) * n +
-                 (long long)b * Sk * KV * D + hk * D;
+        // This slice's fp32 part of dK or dV: part holds the dK parts
+        // [splits, B, Sk, KV, D], then the dV parts [splits, B, Sk, KV,
+        // DV], summed over the slices (and dK scaled) by
+        // flash_bwd_dkdv_reduce_kernel.
+        const long long nk = (long long)gridDim.y * Sk * KV * D;
+        const long long nw = (long long)gridDim.y * Sk * KV * W;
+        float* out = part + (WG == 0 ? splits * nk : 0) + split * nw +
+                     ((long long)b * Sk * KV + hk) * W;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < W / 8; ++j)
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            const int key = key0 + 8 * r;
-            if (V_SUM && key < Sk)
-                *reinterpret_cast<float2*>(
-                    out + (long long)key * KV * D + 8 * j + col_in) =
-                    make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-        }
+            for (int r = 0; r < 2; ++r) {
+                const int key = key0 + 8 * r;
+                if (V_SUM && key < Sk)
+                    *reinterpret_cast<float2*>(
+                        out + (long long)key * KV * W + 8 * j + col_in) =
+                        make_float2(acc[4 * j + 2 * r],
+                                    acc[4 * j + 2 * r + 1]);
+            }
+    };
+    if (wg == 0) role(Int<0>{});
+    else role(Int<1>{});
 }
 
-// The slices' fp32 parts of dK and dV ([2, splits, n], n = B Sk KV D)
-// summed in slice order, dK scaled, into the bf16 gradients; four
-// elements a thread.
+// The slices' fp32 parts of dK and dV ([splits, nk] then [splits, nv],
+// nk = B Sk KV D, nv = B Sk KV Dv) summed in slice order, dK scaled, into
+// the bf16 gradients; four elements a thread.
 __global__ void __launch_bounds__(256)
 flash_bwd_dkdv_reduce_kernel(const float* __restrict__ part,
                              bf16* __restrict__ dk, bf16* __restrict__ dv,
-                             long long n, int splits, float scale) {
+                             long long nk, long long nv, int splits,
+                             float scale) {
     const long long i =
         ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-    if (i >= 2 * n) return;
-    const int which = i >= n;                  // 0: dK, 1: dV
-    const long long e = i - which * n;
-    const float* p = part + (long long)which * splits * n + e;
+    if (i >= nk + nv) return;
+    const int which = i >= nk;                 // 0: dK, 1: dV
+    const long long e = i - which * nk;
+    const long long n = which ? nv : nk;
+    const float* p = part + (long long)which * splits * nk + e;
     float4 s = *reinterpret_cast<const float4*>(p);
     for (int k = 1; k < splits; ++k) {
         const float4 v = *reinterpret_cast<const float4*>(p + k * n);
@@ -1026,11 +1103,12 @@ flash_bwd_dkdv_reduce_kernel(const float* __restrict__ part,
     *reinterpret_cast<uint2*>((which ? dv : dk) + e) = o;
 }
 
-// ---------------------------------------------------- (256, 256): dQ
+// ------------------------------------------------- wide pairs: dQ
 // One CTA per (batch, head, 64 queries), 256 threads.  The two
 // warpgroups split each 64-key tile: warpgroup w takes keys 32w .. 32w +
-// 31 and computes, for all 64 queries, S = Q K_w^T, P, dP = dO V_w^T, dS
-// and dQ_w += dS K_w (dS from registers, 64 x 256 fp32 a thread).  So
+// 31 and computes, for all 64 queries, S = Q K_w^T (over D), P, dP = dO
+// V_w^T (over Dv), dS and dQ_w += dS K_w (dS from registers, 64 x D fp32
+// a thread).  So
 // neither waits for the other inside the loop, each one's exponentials
 // run while the other's products do, and no P or dS passes between them;
 // the two dQ_w are summed once at the end, warpgroup 0's plus warpgroup
@@ -1057,24 +1135,27 @@ flash_bwd_dkdv_reduce_kernel(const float* __restrict__ part,
 constexpr int WQ_K_STAGES = 3;       // K ring of the wide dQ kernel
 constexpr int WQ_V_STAGES = 2;       // V ring of the wide dQ kernel
 
-template <int D>
+template <int D, int DV>
 struct QWideLayout {
     static constexpr uint32_t q_bytes = BM * D * 2;
-    static constexpr uint32_t k_bytes = BN * D * 2;      // K or V of a tile
+    static constexpr uint32_t do_bytes = BM * DV * 2;
+    static constexpr uint32_t k_bytes = BN * D * 2;      // K of a tile
+    static constexpr uint32_t v_bytes = BN * DV * 2;     // V of a tile
     static constexpr uint32_t q_off = 0;
     static constexpr uint32_t do_off = q_off + q_bytes;
-    static constexpr uint32_t k_off = do_off + q_bytes;
+    static constexpr uint32_t k_off = do_off + do_bytes;
     static constexpr uint32_t v_off = k_off + WQ_K_STAGES * k_bytes;
-    static constexpr uint32_t bar_off = v_off + WQ_V_STAGES * k_bytes;
+    static constexpr uint32_t bar_off = v_off + WQ_V_STAGES * v_bytes;
     // Q/dO's; per K stage full and empty; per V stage full and empty.
     static constexpr int n_bars = 1 + 2 * WQ_K_STAGES + 2 * WQ_V_STAGES;
     static constexpr uint32_t bytes = bar_off + 8 * n_bars + 1024;
     // After the loop, warpgroup 1's fp32 dQ lies over the K stages.
     static_assert(BM * D * 4 <= WQ_K_STAGES * k_bytes, "dQ part fits K's ring");
 };
-static_assert(QWideLayout<256>::bytes <= 232448, "dQ (256, 256) fits");
+static_assert(QWideLayout<256, 256>::bytes <= 232448, "dQ (256, 256) fits");
+static_assert(QWideLayout<192, 128>::bytes <= 232448, "dQ (192, 128) fits");
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(KV_THREADS, 1)
 flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tdo,
@@ -1084,9 +1165,11 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
                          const float* __restrict__ stats, int Sq, int Sq_pad,
                          int Sk, int H, int KV, int mask_kind, int window,
                          int q_offset, float scale) {
-    using L = QWideLayout<D>;
+    using L = QWideLayout<D, DV>;
     constexpr int KW = BN / 2;                 // keys a warpgroup
     constexpr int BOXES = D / BOX;
+    constexpr int VBOXES = DV / BOX;
+    static_assert(D >= DV, "Q's boxes cover dO's");
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem =
         smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -1146,18 +1229,20 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
     };
     auto load_v = [&](int i) {
         const int s = i % WQ_V_STAGES;
-        mbar_arrive_expect_tx(v_full + s, L::k_bytes);
+        mbar_arrive_expect_tx(v_full + s, L::v_bytes);
 #pragma unroll
-        for (int c = 0; c < BOXES; ++c)
-            tma_load_4d(Vs + s * BN * D + c * BN * BOX, &tv, v_full + s,
+        for (int c = 0; c < VBOXES; ++c)
+            tma_load_4d(Vs + s * BN * DV + c * BN * BOX, &tv, v_full + s,
                         c * BOX, hk, (t_lo + i) * BN, b);
     };
     if (tid == 0 && n_tiles > 0) {
-        mbar_arrive_expect_tx(q_full, 2 * L::q_bytes);
+        mbar_arrive_expect_tx(q_full, L::q_bytes + L::do_bytes);
 #pragma unroll
         for (int c = 0; c < BOXES; ++c) {
             tma_load_4d(Qs + c * BM * BOX, &tq, q_full, c * BOX, h, m0, b);
-            tma_load_4d(dOs + c * BM * BOX, &tdo, q_full, c * BOX, h, m0, b);
+            if (c < VBOXES)
+                tma_load_4d(dOs + c * BM * BOX, &tdo, q_full, c * BOX, h, m0,
+                            b);
         }
         for (int i = 0; i < min(n_tiles, WQ_K_STAGES); ++i) load_k(i);
         for (int i = 0; i < min(n_tiles, WQ_V_STAGES); ++i) load_v(i);
@@ -1206,9 +1291,9 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
             desc_at(desc_sw128(Ks + ks * BN * D, 0, 1024), key_off),
             BN * BOX * 2);
         wgmma_commit();
-        wgmma_ss_tiles<D, KW>(
+        wgmma_ss_tiles<DV, KW>(
             dp_acc, per_step(do_desc), BM * BOX * 2,
-            desc_at(desc_sw128(Vs + vs * BN * D, 0, 1024), key_off),
+            desc_at(desc_sw128(Vs + vs * BN * DV, 0, 1024), key_off),
             BN * BOX * 2);
         wgmma_commit();
     };
@@ -1468,10 +1553,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     return cudaGetLastError();
 }
 
-// The (256, 256) pair: the delta pass, then the two kernels whose
-// warpgroups share each step, with the sum of the dK/dV slices' parts
-// between them.
-template <int D>
+// The wide pairs ((256, 256) and (192, 128)): the delta pass, then the
+// two kernels whose warpgroups share each step, with the sum of the dK/dV
+// slices' parts between them.
+template <int D, int DV>
 cudaError_t launch_wide(const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const void* lse,
                         void* stats, void* dq, void* dk, void* dv, void* part,
@@ -1480,47 +1565,53 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
                         cudaStream_t stream) {
     const int Sq_pad = (Sq + BM - 1) / BM * BM;
     cudaError_t err =
-        launch_delta<D>(out, dout, lse, stats, B, Sq, Sq_pad, H, stream);
+        launch_delta<DV>(out, dout, lse, stats, B, Sq, Sq_pad, H, stream);
     if (err != cudaSuccess) return err;
 
-    CUtensorMap tq, tdo, tk, tv, tst, tdq;
+    CUtensorMap tq, tdo, tk, tv, tst, tdq, tdk, tdv;
     const cuuint64_t st_dims[4] = {(cuuint64_t)Sq_pad, 2, (cuuint64_t)H,
                                    (cuuint64_t)B};
     const cuuint32_t st_box[4] = {BM, 2, 1, 1};
     err = bf16_map(&tq, q, D, H, Sq, B, BM);
-    if (err == cudaSuccess) err = bf16_map(&tdo, dout, D, H, Sq, B, BM);
+    if (err == cudaSuccess) err = bf16_map(&tdk, dk, D, KV, Sk, B, BN);
+    if (err == cudaSuccess) err = bf16_map(&tdv, dv, DV, KV, Sk, B, BN);
+    if (err == cudaSuccess) err = bf16_map(&tdo, dout, DV, H, Sq, B, BM);
     if (err == cudaSuccess) err = bf16_map(&tk, k, D, KV, Sk, B, BN);
-    if (err == cudaSuccess) err = bf16_map(&tv, v, D, KV, Sk, B, BN);
+    if (err == cudaSuccess) err = bf16_map(&tv, v, DV, KV, Sk, B, BN);
     if (err == cudaSuccess)
         err = make_map(&tst, stats, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                        st_dims, st_box, CU_TENSOR_MAP_SWIZZLE_NONE);
     if (err == cudaSuccess) err = bf16_map(&tdq, dq, D, H, Sq, B, BM);
     if (err != cudaSuccess) return err;
 
-    auto kv_kern = flash_bwd_dkdv_wide_kernel<D>;
-    constexpr int kv_bytes = KvWideLayout<D>::bytes;
+    // One slice stores the bf16 gradients itself; more write fp32 parts.
+    auto kv_kern = splits == 1 ? flash_bwd_dkdv_wide_kernel<D, DV, true>
+                               : flash_bwd_dkdv_wide_kernel<D, DV, false>;
+    constexpr int kv_bytes = KvWideLayout<D, DV>::bytes;
     err = cudaFuncSetAttribute(kv_kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kv_bytes);
     if (err != cudaSuccess) return err;
     kv_kern<<<dim3(KV * splits, B, (Sk + BN - 1) / BN), KV_THREADS,
-              kv_bytes, stream>>>(tq, tdo, tk, tv, tst,
+              kv_bytes, stream>>>(tq, tdo, tk, tv, tst, tdk, tdv,
                                   static_cast<float*>(part), splits, Sq, Sk,
                                   H, KV, mask_kind, window, q_offset, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    if (V_SUM) {
-        const long long n = (long long)B * Sk * KV * D;
-        flash_bwd_dkdv_reduce_kernel<<<(unsigned)((2 * n / 4 + 255) / 256),
+    if (V_SUM && splits > 1) {
+        const long long nk = (long long)B * Sk * KV * D;
+        const long long nv = (long long)B * Sk * KV * DV;
+        flash_bwd_dkdv_reduce_kernel<<<(unsigned)(((nk + nv) / 4 + 255) /
+                                                  256),
                                        256, 0, stream>>>(
             static_cast<const float*>(part), static_cast<bf16*>(dk),
-            static_cast<bf16*>(dv), n, splits, scale);
+            static_cast<bf16*>(dv), nk, nv, splits, scale);
         err = cudaGetLastError();
         if (err != cudaSuccess) return err;
     }
 
-    auto q_kern = flash_bwd_dq_wide_kernel<D>;
-    constexpr int q_bytes = QWideLayout<D>::bytes;
+    auto q_kern = flash_bwd_dq_wide_kernel<D, DV>;
+    constexpr int q_bytes = QWideLayout<D, DV>::bytes;
     err = cudaFuncSetAttribute(q_kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                q_bytes);
@@ -1535,10 +1626,15 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
 
 // Gradients of flash attention.  Sq, Sk and B must be positive (the
 // wrapper answers the empty cases); stats is fp32 scratch [B, H, 2,
-// Sq_pad] with Sq_pad = Sq rounded up to a multiple of 64.  At (256, 256)
-// the dK/dV kernel takes each KV group's heads in `splits` slices, one
-// CTA each, and part is fp32 scratch [2, splits, B, Sk, KV, 256] for
-// their parts (unused by the other pairs).
+// Sq_pad] with Sq_pad = Sq rounded up to a multiple of 64.  The pairs
+// (D, Dv): the split kernels take (64, 64), (128, 128) and (128, 64)
+// (minicpm3-4b's qk 96 zero-padded to 128, v 64); the wide kernels take
+// (256, 256) (recurrentgemma-2b's local attention) and (192, 128)
+// (deepseek-v2-lite's MLA), WIDE_PAIRS in kernels/flash_attention_bwd.py.
+// There the dK/dV kernel takes each KV group's heads in `splits` slices,
+// one CTA each, and part is fp32 scratch for their parts: [splits, B, Sk,
+// KV, D] of dK, then [splits, B, Sk, KV, Dv] of dV (unused by the split
+// pairs and at one slice, where it may be null).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const void* lse,
@@ -1558,19 +1654,27 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
         return (int)launch<64, 64>(q, k, v, out, dout, lse, stats, dq, dk, dv,
                                    B, Sq, Sk, H, KV, mask_kind, window,
                                    q_offset, scale, st);
-    if (D == 256 && Dv == 256) {  // recurrentgemma's local attention
-        if (splits < 1 || part == nullptr)
-            return (int)cudaErrorInvalidValue;
-        return (int)launch_wide<256>(q, k, v, out, dout, lse, stats, dq, dk,
-                                     dv, part, splits, B, Sq, Sk, H, KV,
-                                     mask_kind, window, q_offset, scale, st);
-    }
-    return (int)cudaErrorInvalidValue;
+    if (D == 128 && Dv == 64)
+        return (int)launch<128, 64>(q, k, v, out, dout, lse, stats, dq, dk,
+                                    dv, B, Sq, Sk, H, KV, mask_kind, window,
+                                    q_offset, scale, st);
+    const bool wide = (D == 256 && Dv == 256) || (D == 192 && Dv == 128);
+    if (!wide) return (int)cudaErrorInvalidValue;
+    if (splits < 1 || (splits > 1 && part == nullptr))
+        return (int)cudaErrorInvalidValue;
+    if (D == 256)
+        return (int)launch_wide<256, 256>(q, k, v, out, dout, lse, stats, dq,
+                                          dk, dv, part, splits, B, Sq, Sk, H,
+                                          KV, mask_kind, window, q_offset,
+                                          scale, st);
+    return (int)launch_wide<192, 128>(q, k, v, out, dout, lse, stats, dq, dk,
+                                      dv, part, splits, B, Sq, Sk, H, KV,
+                                      mask_kind, window, q_offset, scale, st);
 }
 
 // Dynamic shared memory of the dK/dV kernel (kernel 0) or the dQ kernel
-// (kernel 1) for a head-dim pair (at (256, 256) the wide kernels'); -1 for
-// a pair the backward is not built for.
+// (kernel 1) for a head-dim pair (the wide kernels' at the wide pairs); -1
+// for a pair the backward is not built for.
 extern "C" long flash_attention_bwd_smem_bytes(int D, int Dv, int kernel) {
     if (D == 128 && Dv == 128)
         return kernel == 0 ? (long)KvLayout<128, 128>::bytes
@@ -1578,38 +1682,54 @@ extern "C" long flash_attention_bwd_smem_bytes(int D, int Dv, int kernel) {
     if (D == 64 && Dv == 64)
         return kernel == 0 ? (long)KvLayout<64, 64>::bytes
                            : (long)QLayout<64, 64>::bytes;
+    if (D == 128 && Dv == 64)
+        return kernel == 0 ? (long)KvLayout<128, 64>::bytes
+                           : (long)QLayout<128, 64>::bytes;
     if (D == 256 && Dv == 256)
-        return kernel == 0 ? (long)KvWideLayout<256>::bytes
-                           : (long)QWideLayout<256>::bytes;
+        return kernel == 0 ? (long)KvWideLayout<256, 256>::bytes
+                           : (long)QWideLayout<256, 256>::bytes;
+    if (D == 192 && Dv == 128)
+        return kernel == 0 ? (long)KvWideLayout<192, 128>::bytes
+                           : (long)QWideLayout<192, 128>::bytes;
     return -1;
 }
 
+namespace {
+
+// CTAs of one kernel an SM holds at its dynamic shared memory.
+template <typename Kernel>
+cudaError_t ctas_an_sm(Kernel kern, int bytes, int* out) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern,
+                                                         KV_THREADS, bytes);
+}
+
+}  // namespace
+
 // How many CTAs of the wide dK/dV kernel (kernel 0) or dQ kernel (kernel
-// 1) an SM holds at once, into *out
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int flash_attention_bwd_wide_ctas(int kernel, int* out,
-                                             int device) {
+// 1) of a wide pair an SM holds at once, into *out
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the dK/dV kernel's two
+// instantiations take the same shared memory.
+extern "C" int flash_attention_bwd_wide_ctas(int D, int Dv, int kernel,
+                                             int* out, int device) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (kernel == 0) {
-        err = cudaFuncSetAttribute(flash_bwd_dkdv_wide_kernel<256>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)KvWideLayout<256>::bytes);
-        if (err == cudaSuccess)
-            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                out, flash_bwd_dkdv_wide_kernel<256>, KV_THREADS,
-                KvWideLayout<256>::bytes);
-        return (int)err;
-    }
-    if (kernel != 1) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<256>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)QWideLayout<256>::bytes);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            out, flash_bwd_dq_wide_kernel<256>, KV_THREADS,
-            QWideLayout<256>::bytes);
-    return (int)err;
+    if (kernel != 0 && kernel != 1) return (int)cudaErrorInvalidValue;
+    if (D == 256 && Dv == 256)
+        return (int)(kernel == 0
+                         ? ctas_an_sm(flash_bwd_dkdv_wide_kernel<256, 256, false>,
+                                      KvWideLayout<256, 256>::bytes, out)
+                         : ctas_an_sm(flash_bwd_dq_wide_kernel<256, 256>,
+                                      QWideLayout<256, 256>::bytes, out));
+    if (D == 192 && Dv == 128)
+        return (int)(kernel == 0
+                         ? ctas_an_sm(flash_bwd_dkdv_wide_kernel<192, 128, true>,
+                                      KvWideLayout<192, 128>::bytes, out)
+                         : ctas_an_sm(flash_bwd_dq_wide_kernel<192, 128>,
+                                      QWideLayout<192, 128>::bytes, out));
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* error_string(int code) {

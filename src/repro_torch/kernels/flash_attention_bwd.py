@@ -12,20 +12,23 @@ fp32 ``[B, Sq, H]``, checks them, allocates the gradients and the fp32
 scratch of lse and delta and launches on PyTorch's current stream.  It
 raises on anything the kernel does not take; it never falls back to the
 plain version.  One call of the wrapper is one launch of the kernel (its
-three CUDA kernels: delta, dK/dV, dQ; at (256, 256) a fourth sums the
-slices' parts of dK and dV).
+three CUDA kernels: delta, dK/dV, dQ; at the wide pairs with more than
+one slice a fourth sums the slices' parts of dK and dV).
 
 :func:`smem_bytes`, :func:`dkdv_steps`, :func:`dq_tiles` and
 :func:`dq_tiles_wide` mirror the kernel's shared-memory layouts and the
 work each CTA does, so that the CPU tests can hold the schedule to the
-mask and the tiled arithmetic to the plain formula.  At (256, 256) two
-kernels of their own take the pair (``WIDE``), in which a thread holds
-one 64 x 256 accumulator: in the dK/dV kernel both warpgroups work on
-the same steps and warpgroup 0 hands P^T over in bf16 behind mbarriers,
-and each KV group's heads are taken in :func:`wide_splits` slices
-(:func:`slice_heads`), whose fp32 parts a fourth CUDA kernel sums; in
-the dQ kernel each warpgroup takes half of every key tile, and K and V
-have rings of their own.
+mask and the tiled arithmetic to the plain formula.  At the pairs of
+``WIDE_PAIRS`` ((256, 256), recurrentgemma-2b's local attention, and
+(192, 128), deepseek-v2-lite's MLA) two kernels of their own take the
+pair: in the dK/dV kernel both warpgroups work on the same steps
+(warpgroup 0 forms S^T over D and P^T and holds dV, 64 x Dv; warpgroup
+1 forms dP^T over Dv and dS^T and holds dK, 64 x D) and warpgroup 0
+hands P^T over in bf16 behind mbarriers, and each KV group's heads are
+taken in :func:`wide_splits` slices (:func:`slice_heads`), whose fp32
+parts a fourth CUDA kernel sums (one slice writes the bf16 gradients
+itself); in the dQ kernel each warpgroup takes half of every key tile
+and holds 64 x D of dQ, and K and V have rings of their own.
 """
 
 from __future__ import annotations
@@ -39,20 +42,24 @@ import torch
 from . import _build
 from .flash_attention import MASK_KINDS, mask_for
 
-#: (D, Dv) pairs the backward is built for: yi-6b's, the 100M example's
-#: and recurrentgemma-2b's local attention.
-HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
+#: (D, Dv) pairs the backward is built for: yi-6b's, the 100M example's,
+#: minicpm3-4b's MLA (qk 96 zero-padded to 128, v 64), deepseek-v2-lite's
+#: MLA and recurrentgemma-2b's local attention.  The forward's (64, 128)
+#: has no backward: no model of the zoo pads to it.
+HEAD_DIMS = ((64, 64), (128, 128), (128, 64), (192, 128), (256, 256))
 #: The kernel's tiles: keys per dK/dV CTA and per dQ ring stage (BN),
 #: queries per dK/dV step and per dQ warpgroup (BM), queries per dQ CTA
 #: (Q_BM), and the depth of both rings.
 BN, BM, Q_BM, STAGES = 64, 64, 128, 4
-#: Head dims from which the wide kernels take the pair: both warpgroups
-#: of a CTA work on the same dK/dV steps (:func:`dkdv_steps`' list) or dQ
-#: key tiles (:func:`dq_tiles_wide`, BM queries a CTA, BN / 2 keys of each
-#: tile a warpgroup).  The dK/dV ring has WKV_STAGES stages and P^T passes
-#: between its warpgroups through HANDOFF bf16 buffers; the dQ kernel's K
-#: and V rings have WQ_K_STAGES and WQ_V_STAGES.
-WIDE, WKV_STAGES, HANDOFF, WQ_K_STAGES, WQ_V_STAGES = 256, 2, 2, 3, 2
+#: The pairs the wide kernels take (the C entry point's ``wide``): both
+#: warpgroups of a CTA work on the same dK/dV steps (:func:`dkdv_steps`'
+#: list) or dQ key tiles (:func:`dq_tiles_wide`, BM queries a CTA, BN / 2
+#: keys of each tile a warpgroup).  The split kernels take the others.
+WIDE_PAIRS = ((192, 128), (256, 256))
+#: The dK/dV ring has WKV_STAGES stages and P^T passes between its
+#: warpgroups through HANDOFF bf16 buffers; the dQ kernel's K and V rings
+#: have WQ_K_STAGES and WQ_V_STAGES.
+WKV_STAGES, HANDOFF, WQ_K_STAGES, WQ_V_STAGES = 2, 2, 3, 2
 
 
 def smem_bytes(D: int, Dv: int) -> Tuple[int, int]:
@@ -61,14 +68,14 @@ def smem_bytes(D: int, Dv: int) -> Tuple[int, int]:
     delta (fp32), a full mbarrier per stage and K/V's; dQ: Q and dO of 128
     queries, then per stage K and V of 64 keys, a full and an empty
     mbarrier per stage and Q/dO's; both bf16, plus 1024 bytes to align.
-    The wide kernels (D = Dv >= WIDE): dK/dV the same sections over
+    The wide kernels (``WIDE_PAIRS``): dK/dV the same sections over
     WKV_STAGES stages, then HANDOFF bf16 64 x 64 tiles of P^T, K/V's
     mbarrier, three a stage and two a tile; dQ: Q and dO of BM queries,
     WQ_K_STAGES stages of K and WQ_V_STAGES of V, Q/dO's mbarrier and two
     a stage.  Mirrors
     ``KvLayout``, ``QLayout``, ``KvWideLayout`` and ``QWideLayout`` in
     ``csrc/flash_attention_bwd.cu``."""
-    if D >= WIDE:
+    if (D, Dv) in WIDE_PAIRS:
         kv = (2 * BN * (D + Dv) + WKV_STAGES * (2 * BM * (D + Dv)
                                                 + 2 * BM * 4)
               + HANDOFF * BN * BM * 2
@@ -164,8 +171,9 @@ def wide_splits(B: int, Sq: int, Sk: int, H: int, KV: int, mask_kind: str,
     """The slices of each KV group's heads that the wide dK/dV kernel takes
     one CTA each: the fewest whose heaviest CTA (ceil(G / slices) heads of
     the key tile with the most query tiles) walks no more steps than the
-    whole grid's average over ``sms`` SMs.  The slices' fp32 parts (one
-    slice included) are summed by a second launch."""
+    whole grid's average over ``sms`` SMs.  The slices' fp32 parts are
+    summed by a second launch; one slice writes the bf16 gradients
+    itself."""
     G = H // KV
     n_qt = [len(dkdv_steps(n0, Sq, Sk, 1, mask_kind, window, q_offset))
             for n0 in range(0, Sk, BN)]
@@ -184,14 +192,15 @@ def slice_heads(G: int, splits: int) -> List[range]:
     return [range(r * per, min(G, (r + 1) * per)) for r in range(splits)]
 
 
-def wide_ctas(device: torch.device) -> Tuple[int, int]:
-    """CTAs of the wide (dK/dV, dQ) kernels an SM holds at once
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def wide_ctas(device: torch.device, D: int, Dv: int) -> Tuple[int, int]:
+    """CTAs of the wide (dK/dV, dQ) kernels of the wide pair (D, Dv) an SM
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     lib = _lib()
     out = []
     for kernel in (0, 1):
         n = ctypes.c_int(0)
-        status = lib.flash_attention_bwd_wide_ctas(kernel, ctypes.byref(n),
+        status = lib.flash_attention_bwd_wide_ctas(D, Dv, kernel,
+                                                   ctypes.byref(n),
                                                    device.index)
         _build.check(lib, status, "flash_attention_bwd_wide_ctas")
         out.append(n.value)
@@ -239,7 +248,8 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_bwd.restype = ctypes.c_int
     lib.flash_attention_bwd_smem_bytes.argtypes = [i, i, i]
     lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_long
-    lib.flash_attention_bwd_wide_ctas.argtypes = [i, ctypes.POINTER(i), i]
+    lib.flash_attention_bwd_wide_ctas.argtypes = [i, i, i, ctypes.POINTER(i),
+                                                  i]
     lib.flash_attention_bwd_wide_ctas.restype = ctypes.c_int
     return lib
 
@@ -283,12 +293,13 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *,
     stats = torch.empty((B, H, 2, -(-Sq // BM) * BM), dtype=torch.float32,
                         device=dev)
     splits, part = 1, None
-    if D >= WIDE:           # the slices' fp32 parts of dK and dV
+    if (D, Dv) in WIDE_PAIRS:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         splits = wide_splits(B, Sq, Sk, H, KV, mask_kind, window, q_offset,
                              sms=sms)
-        part = torch.empty((2, splits, B, Sk, KV, D), dtype=torch.float32,
-                           device=dev)
+    if splits > 1:              # the slices' fp32 parts of dK, then dV
+        part = torch.empty(splits * B * Sk * KV * (D + Dv),
+                           dtype=torch.float32, device=dev)
     lib = _lib()
     status = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

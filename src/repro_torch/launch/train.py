@@ -17,15 +17,18 @@ example builds its model): the reference keeps fp32 weights and fp32
 AdamW moments, 16 bytes a parameter with the gradients, so full yi-6b
 (6.06 B parameters, 97 GB) does not fit one 80 GB card and trains there
 at ``--n-layers 12`` (2.6 B parameters, 41.6 GB of state) with every
-width kept.  On the card the archs whose layers all have a backward
-kernel train: dense GQA (yi-6b, yi-34b, mistral-nemo-12b; head dim 128),
-Mamba-2 (mamba2-2.7b, through the SSD backward kernel; all 64 layers
-peak at ~71 GiB at B 4 x 1024, ``--n-layers 56`` at ~62 GiB) and the
-RG-LRU / local-attention hybrid (recurrentgemma-2b, all 26 layers,
-through the RG-LRU backward kernel and the flash backward at head dim
-256).  MLA's head-dim pairs are not built into the flash backward yet:
-minicpm3-4b and deepseek-v2-lite-16b raise on the card and train on the
-CPU.
+width kept.  On the card all five decoder families train: dense GQA
+(yi-6b, yi-34b, mistral-nemo-12b; head dim 128), Mamba-2 (mamba2-2.7b,
+through the SSD backward kernel; all 64 layers peak at ~71 GiB at B 4 x
+1024, ``--n-layers 56`` at ~62 GiB), the RG-LRU / local-attention hybrid
+(recurrentgemma-2b, all 26 layers, through the RG-LRU backward kernel
+and the flash backward at head dim 256), MLA (minicpm3-4b: 60.7 GiB of
+fp32 state at all 62 layers, ``--n-layers 40`` peaks at ~58.5 GiB; the
+flash backward at qk 96 padded to 128 beside v 64) and MLA + MoE
+(deepseek-v2-lite-16b: 241.6 GiB of state at 27 layers, ``--n-layers 5``,
+one dense and four MoE layers, peaks at ~58.9 GiB; the flash backward at
+(192, 128)); minicpm3-4b at 48 layers and deepseek-v2-lite-16b at 6 ran
+out of memory on an 80 GB card.
 
 Examples::
 
@@ -42,6 +45,11 @@ Examples::
         --n-layers 56 --steps 4 --batch 4 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch recurrentgemma-2b --steps 4 --batch 4 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm3-4b \\
+        --n-layers 40 --steps 4 --batch 4 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --n-layers 5 --steps 4 --batch 4 \\
+        --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --reduced --arch yi-6b --steps 4 --batch 2 --seq 32
 """

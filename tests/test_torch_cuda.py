@@ -586,16 +586,50 @@ def _rel_l2(got, want):
 
 @pytest.mark.parametrize("case", BWD, ids=str)
 def test_flash_backward_kernel_matches_plain(case, gen):
+    B, Sq, Sk, H, KV, D, kind, window, off = case
+    _check_backward(gen, B, Sq, Sk, H, KV, D, D, D, kind, window, off)
+
+
+BWD_MLA = [
+    # (B, Sq, Sk, H, KV, qk, D, Dv, mask_kind, window, q_offset): q and k
+    # of width qk zero-padded to D, as mla_apply pads them, at the scale
+    # of qk.  minicpm3-4b's training shape (40 heads, qk 96 run as 128, v
+    # 64) and deepseek-v2-lite's (16 heads of (192, 128)), then ragged S
+    # with a q_offset, no mask with Sq != Sk, G > 1 and a window.
+    (4, 1024, 1024, 40, 40, 96, 128, 64, "causal", 0, 0),
+    (4, 1024, 1024, 16, 16, 192, 192, 128, "causal", 0, 0),
+    (2, 150, 201, 8, 8, 96, 128, 64, "causal", 0, 51),
+    (2, 150, 201, 4, 4, 192, 192, 128, "causal", 0, 51),
+    (1, 77, 190, 4, 2, 128, 128, 64, "none", 0, 0),
+    (1, 77, 190, 4, 2, 192, 192, 128, "none", 0, 0),
+    (1, 300, 300, 6, 2, 192, 192, 128, "window", 100, 0),
+    (1, 8, 8, 2, 2, 192, 192, 128, "window", 2, 20),     # no key in sight
+]
+
+
+@pytest.mark.parametrize("case", BWD_MLA, ids=str)
+def test_flash_backward_kernel_matches_plain_at_mla_pairs(case, gen):
+    _check_backward(gen, *case)
+
+
+def _check_backward(gen, B, Sq, Sk, H, KV, qk, D, Dv, kind, window, off):
+    """The kernel against the plain formula in fp32 (relative L2 within
+    max(2e-2, 2 x floor)), two launches bitwise equal; q and k of width
+    ``qk`` zero-padded to D, at the scale of qk; the padded columns of dq
+    and dk come out zero."""
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_bwd_cuda,
         flash_attention_bwd_plain,
     )
 
-    B, Sq, Sk, H, KV, D, kind, window, off = case
-    q, k, v = _randn(gen, B, Sq, H, D), _randn(gen, B, Sk, KV, D), \
-        _randn(gen, B, Sk, KV, D)
-    dout = _randn(gen, B, Sq, H, D)
-    kw = dict(mask_kind=kind, window=window, q_offset=off)
+    def padded(t):
+        return torch.cat([t, t.new_zeros(t.shape[:-1] + (D - qk,))], -1)
+
+    q, k = padded(_randn(gen, B, Sq, H, qk)), padded(_randn(gen, B, Sk, KV,
+                                                            qk))
+    v, dout = _randn(gen, B, Sk, KV, Dv), _randn(gen, B, Sq, H, Dv)
+    kw = dict(mask_kind=kind, window=window, q_offset=off,
+              scale=qk ** -0.5)
     out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     got = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
     again = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
@@ -612,6 +646,8 @@ def test_flash_backward_kernel_matches_plain(case, gen):
             continue
         limit = max(BWD_REL_L2, 2 * _rel_l2(f, w))
         assert _rel_l2(g, w) <= limit, (name, _rel_l2(g, w), limit)
+    for g in got[:2]:
+        assert not g[..., qk:].any(), "padded columns"
 
 
 def test_flash_backward_smem_bytes_match_the_source(gen):
@@ -629,16 +665,23 @@ def test_flash_backward_smem_bytes_match_the_source(gen):
                     for kernel in (0, 1))
         assert got == bwd_smem_bytes(D, Dv)
         assert max(got) <= 232_448
-    assert lib.flash_attention_bwd_smem_bytes(192, 128, 0) == -1
+    # the forward's (64, 128) has no backward
+    assert lib.flash_attention_bwd_smem_bytes(64, 128, 0) == -1
 
 
 def test_wide_flash_backward_holds_one_cta_an_sm(gen):
     """The wide kernels' shared memory (dK/dV's two-stage ring, dQ's K and
-    V rings) leaves one CTA of each an SM, as their mirrors say."""
-    from repro_torch.kernels.flash_attention_bwd import smem_bytes, wide_ctas
+    V rings) leaves one CTA of each an SM at both wide pairs, as their
+    mirrors say."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        WIDE_PAIRS,
+        smem_bytes,
+        wide_ctas,
+    )
 
-    assert wide_ctas(torch.device("cuda", 0)) == (1, 1)
-    assert all(2 * b > 232_448 for b in smem_bytes(256, 256))
+    for D, Dv in WIDE_PAIRS:
+        assert wide_ctas(torch.device("cuda", 0), D, Dv) == (1, 1)
+        assert all(2 * b > 232_448 for b in smem_bytes(D, Dv))
 
 
 @pytest.mark.parametrize("case", [c for c in FLASH if c[2] > 0], ids=str)

@@ -69,9 +69,10 @@ def test_tiles_and_ring_mirror_the_kernel_source():
 
 
 def test_wide_ring_mirrors_the_kernel_source():
-    """The (256, 256) kernels' ring depths, hand-off buffers and the pair
-    they take equal the source's, and the split kernels' pairs stay below
-    it."""
+    """The wide kernels' ring depths, hand-off buffers and the pairs they
+    take equal the source's: the C entry launches the wide design at
+    exactly ``WIDE_PAIRS`` and the split design at the other pairs of
+    ``HEAD_DIMS``."""
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
 
     def const(name):
@@ -83,8 +84,40 @@ def test_wide_ring_mirrors_the_kernel_source():
     # ring's stages; the dQ warpgroups hand nothing over
     assert src.count("Ps + hb * (") == 1
     assert "constexpr int KW = BN / 2;" in src
-    assert "launch_wide<256>" in src and (fb.WIDE, fb.WIDE) in fb.HEAD_DIMS
-    assert all(max(d) < fb.WIDE for d in fb.HEAD_DIMS if d != (256, 256))
+    entry = src[src.index('extern "C" int flash_attention_bwd('):]
+    entry = entry[:entry.index("\n}\n")]
+
+    def pairs(pattern, text=entry):
+        return sorted((int(d), int(dv)) for d, dv in re.findall(pattern,
+                                                               text))
+
+    # the entry's named set of wide pairs, each launched by the wide
+    # design; every other pair it takes by the split design
+    named = re.search(r"const bool wide = ([^;]+);", entry)[1]
+    assert pairs(r"D == (\d+) && Dv == (\d+)", named) == \
+        sorted(fb.WIDE_PAIRS)
+    assert pairs(r"launch_wide<(\d+), (\d+)>") == sorted(fb.WIDE_PAIRS)
+    assert pairs(r"\blaunch<(\d+), (\d+)>") == \
+        sorted(set(fb.HEAD_DIMS) - set(fb.WIDE_PAIRS))
+
+
+def test_one_slice_stores_its_gradients_without_parts():
+    """At one slice (G 1: MLA's heads) the host launches the wide dK/dV
+    kernel's ONE instantiation, which stores bf16 dK and dV by TMA with
+    dK scaled as the reduction scales it, and skips the fp32 parts and
+    the reduction; more slices write parts that the reduction sums."""
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    host = src[src.index("cudaError_t launch_wide("):]
+    host = host[:host.index("\n}\n")]
+    assert "splits == 1 ? flash_bwd_dkdv_wide_kernel<D, DV, true>" in host
+    assert "if (V_SUM && splits > 1) {" in host
+    kernel = src[src.index("flash_bwd_dkdv_wide_kernel(const"):]
+    one = kernel[kernel.index("if constexpr (ONE) {"):]
+    one = one[:one.index("return;")]
+    assert "acc[j] *= scale;" in one and "tma_store_4d(" in one
+    assert "part" not in one
+    reduce = src[src.index("flash_bwd_dkdv_reduce_kernel(const"):]
+    assert "const float f = which ? 1.f : scale;" in reduce
 
 
 @pytest.mark.parametrize("kernel", ["flash_bwd_dkdv_wide_kernel",
@@ -97,34 +130,64 @@ def test_wide_loops_have_no_cta_wide_barrier(kernel):
     body = src[src.index(f"{kernel}(const __grid_constant__"):]
     loop = body[re.search(r"for \(int i = 0; i < n_(steps|tiles); \+\+i\) \{",
                           body).start():]
-    loop = loop[:loop.index("wgmma_wait<0>();\n    fence_regs<")]
+    loop = loop[:re.search(r"wgmma_wait<0>\(\);\n +fence_regs<", loop).start()]
     assert "mbar_wait(" in loop and "wgmma_wait<" in loop
     for sync in ("__syncthreads", "named_barrier_sync", "bar.sync"):
         assert sync not in loop, sync
 
 
 def test_wide_smem_mirror_matches_the_source_layouts():
-    """smem_bytes(256, 256) is the sum of the sections the source's
-    KvWideLayout and QWideLayout lay out, read from their initializers."""
+    """smem_bytes at each wide pair is the sum of the sections the
+    source's KvWideLayout and QWideLayout lay out, read from their
+    initializers, and fits the card."""
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    env = {"BN": fb.BN, "BM": fb.BM, "BOX": 64, "D": fb.WIDE,
-           "WKV_STAGES": fb.WKV_STAGES, "HANDOFF": fb.HANDOFF,
-           "WQ_K_STAGES": fb.WQ_K_STAGES, "WQ_V_STAGES": fb.WQ_V_STAGES}
 
-    def layout(name):
+    def layout(name, D, Dv):
         body = src[src.index(f"struct {name} {{"):]
         body = body[:body.index("};")]
-        vals = dict(env)
+        vals = {"BN": fb.BN, "BM": fb.BM, "BOX": 64, "D": D, "DV": Dv,
+                "WKV_STAGES": fb.WKV_STAGES, "HANDOFF": fb.HANDOFF,
+                "WQ_K_STAGES": fb.WQ_K_STAGES, "WQ_V_STAGES": fb.WQ_V_STAGES}
         for key, expr in re.findall(
                 r"static constexpr (?:uint32_t|int) (\w+) = ([^;]+);", body):
             vals[key] = eval(expr.replace("\n", " "), {}, vals)
         return vals["bytes"]
 
-    assert (layout("KvWideLayout"), layout("QWideLayout")) == \
-        fb.smem_bytes(fb.WIDE, fb.WIDE)
+    for D, Dv in fb.WIDE_PAIRS:
+        got = (layout("KvWideLayout", D, Dv), layout("QWideLayout", D, Dv))
+        assert got == fb.smem_bytes(D, Dv)
+        assert max(got) <= SMEM_LIMIT
+        # the source asserts the fit of each wide pair it instantiates
+        for name in ("KvWideLayout", "QWideLayout"):
+            assert f"{name}<{D}, {Dv}>::bytes <= 232448" in src
     # each dQ warpgroup's keys start a whole number of swizzle atoms (8
     # rows) into a K or V box, and form whole k16 slices of dQ's product
     assert (fb.BN // 2) % 16 == 0
+
+
+@pytest.mark.parametrize("dims", sorted(set(fb.HEAD_DIMS)
+                                        - set(fb.WIDE_PAIRS)), ids=str)
+def test_split_smem_mirror_matches_the_source_layouts(dims):
+    """smem_bytes at each split pair is the sum of the sections the
+    source's KvLayout and QLayout lay out, read from their initializers;
+    the dK/dV epilogue's exchange fits the ring, as the source asserts."""
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    D, Dv = dims
+
+    def layout(name):
+        body = src[src.index(f"struct {name} {{"):]
+        body = body[:body.index("};")]
+        vals = {"BN": fb.BN, "BM": fb.BM, "Q_BM": fb.Q_BM,
+                "STAGES": fb.STAGES, "D": D, "DV": Dv}
+        for key, expr in re.findall(
+                r"static constexpr (?:uint32_t|int) (\w+) = ([^;]+);", body):
+            vals[key] = eval(expr.replace("\n", " "), {}, vals)
+        return vals
+
+    kv, dq = layout("KvLayout"), layout("QLayout")
+    assert (kv["bytes"], dq["bytes"]) == fb.smem_bytes(D, Dv)
+    assert (D // 2 + Dv // 2) * 128 * 4 <= \
+        fb.STAGES * (kv["q_bytes"] + kv["do_bytes"])
 
 
 @pytest.mark.parametrize("ring", ["K", "V"])
@@ -306,7 +369,7 @@ def _bf(t):
 
 
 def tiled_backward(q, k, v, out, dout, lse, *, mask_kind, window=0,
-                   q_offset=0):
+                   q_offset=0, scale=None):
     """The kernel's arithmetic in its order on the CPU: per dK/dV CTA the
     steps of :func:`dkdv_steps`, each warpgroup's partials summed at the
     end; per dQ CTA the tiles of :func:`dq_tiles`; products of bf16
@@ -315,7 +378,7 @@ def tiled_backward(q, k, v, out, dout, lse, *, mask_kind, window=0,
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KV
-    scale = D ** -0.5
+    scale = scale if scale is not None else D ** -0.5
     sl2 = scale * LOG2E
     vis = torch.from_numpy(_visible(Sq, Sk, mask_kind, window, q_offset))
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
@@ -324,7 +387,7 @@ def tiled_backward(q, k, v, out, dout, lse, *, mask_kind, window=0,
     dq = torch.zeros(B, Sq, H, D)
     dk = torch.zeros(B, Sk, KV, D)
     dv = torch.zeros(B, Sk, KV, Dv)
-    wide = D >= fb.WIDE
+    wide = (D, Dv) in fb.WIDE_PAIRS
     # the wide kernel's warpgroups share every step: one accumulator of dK
     # and one of dV a slice of the group's heads, the slices summed in order
     splits = fb.wide_splits(B, Sq, Sk, H, KV, mask_kind, window, q_offset,
@@ -408,15 +471,45 @@ def _rel_l2(got, want):
 @pytest.mark.parametrize("case", TILED, ids=str)
 def test_tiled_arithmetic_matches_the_plain_formula(case):
     B, Sq, Sk, H, KV, D, kind, window, off = case
-    rng = np.random.default_rng(sum(case[:6]))
+    _check_tiled(np.random.default_rng(sum(case[:6])), B, Sq, Sk, H, KV, D,
+                 D, D, kind, window, off)
+
+
+TILED_MLA = [
+    # (B, Sq, Sk, H, KV, qk, D, Dv, mask_kind, window, q_offset): q and k
+    # of width qk zero-padded to D at the scale of qk, as mla_apply runs
+    # them.  minicpm3-4b's (96 padded to 128, 64; the split kernels) and
+    # deepseek-v2-lite's (192, 128) (the wide kernels, one slice at G 1),
+    # causal and ragged with a q_offset, no mask with Sq != Sk, and the
+    # wide pair at G 4 (two slices of the group's heads).
+    (1, 150, 150, 2, 2, 96, 128, 64, "causal", 0, 0),
+    (1, 90, 160, 2, 2, 96, 128, 64, "causal", 0, 70),
+    (1, 150, 150, 2, 2, 192, 192, 128, "causal", 0, 0),
+    (1, 90, 160, 2, 2, 192, 192, 128, "causal", 0, 70),
+    (1, 77, 130, 2, 1, 192, 192, 128, "none", 0, 0),
+    (1, 100, 100, 4, 1, 192, 192, 128, "window", 40, 0),
+]
+
+
+@pytest.mark.parametrize("case", TILED_MLA, ids=str)
+def test_tiled_arithmetic_matches_the_plain_formula_at_mla_pairs(case):
+    _check_tiled(np.random.default_rng(sum(case[:8])), *case)
+
+
+def _check_tiled(rng, B, Sq, Sk, H, KV, qk, D, Dv, kind, window, off):
+    """The tiled emulation against the plain formula in fp32, within the
+    card's bound; q and k of width ``qk`` zero-padded to D."""
 
     def bf16(*shape):
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
 
-    q, k, v, dout = bf16(B, Sq, H, D), bf16(B, Sk, KV, D), \
-        bf16(B, Sk, KV, D), bf16(B, Sq, H, D)
-    kw = dict(mask_kind=kind, window=window, q_offset=off)
+    def padded(t):
+        return torch.cat([t, t.new_zeros(t.shape[:-1] + (D - qk,))], -1)
+
+    q, k, v, dout = padded(bf16(B, Sq, H, qk)), padded(bf16(B, Sk, KV, qk)), \
+        bf16(B, Sk, KV, Dv), bf16(B, Sq, H, Dv)
+    kw = dict(mask_kind=kind, window=window, q_offset=off, scale=qk ** -0.5)
     out, lse = flash_attention_plain(q.float(), k.float(), v.float(),
                                      return_lse=True, **kw)
     out = out.to(torch.bfloat16)
@@ -431,6 +524,8 @@ def test_tiled_arithmetic_matches_the_plain_formula(case):
             continue
         limit = max(BWD_REL_L2, 2 * _rel_l2(f, w))
         assert _rel_l2(g, w) <= limit, (name, _rel_l2(g, w), limit)
+    for g in got[:2]:
+        assert not g[..., qk:].float().any(), "padded columns"
 
 
 @pytest.mark.parametrize("case", [
@@ -468,3 +563,110 @@ def test_plain_backward_at_head_dim_256_matches_jax_vjp(case):
         assert gt.shape == w.shape, name
         np.testing.assert_allclose(gt.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, H, KV, qk, D, Dv, q_offset): minicpm3-4b's qk 96 run as
+    # 128 beside v 64, deepseek-v2-lite's (192, 128); causal, the second
+    # of each with Sq != Sk and a q_offset
+    (2, 40, 40, 3, 3, 96, 128, 64, 0),
+    (1, 24, 40, 2, 2, 96, 128, 64, 16),
+    (2, 40, 40, 2, 2, 192, 192, 128, 0),
+    (1, 24, 40, 4, 2, 192, 192, 128, 16),
+], ids=str)
+def test_plain_backward_at_mla_pairs_matches_jax_vjp(case):
+    """The plain formula at MLA's pairs, q and k zero-padded from qk to D
+    at the scale of qk (as ``mla_apply`` runs them), against jax.vjp of
+    the reference's flash_attention (XLA custom_vjp) at the unpadded
+    (qk, Dv), float32, within 1e-4; the padded columns of dq and dk are
+    exactly zero."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as jops
+
+    B, Sq, Sk, H, KV, qk, D, Dv, off = case
+    rng = np.random.default_rng(sum(case[:6]))
+    q, k, v = (rng.standard_normal(s, dtype=np.float32)
+               for s in ((B, Sq, H, qk), (B, Sk, KV, qk), (B, Sk, KV, Dv)))
+    g = rng.standard_normal((B, Sq, H, Dv), dtype=np.float32)
+    scale = qk ** -0.5
+
+    def fn(q, k, v):
+        return jops.flash_attention(q, k, v, mask_kind="causal",
+                                    q_offset=off, scale=scale,
+                                    backend="xla")
+
+    _, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+
+    def padded(a):
+        return torch.from_numpy(np.concatenate(
+            [a, np.zeros(a.shape[:-1] + (D - qk,), np.float32)], -1))
+
+    tq, tk, tv, tg = padded(q), padded(k), torch.from_numpy(v), \
+        torch.from_numpy(g)
+    assert (D, Dv) in fb.HEAD_DIMS
+    kw = dict(mask_kind="causal", q_offset=off, scale=scale)
+    out, lse = flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    got = fb.flash_attention_bwd_plain(tq, tk, tv, out, tg, lse, **kw)
+    for name, w, gt in zip(("dq", "dk", "dv"), want, got):
+        assert gt.shape[:-1] == w.shape[:-1], name
+        if name != "dv":
+            assert not gt[..., qk:].any(), name
+        np.testing.assert_allclose(gt[..., :w.shape[-1]].numpy(),
+                                   np.asarray(w), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("arch,pair,heads,G", [
+    ("minicpm3-4b", (128, 64), 40, 1),
+    ("deepseek-v2-lite-16b", (192, 128), 16, 1),
+])
+def test_mla_training_shapes_take_their_pairs(arch, pair, heads, G):
+    """At B 4 x 1024 each MLA arch's prefill pads to a pair the backward
+    takes (split at minicpm3's, wide at deepseek's), with G 1 (the rope
+    key expanded over the heads): every dK/dV CTA walks its key tile's
+    query tiles once (key tile 0 sixteen, the last one), the wide kernel
+    takes one slice, and the wide dQ CTAs cover each visible pair once."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.mla import padded_qk_dim
+
+    cfg = get_arch(arch)
+    m = cfg.mla
+    assert (padded_qk_dim(m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim),
+            m.v_head_dim) == pair
+    assert pair in fb.HEAD_DIMS and cfg.n_heads == heads
+    S = 1024
+    assert len(fb.dkdv_steps(0, S, S, G, "causal")) == S // fb.BM
+    assert len(fb.dkdv_steps(S - fb.BN, S, S, G, "causal")) == 1
+    kv, dq = fb.smem_bytes(*pair)
+    assert max(kv, dq) <= SMEM_LIMIT
+    if pair in fb.WIDE_PAIRS:
+        assert fb.wide_splits(4, S, S, heads, heads, "causal", sms=SMS) == 1
+        vis = _visible(S, S, "causal", 0, 0)
+        count = np.zeros((S, S), int)
+        for m0 in range(0, S, fb.BM):
+            for t, _ in fb.dq_tiles_wide(m0, S, S, "causal"):
+                count[m0:m0 + fb.BM, t * fb.BN:(t + 1) * fb.BN] += \
+                    vis[m0:m0 + fb.BM, t * fb.BN:(t + 1) * fb.BN]
+        assert (count == vis).all()
+    else:
+        assert (kv, dq) == (125_992, 148_552)
+
+
+def test_every_mla_pair_of_the_zoo_has_a_backward():
+    """Every (D, Dv) that ``mla.padded_qk_dim`` chooses for an MLA arch of
+    the zoo, at full width, is one the backward takes: the forward's
+    pairs that no model pads to ((64, 128)) need none."""
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.models.mla import padded_qk_dim
+
+    chosen = set()
+    for arch in ARCHS:
+        m = get_arch(arch).mla
+        if m is not None:
+            chosen.add((padded_qk_dim(m.qk_nope_dim + m.qk_rope_dim,
+                                      m.v_head_dim), m.v_head_dim))
+    assert chosen == {(128, 64), (192, 128)}
+    assert chosen <= set(fb.HEAD_DIMS)

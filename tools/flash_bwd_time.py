@@ -5,32 +5,37 @@ and time variants of its (256, 256) kernels.
     python3 tools/flash_bwd_time.py --variants [SOURCE]
 
 At yi-6b's training shape (B 4, S 1024, 32 heads / 4 KV of 128, causal),
-the 100M example's (B 8, S 128, 10 / 2 of 64, causal) and
+the 100M example's (B 8, S 128, 10 / 2 of 64, causal),
 recurrentgemma-2b's (B 4, S 1024, 10 / 1 of 256; its window of 2048 is
-causal at this length), on the same bf16 inputs (the forward kernel's
-out and lse):
+causal at this length), minicpm3-4b's (B 4, S 1024, 40 / 40 heads, qk
+96 zero-padded to 128 at the scale of 96, v 64) and deepseek-v2-lite's
+(B 4, S 1024, 16 / 16 of (192, 128)), and (256, 256) at G 1 (B 4, S
+1024, 4 / 4: one slice of heads), on the same bf16 inputs (the forward
+kernel's out and lse):
 
 - the device time of one wrapper call (``chip_smoke.device_ms``: CUDA
   events over 20 calls, the host's enqueueing hidden behind a device
   sleep), in turns with the baseline (baseline, kernel, kernel,
-  baseline) when one is given; at (64, 64) and (128, 128) the gradients
-  must be bitwise equal to the baseline's (the tool exits non-zero
-  otherwise), at (256, 256) it prints the largest difference;
+  baseline) when one is given and is built for the pair; the gradients
+  must be bitwise equal to the baseline's (the tool prints the largest
+  difference and exits non-zero otherwise);
 - each CUDA kernel's own time (torch.profiler over 10 calls);
 - SDPA's backward on the same inputs (``torch.autograd.grad`` through
   ``F.scaled_dot_product_attention``; a yardstick the port never calls);
-- the least time the card could take: the formula's five products and
-  the design's seven over the causal half at 989 TFLOP/s bf16, against
-  the inputs and gradients once at 3.35 TB/s;
+- the least time the card could take: the formula's five products (at
+  the function's own qk) and the design's seven (at the padded D) over
+  the causal half at 989 TFLOP/s bf16, against the inputs and gradients
+  once at 3.35 TB/s;
 - the CTAs of this tree's wide kernels an SM holds at once.
 
 ``--baseline`` builds another version of the kernel source as it is (for
 example the parent commit's, from an unpacked ``git archive``, with its
 ``hopper.cuh`` beside it) into the git-ignored
 ``kernels/_cuda_build/flash_bwd_time/``.  Its C entry is read from its
-source: with the (part, splits) arguments of the (256, 256) kernels
-(given the wrapper's slices and their fp32 scratch) or without; it is
-timed only at the pairs it is built for.
+source: with the (part, splits) arguments of the wide kernels (given
+the wrapper's slices and their fp32 scratch, laid out as this tree's
+wrapper lays it out) or without; it is timed only at the pairs it is
+built for (its ``flash_attention_bwd_smem_bytes`` is not -1).
 
 ``--variants`` builds variants of the (256, 256) kernels of SOURCE (by
 default this tree's ``csrc/flash_attention_bwd.cu``) into the same
@@ -77,17 +82,22 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.flash_attention_bwd import (
     BM,
-    WIDE,
+    WIDE_PAIRS,
     _lib,
     flash_attention_bwd_cuda,
     wide_ctas,
     wide_splits,
 )
 
-SHAPES = {   # name: (B, S, H, KV, D)
-    "yi-6b train": (4, 1024, 32, 4, 128),
-    "example": (8, 128, 10, 2, 64),
-    "recurrentgemma-2b train": (4, 1024, 10, 1, 256),
+SHAPES = {   # name: (B, S, H, KV, qk, D, Dv)
+    "yi-6b train": (4, 1024, 32, 4, 128, 128, 128),
+    "example": (8, 128, 10, 2, 64, 64, 64),
+    "recurrentgemma-2b train": (4, 1024, 10, 1, 256, 256, 256),
+    "minicpm3-4b train": (4, 1024, 40, 40, 96, 128, 64),
+    "deepseek-v2-lite train": (4, 1024, 16, 16, 192, 192, 128),
+    # (256, 256) at G 1: one slice, whose bf16 epilogue must give the bits
+    # of a baseline that sums fp32 parts
+    "one slice (256, 256)": (4, 1024, 4, 4, 256, 256, 256),
 }
 WIDE_SHAPE = "recurrentgemma-2b train"
 OUT = _build.BUILD_DIR / "flash_bwd_time"
@@ -196,19 +206,26 @@ def build_variants(source: Path) -> tuple:
 
 
 class Inputs:
-    """One shape's bf16 inputs, the forward kernel's out and lse, and the
-    scratch and gradients a raw call of a C entry writes."""
+    """One shape's bf16 inputs (q and k of width qk zero-padded to d), the
+    forward kernel's out and lse, and the scratch and gradients a raw call
+    of a C entry writes."""
 
-    def __init__(self, gen, b, s, h, kv, d):
+    def __init__(self, gen, b, s, h, kv, qk, d, dv):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(
                 torch.bfloat16)
 
-        self.shape = (b, s, h, kv, d)
-        self.q, self.k, self.v = randn(b, s, h, d), randn(b, s, kv, d), \
-            randn(b, s, kv, d)
-        self.dout = randn(b, s, h, d)
+        def padded(t):
+            return torch.cat([t, t.new_zeros(t.shape[:-1] + (d - qk,))], -1)
+
+        self.shape = (b, s, h, kv, qk, d, dv)
+        self.scale = qk ** -0.5
+        self.q, self.k = padded(randn(b, s, h, qk)), padded(randn(b, s, kv,
+                                                                  qk))
+        self.v = randn(b, s, kv, dv)
+        self.dout = randn(b, s, h, dv)
         self.out, self.lse = flash_attention_cuda(self.q, self.k, self.v,
+                                                  scale=self.scale,
                                                   return_lse=True)
         self.grads = [torch.empty_like(t) for t in (self.q, self.k, self.v)]
         self.stats = torch.empty(b * h * 2 * (-(-s // BM) * BM),
@@ -217,22 +234,23 @@ class Inputs:
 
     def call(self, lib, kind: str) -> None:
         """Call ``lib``'s C entry with the arguments of its convention."""
-        b, s, h, kv, d = self.shape
+        b, s, h, kv, _, d, dv = self.shape
+        wide = (d, dv) in WIDE_PAIRS
         extra = ()
         if kind == "part":
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             splits = wide_splits(b, s, s, h, kv, "causal", sms=sms) \
-                if d >= WIDE else 1
-            if d >= WIDE and self.part is None:
-                self.part = torch.empty((2, splits, b, s, kv, d),
+                if wide else 1
+            if wide and self.part is None:
+                self.part = torch.empty(splits * b * s * kv * (d + dv),
                                         dtype=torch.float32, device="cuda")
-            extra = (self.part.data_ptr() if d >= WIDE else None, splits)
+            extra = (self.part.data_ptr() if wide else None, splits)
         ptrs = [t.data_ptr() for t in (self.q, self.k, self.v, self.out,
                                        self.dout, self.lse, self.stats,
                                        *self.grads)]
         status = lib.flash_attention_bwd(
-            *ptrs, *extra, b, s, s, h, kv, d, d, MASK_KINDS["causal"], 0, 0,
-            d ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
+            *ptrs, *extra, b, s, s, h, kv, d, dv, MASK_KINDS["causal"], 0, 0,
+            self.scale, 0, torch.cuda.current_stream().cuda_stream)
         if status != 0:
             raise SystemExit(f"flash_attention_bwd failed with CUDA error "
                              f"{status}")
@@ -285,32 +303,39 @@ def main() -> None:
     base = build_baseline(args.baseline, "flash_bwd_time",
                           "flash_attention_bwd", argtypes(kind)) \
         if args.baseline else None
+    if base is not None:
+        base.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        base.flash_attention_bwd_smem_bytes.restype = ctypes.c_long
     log = (_build.BUILD_DIR / "flash_attention_bwd.log")
     _lib()
     for line in log.read_text().splitlines() if log.exists() else []:
         if any(w in line for w in ("Function properties", "registers",
                                    "spill", "wgmma")):
             print(f"[ptxas] {line.strip()}", flush=True)
-    ctas = wide_ctas(torch.device("cuda", 0))
-    print(f"[occupancy] CTAs an SM of the wide dK/dV and dQ kernels: {ctas}",
-          flush=True)
-    results = {"wide_ctas_an_sm": list(ctas)}
-    for name, (b, s, h, kv, d) in SHAPES.items():
-        x = Inputs(gen, b, s, h, kv, d)
+    results = {"wide_ctas_an_sm": {}}
+    for d, dv in WIDE_PAIRS:
+        ctas = wide_ctas(torch.device("cuda", 0), d, dv)
+        print(f"[occupancy] CTAs an SM of the wide dK/dV and dQ kernels at "
+              f"({d}, {dv}): {ctas}", flush=True)
+        results["wide_ctas_an_sm"][f"{d},{dv}"] = list(ctas)
+    for name, (b, s, h, kv, qk, d, dv) in SHAPES.items():
+        x = Inputs(gen, b, s, h, kv, qk, d, dv)
         q, k, v, out, dout, lse = x.q, x.k, x.v, x.out, x.dout, x.lse
+        kw = dict(scale=x.scale)
 
         def kernel():
-            flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+            flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
 
         row = {}
         base_here = base
-        if base is not None and d == 256 and "launch_wide<256>" not in src:
-            print(f"[{name}] the baseline is not built for (256, 256)",
+        if base is not None and \
+                base.flash_attention_bwd_smem_bytes(d, dv, 0) < 0:
+            print(f"[{name}] the baseline is not built for ({d}, {dv})",
                   flush=True)
             base_here = None
         if base_here is not None:
             row.update(in_turns(lambda: x.call(base, kind), kernel))
-            got = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+            got = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
             x.call(base, kind)
             torch.cuda.synchronize()
             diffs = [float((g.float() - w.float()).abs().max())
@@ -319,7 +344,7 @@ def main() -> None:
                                                        diffs))
             row["bitwise_equal_to_baseline"] = all(
                 torch.equal(g, w) for g, w in zip(got, x.grads))
-            if d < WIDE and not row["bitwise_equal_to_baseline"]:
+            if not row["bitwise_equal_to_baseline"]:
                 raise SystemExit(f"[{name}] gradients differ from the "
                                  f"baseline's: {diffs}")
         else:
@@ -329,18 +354,21 @@ def main() -> None:
             row["baseline_kernels"] = kernel_times(
                 lambda: x.call(base, kind), 10, r"flash_bwd_\w+")
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        lib_out = sdpa(qg, kg, vg, causal=True)
+        lib_out = sdpa(qg, kg, vg, causal=True, scale=x.scale)
         row["sdpa_backward_ms"] = device_ms(lambda: torch.autograd.grad(
             lib_out, (qg, kg, vg), dout.transpose(1, 2), retain_graph=True),
             20)
         pairs = s * (s + 1) // 2
-        five = 2.0 * b * h * pairs * 5 * d
-        seven = 2.0 * b * h * pairs * 7 * d
-        total = nbytes(q, k, v, out, dout, lse, q, k, v)
+        five = 2.0 * b * h * pairs * (3 * qk + 2 * dv)
+        seven = 2.0 * b * h * pairs * (4 * d + 3 * dv)
+        # inputs and gradients once, q and k at the function's own qk
+        total = 2 * 2 * (b * s * h * qk + b * s * kv * (qk + dv)) \
+            + nbytes(out, dout, lse)
         row["bound5_ms"] = bound(five, total)[0]
         row["bound7_ms"] = bound(seven, total)[0]
         ms = min(row["ms"])
-        print(f"[{name}] B{b} S{s} H{h} KV{kv} D{d} causal: kernel "
+        print(f"[{name}] B{b} S{s} H{h} KV{kv} qk{qk} D{d} Dv{dv} causal: "
+              f"kernel "
               f"{row['ms']} ms" + (f", baseline {row['baseline_ms']} ms "
                                    f"(bitwise equal: "
                                    f"{row['bitwise_equal_to_baseline']}; "
