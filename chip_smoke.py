@@ -19,6 +19,11 @@ ends the script with a non-zero exit and no result line:
               ``F.scaled_dot_product_attention`` where it computes the same
               function (a yardstick the port never calls) with CUDA events,
               and the least time the card could take for the same work.
+              Flash also at whisper-large-v3's encoder (1536 frames, no
+              mask), its cross attention at prefill (Sq 1024, Sk 1536) and
+              in a decode step (Sq 1, where the decode kernel is timed on
+              the same inputs beside it), Sq 1 over a ragged Sk and at G
+              4, and pixtral-12b's prefill (S 2048, causal).
               The flash backward against its plain formula (fp32) at
               yi-6b's training shape, the 100M example's, a ragged S, a
               window with q_offset and no mask with Sq != Sk; at head
@@ -29,13 +34,17 @@ ends the script with a non-zero exit and no result line:
               96 zero-padded to 128 beside v 64, scale 96^-0.5; the split
               kernels) and deepseek-v2-lite's (16 over 16 of (192, 128);
               the wide kernels), each pair also with a ragged S and a
-              q_offset and with no mask at Sq != Sk: relative L2
+              q_offset and with no mask at Sq != Sk; at whisper-large-v3's
+              three training shapes ((64, 64), G 1: the encoder and cross
+              attention without a mask, the decoder causal) and
+              pixtral-12b's (S 2048, causal, G 4): relative L2
               of dq, dk, dv within max(2e-2, 2 x the plain formula's bf16
               floor), two launches bitwise equal, the padded columns of
               dq and dk zero, the forward's lse within
               1e-3 of the plain lse and its out unchanged by asking for
-              lse; times at yi-6b's, recurrentgemma-2b's, minicpm3-4b's
-              and deepseek-v2-lite's training shapes against SDPA's
+              lse; times at yi-6b's, recurrentgemma-2b's, minicpm3-4b's,
+              deepseek-v2-lite's, whisper-large-v3's three and
+              pixtral-12b's training shapes against SDPA's
               backward on the same inputs (and which of SDPA's kernels
               ran) and both bounds (the formula's five products at the
               function's own qk, the design's seven at the padded D), and
@@ -57,10 +66,15 @@ ends the script with a non-zero exit and no result line:
               1e-4, two launches bitwise equal; its time against
               the bound of its bytes, the plain version's, and each of its
               CUDA kernels' (the scan, the reduction of d log_a).
-4. model   -- full-width yi-6b, mamba2-2.7b, recurrentgemma-2b, minicpm3-4b
-              and deepseek-v2-lite-16b in bf16 (random weights from a
-              seed): prefill and 4 decode steps through the kernels against
-              the same weights through the plain versions; relative L2
+4. model   -- full-width yi-6b, mamba2-2.7b, recurrentgemma-2b, minicpm3-4b,
+              deepseek-v2-lite-16b, whisper-large-v3 (prefill with 1536
+              frames: the encoder, then the cross keys and values cached)
+              and pixtral-12b (prefill with 1024 patches before the
+              prompt) in bf16 (random weights from a seed): prefill and 4
+              decode steps (whisper's through the cached cross attention)
+              through the kernels against the same weights through the
+              plain versions (whisper's and pixtral's flash and decode
+              launches counted against their layers); relative L2
               error of the logits against a stated bound, argmax agreement
               (in the MoE model the plain runs take the kernel run's
               experts, and the share of tokens they would have routed
@@ -79,7 +93,10 @@ ends the script with a non-zero exit and no result line:
               ``--jobs yi-6b:8,minicpm3-4b:4,yi-6b:8`` with ``--scenario
               poisson-open --time-scale 1e-6 --seed 0`` (Poisson
               arrivals from the scenario registry), submitting at the
-              offsets 0, 0.1068 and 0.1875 s or failing.
+              offsets 0, 0.1068 and 0.1875 s or failing.  A fifth serves
+              ``--jobs pixtral-12b:8,whisper-large-v3:2`` (as the
+              reference's serve job: pixtral's text path, whisper's
+              decoder without frames), flash and decode attention.
 6. train   -- ``python -m repro_torch.launch.train --arch yi-6b
               --n-layers 12 --steps 6 --batch 4 --seq 1024`` (full width,
               depth cut so that fp32 weights, gradients and AdamW moments
@@ -108,13 +125,22 @@ ends the script with a non-zero exit and no result line:
               deepseek one dense and four MoE layers): every loss finite,
               one flash forward and backward launch per layer and step,
               the peak under 64 GiB, the step wall and device split.  Then
+              ``--arch whisper-large-v3 --n-layers 32 --steps 4`` (every
+              layer of both stacks, B 4 x (1024 tokens + 1536 frames)) and
+              ``--arch pixtral-12b --n-layers 6 --steps 4 --seq 2048``
+              (1024 patches before 1024 tokens): every loss finite, one
+              flash forward and backward launch per attention layer
+              (encoder, self, cross) and step, the peak under 64 GiB, the
+              step wall and device split.  Then
               one step's gradients through the kernels against the plain
               versions, yi-6b at 12 layers, mamba2-2.7b at 16,
               recurrentgemma-2b at 9 (three (rec, rec, local) units),
               minicpm3-4b at 16 and deepseek-v2-lite-16b at 2 (one dense
               and one MoE layer, without remat; all three runs take the
               plain bf16 run's experts, and the share of routings the
-              other two would have changed is printed), each stacked leaf
+              other two would have changed is printed), whisper-large-v3
+              at 4 layers of each stack (the encoder's leaves included)
+              and pixtral-12b at 2, each stacked leaf
               within max(5e-2, 2 x floor) relative L2 (floor: plain bf16
               vs plain fp32).
 7. scenario kernels -- ``--scenario poisson-open --scenario-kernels
@@ -130,9 +156,11 @@ ends the script with a non-zero exit and no result line:
               pairs, ``jobs=1``), printing its rows.
 
 The line before the last is a JSON object with one entry per kernel and
-timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's and
-deepseek-v2-lite's prefill; the flash backward: yi-6b's,
-recurrentgemma-2b's, minicpm3-4b's and deepseek-v2-lite's training
+timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's,
+deepseek-v2-lite's and pixtral-12b's prefill and whisper-large-v3's
+encoder, cross attention and cross attention at Sq 1; the flash
+backward: yi-6b's, recurrentgemma-2b's, minicpm3-4b's,
+deepseek-v2-lite's, whisper-large-v3's three and pixtral-12b's training
 shapes; the SSD backward: mamba2-2.7b's;
 decode: yi-6b's and recurrentgemma-2b's decode steps; RG-LRU:
 recurrentgemma-2b's prefill at B 4 and at B 1; the RG-LRU backward:
@@ -228,12 +256,16 @@ SERVE_PATHS = [
     # the reference serve docstring's mix, under Poisson arrivals
     ("yi-6b:8,minicpm3-4b:4,yi-6b:8", ("flash_attention", "decode_attention"),
      POISSON),
+    # served as the reference's serve job serves them: pixtral's text path,
+    # whisper's decoder with cross attention skipped (no frames)
+    ("pixtral-12b:8,whisper-large-v3:2",
+     ("flash_attention", "decode_attention"), []),
 ]
 # submission_offsets("poisson-open", 3, time_scale=1e-6, seed=0) of the JAX
 # package, to 4 decimals: the scenario path must submit at these.
 POISSON_OFFSETS = (0.0, 0.1068, 0.1875)
 MODELS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b", "minicpm3-4b",
-          "deepseek-v2-lite-16b")
+          "deepseek-v2-lite-16b", "whisper-large-v3", "pixtral-12b")
 # Training: full-width yi-6b cut to 12 layers (fp32 weights, gradients and
 # AdamW moments, 16 bytes a parameter: 2.6 B parameters, 41.6 GB; the 32
 # layers' 97 GB do not fit the card), B 4 x 1024 tokens.
@@ -277,6 +309,18 @@ MLA_LAYERS, MLA_STEPS, MLA_CHECK_LAYERS, MLA_PEAK_GIB = 40, 4, 16, 64.0
 # one MoE layer (1.59 B parameters, 17.8 GiB at the check's 12 B a
 # parameter).
 DSV2_LAYERS, DSV2_CHECK_LAYERS, DSV2_PEAK_GIB = 5, 2, 64.0
+# Full-width whisper-large-v3: 1.60 B parameters (ArchConfig.n_params'
+# 1.39 B leaves out cross attention), 25.6 GB of fp32 state; all 32
+# encoder and 32 decoder layers at B 4 x (1024 tokens + 1536 frames),
+# ~52 GiB with the activations.  Full-width pixtral-12b: 12.25 B
+# parameters; the embedding and head alone are 1.34 B (21.5 GB of state)
+# and each layer 0.273 B (4.4 GB): 6 layers peak at ~59.5 GiB at B 4 x
+# (1024 patches + 1024 tokens), 8 at ~67.6, past ENCDEC_PEAK_GIB
+# (launch.train on an NVIDIA H100 80GB HBM3).  Gradient checks: whisper
+# at WHISPER_CHECK_LAYERS of each stack, pixtral at PIXTRAL_CHECK_LAYERS.
+WHISPER_LAYERS, WHISPER_CHECK_LAYERS = 32, 4
+PIXTRAL_LAYERS, PIXTRAL_CHECK_LAYERS = 6, 2
+ENCDEC_STEPS, ENCDEC_PEAK_GIB = 4, 64.0
 SLEEP_CYCLES = 200_000_000            # device sleep before a timed run
 
 
@@ -481,7 +525,23 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
          201, 4, 4, 192, 192, 128, "causal", 0, 51),
         ("none B1 Sq77 Sk190 H4 KV2 D192 Dv128", 1, 77, 190, 4, 2, 192, 192,
          128, "none", 0, 0),
+        # whisper-large-v3's three training shapes (20 heads over 20 of 64:
+        # the split kernels at G 1): the encoder over 1536 frames and
+        # cross attention of 1024 tokens over them, both without a mask,
+        # and the decoder's causal self attention; then pixtral-12b's
+        # (1024 patches and 1024 tokens, causal, 32 heads over 8 of 128).
+        ("whisper encoder train B4 S1536 H20 KV20 D64 none", B, 1536, 1536,
+         20, 20, 64, 64, 64, "none", 0, 0),
+        ("whisper decoder train B4 S1024 H20 KV20 D64 causal", B, PROMPT,
+         PROMPT, 20, 20, 64, 64, 64, "causal", 0, 0),
+        ("whisper cross train B4 Sq1024 Sk1536 H20 KV20 D64 none", B,
+         PROMPT, 1536, 20, 20, 64, 64, 64, "none", 0, 0),
+        ("pixtral train B4 S2048 H32 KV8 D128 causal", B, 2 * PROMPT,
+         2 * PROMPT, 32, 8, 128, 128, 128, "causal", 0, 0),
     ]
+    # Timed: the training shapes of yi-6b, recurrentgemma-2b, minicpm3-4b,
+    # deepseek-v2-lite, whisper-large-v3 (three) and pixtral-12b.
+    timed_cases = [c for c in cases if "train" in c[0]]
     results = {}
     for name, b, sq, sk, h, kv, qk, d, dv, kind, window, off in cases:
         q, k, v, dout = flash_bwd_inputs(gen, b, sq, sk, h, kv, qk, d, dv)
@@ -531,15 +591,12 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
     print("[kernels] flash_attention_bwd: two launches bitwise equal in every "
           "case", flush=True)
 
-    # Times at the training shapes of yi-6b, recurrentgemma-2b, minicpm3-4b
-    # and deepseek-v2-lite, each entry with the largest error of the cases
-    # at its pair.
+    # Each timed entry with the largest error of the cases at its pair.
     def err(case):
         return max(e for c, e in zip(cases, results.values())
                    if c[7:9] == case[7:9])
 
-    return [time_flash_bwd(gen, err(cases[i]), *cases[i])
-            for i in (0, 5, 9, 10)]
+    return [time_flash_bwd(gen, err(c), *c) for c in timed_cases]
 
 
 def flash_bwd_inputs(gen: torch.Generator, b, sq, sk, h, kv, qk, d, dv):
@@ -560,9 +617,9 @@ def flash_bwd_inputs(gen: torch.Generator, b, sq, sk, h, kv, qk, d, dv):
 def time_flash_bwd(gen: torch.Generator, max_abs_err: float, name, b, sq,
                    sk, h, kv, qk, d, dv, kind, window, off) -> dict:
     """The flash backward's device time at one shape against SDPA's
-    backward on the same (padded) inputs (causal: every timed shape's mask
-    is causal in effect) and both bounds, each of its CUDA kernels' own
-    time, and which of SDPA's kernels ran.  The bound counts the work of
+    backward on the same (padded) inputs (causal, where the shape's mask
+    is causal in effect, or no mask) and both bounds, each of its CUDA
+    kernels' own time, and which of SDPA's kernels ran.  The bound counts the work of
     the function at its own qk (inputs and gradients at width qk, the five
     products over qk and dv); the work at the padded d is printed beside
     it."""
@@ -582,11 +639,13 @@ def time_flash_bwd(gen: torch.Generator, max_abs_err: float, name, b, sq,
     kw = dict(mask_kind=kind, window=window, q_offset=off,
               scale=qk ** -0.5)
     mask = mask_for(kind, sq, sk, window, off, "cuda")
-    if not torch.equal(mask, mask_for("causal", sq, sk, 0, 0, "cuda")):
-        fail(f"flash_attention_bwd {name}: timed shapes must be causal in "
+    causal = mask is not None
+    if causal and not torch.equal(mask, mask_for("causal", sq, sk, 0, 0,
+                                                 "cuda")):
+        fail(f"flash_attention_bwd {name}: timed masks must be causal in "
              f"effect (SDPA's backward runs is_causal)")
     out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    pairs = int(mask.sum())
+    pairs = int(mask.sum()) if causal else sq * sk
 
     def five(w):                       # the formula's products at qk = w
         return 2.0 * b * h * pairs * (3 * w + 2 * dv)
@@ -606,7 +665,7 @@ def time_flash_bwd(gen: torch.Generator, max_abs_err: float, name, b, sq,
     plain_ms = device_ms(
         lambda: flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw), 3)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    lib_out = sdpa(qg, kg, vg, causal=True, scale=qk ** -0.5)
+    lib_out = sdpa(qg, kg, vg, causal=causal, scale=qk ** -0.5)
     lib_dout = dout.transpose(1, 2)
 
     def library():
@@ -668,7 +727,6 @@ def kernel_times(fn, n: int, pattern: str) -> dict:
 
 
 def kernels_attention(gen: torch.Generator) -> dict:
-    from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda,
         decode_attention_plain,
@@ -676,6 +734,7 @@ def kernels_attention(gen: torch.Generator) -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda,
         flash_attention_plain,
+        mask_for,
     )
     from repro_torch.models.mla import padded_qk_dim
 
@@ -736,6 +795,22 @@ def kernels_attention(gen: torch.Generator) -> dict:
          200, 333, 40, 40, (96, 64), "causal", 0, 133),
         ("MLA D96 padded to 128 Dv64 window S300 w50", 2, 300, 300, 40, 40,
          (96, 64), "window", 50, 0),
+        # whisper-large-v3 (20 heads over 20 of 64): the encoder over its
+        # 1536 frames and cross attention at prefill and in every decode
+        # step (Sq 1), all without a mask, and Sq 1 over a ragged Sk and at
+        # G 4; pixtral-12b's prefill (1024 patches, then 1024 tokens).
+        ("whisper encoder B4 S1536 H20 KV20 D64 none", B, 1536, 1536, 20,
+         20, (64, 64), "none", 0, 0),
+        ("whisper cross B4 Sq1024 Sk1536 H20 KV20 D64 none", B, PROMPT,
+         1536, 20, 20, (64, 64), "none", 0, 0),
+        ("whisper cross decode B4 Sq1 Sk1536 H20 KV20 D64 none", B, 1, 1536,
+         20, 20, (64, 64), "none", 0, 0),
+        ("Sq1 Sk1537 H20 KV20 D64 none", 2, 1, 1537, 20, 20, (64, 64),
+         "none", 0, 0),
+        ("Sq1 Sk1536 H8 KV2 D128 none", 2, 1, 1536, 8, 2, (128, 128), "none",
+         0, 0),
+        ("pixtral prefill B4 S2048 H32 KV8 D128 causal", B, 2 * PROMPT,
+         2 * PROMPT, 32, 8, (128, 128), "causal", 0, 0),
     ]
 
     def padded(q, k, dv):
@@ -763,50 +838,98 @@ def kernels_attention(gen: torch.Generator) -> dict:
     print("[kernels] flash_attention: two launches bitwise equal in every "
           "case", flush=True)
 
-    def time_flash(case, h, kv, d, dv, kind, window, label):
-        """Times at a serving path's prefill shape (S <= window, so the
-        window mask is the causal one and SDPA's is_causal matches it),
-        with the error of ``case``, the check at that shape.  At
-        minicpm3's qk 96 the kernel runs on q, k padded to 128; the bound
-        counts the true work, and the padded work is printed beside it."""
-        q, k, v = randn(B, PROMPT, h, d), randn(B, PROMPT, kv, d), \
-            randn(B, PROMPT, kv, dv)
-        qp, kp = padded(q, k, dv)
+    def time_flash(case, sq, sk, h, kv, d, dv, kind, window, label):
+        """Times at a path's shape, with the error of ``case``, the check
+        at that shape.  A masked shape must be causal in effect (S <=
+        window, so the window mask is the causal one and SDPA's is_causal
+        matches it); "none" is SDPA without a mask.  At minicpm3's qk 96
+        the kernel runs on q, k padded to 128; the bound counts the true
+        work, and the padded work is printed beside it.  At Sq 1 (cross
+        attention in a decode step) the calls take eight copies of K and V
+        in turn, as a decode step finds them in HBM (the 50 MB L2 would
+        hold one)."""
+        turns = 8 if sq == 1 else 1
+        q = randn(B, sq, h, d)
+        raw = [(randn(B, sk, kv, d), randn(B, sk, kv, dv))
+               for _ in range(turns)]
+        qp = padded(q, raw[0][0], dv)[0]
+        kvs = [(padded(q, kc, dv)[1], vc) for kc, vc in raw]
+        k, v = raw[0]
+        turn = [0]
+
+        def next_kv(pairs_of):
+            turn[0] += 1
+            return pairs_of[turn[0] % turns]
+
         scale = d ** -0.5
-        pairs = int(ref.causal_mask(PROMPT, PROMPT, 0, dev).sum())
+        causal = kind != "none"
+        mask = mask_for(kind, sq, sk, window, 0, dev)
+        if causal and not torch.equal(mask, mask_for("causal", sq, sk, 0, 0,
+                                                     dev)):
+            fail(f"flash_attention {label}: timed masks must be causal in "
+                 f"effect (SDPA runs is_causal)")
+        pairs = sq * sk if mask is None else int(mask.sum())
         flops = 2.0 * B * h * pairs * (d + dv)
-        out_bytes = B * PROMPT * h * dv * 2
+        out_bytes = B * sq * h * dv * 2
         b_ms, b_by = bound(flops, nbytes(q, k, v) + out_bytes)
         pad_ms, _ = bound(2.0 * B * h * pairs * (qp.shape[-1] + dv),
-                          nbytes(qp, kp, v) + out_bytes)
+                          nbytes(qp, kvs[0][0], v) + out_bytes)
         kw = dict(mask_kind=kind, window=window, scale=scale)
-        ms = device_ms(lambda: flash_attention_cuda(qp, kp, v, **kw), 20)
-        call_ms = wall_ms(lambda: flash_attention_cuda(qp, kp, v, **kw), 20)
+        ms = device_ms(lambda: flash_attention_cuda(qp, *next_kv(kvs), **kw),
+                       20)
+        call_ms = wall_ms(lambda: flash_attention_cuda(qp, *next_kv(kvs),
+                                                       **kw), 20)
         plain_ms = device_ms(lambda: flash_attention_plain(q, k, v, **kw), 5)
         # SDPA on the unpadded q, k: it takes Dv != D
-        lib_ms = device_ms(lambda: sdpa(q, k, v, causal=True, scale=scale),
-                           20)
-        shape = f"B{B} S{PROMPT} H{h} KV{kv} D{d} Dv{dv} {kind}"
+        lib_ms = device_ms(lambda: sdpa(q, *next_kv(raw), causal=causal,
+                                        scale=scale), 20)
+        shape = f"B{B} Sq{sq} Sk{sk} H{h} KV{kv} D{d} Dv{dv} {kind}"
         if qp.shape[-1] != d:
             shape += f" (q, k padded to D{qp.shape[-1]})"
+        extra = ""
+        if sq == 1:
+            # The decode kernel computes the same function (one query a
+            # row over a full cache); the model calls flash, as the
+            # reference does.
+            length = torch.full((B,), sk, dtype=torch.int32, device=dev)
+            q1 = qp[:, 0].contiguous()
+            dec_ms = device_ms(lambda: decode_attention_cuda(
+                q1, *next_kv(kvs), length), 20)
+            extra = f", decode kernel on the same inputs {dec_ms:.4f} ms"
         print(f"[kernels] flash_attention {label} {shape}: kernel {ms:.4f} "
               f"ms on the device ({call_ms:.4f} ms per call back to back), "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP; "
-              f"{pad_ms:.4f} ms for the work as padded)", flush=True)
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms{extra}, bound "
+              f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
+              f"{(nbytes(q, k, v) + out_bytes) / 1e6:.2f} MB; "
+              f"{pad_ms:.4f} ms for the work as padded; K/V taken from "
+              f"{turns} copies in turn)", flush=True)
         return dict(shape=shape, max_abs_err=errs[case], ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
 
     out["flash_attention"] = [
-        time_flash("prefill B4 S1024 causal", 32, 4, 128, 128, "causal", 0,
-                   "yi-6b"),
-        time_flash("D256 prefill B4 S1024 H10 KV1 window2048", 10, 1, 256,
-                   256, "window", 2048, "recurrentgemma-2b"),
+        time_flash("prefill B4 S1024 causal", PROMPT, PROMPT, 32, 4, 128,
+                   128, "causal", 0, "yi-6b"),
+        time_flash("D256 prefill B4 S1024 H10 KV1 window2048", PROMPT,
+                   PROMPT, 10, 1, 256, 256, "window", 2048,
+                   "recurrentgemma-2b"),
         time_flash("MLA D96 padded to 128 Dv64 prefill B4 S1024 H40 KV40 "
-                   "causal", 40, 40, 96, 64, "causal", 0, "minicpm3-4b"),
-        time_flash("MLA D192 Dv128 prefill B4 S1024 H16 KV16 causal", 16, 16,
-                   192, 128, "causal", 0, "deepseek-v2-lite-16b")]
+                   "causal", PROMPT, PROMPT, 40, 40, 96, 64, "causal", 0,
+                   "minicpm3-4b"),
+        time_flash("MLA D192 Dv128 prefill B4 S1024 H16 KV16 causal", PROMPT,
+                   PROMPT, 16, 16, 192, 128, "causal", 0,
+                   "deepseek-v2-lite-16b"),
+        time_flash("whisper encoder B4 S1536 H20 KV20 D64 none", 1536, 1536,
+                   20, 20, 64, 64, "none", 0, "whisper-large-v3 encoder"),
+        time_flash("whisper cross B4 Sq1024 Sk1536 H20 KV20 D64 none",
+                   PROMPT, 1536, 20, 20, 64, 64, "none", 0,
+                   "whisper-large-v3 cross"),
+        time_flash("whisper cross decode B4 Sq1 Sk1536 H20 KV20 D64 none", 1,
+                   1536, 20, 20, 64, 64, "none", 0,
+                   "whisper-large-v3 cross in a decode step"),
+        time_flash("pixtral prefill B4 S2048 H32 KV8 D128 causal",
+                   2 * PROMPT, 2 * PROMPT, 32, 8, 128, 128, "causal", 0,
+                   "pixtral-12b")]
 
     # -- decode attention -------------------------------------------------
     from repro_torch.kernels.decode_attention import counters
@@ -1471,6 +1594,7 @@ def rerouted(a, b) -> str:
 
 def phase_model(gen: torch.Generator, arch: str) -> None:
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.models.bridge import leaf_dtype
 
@@ -1485,12 +1609,28 @@ def phase_model(gen: torch.Generator, arch: str) -> None:
                            device="cuda")
     steps = torch.randint(0, cfg.vocab_size, (4, B), generator=gen,
                           device="cuda")
+    # whisper's frames and pixtral's patches, scaled as the data pipeline
+    # scales them; the patches count against max_seq and the lengths.
+    extra = {}
+    if cfg.encoder is not None:
+        extra["enc_frames"] = (0.02 * torch.randn(
+            (B, cfg.encoder.n_frames, cfg.d_model), generator=gen,
+            device="cuda")).to(torch.bfloat16)
+    if cfg.n_patches:
+        extra["patches"] = (0.02 * torch.randn(
+            (B, cfg.n_patches, cfg.d_model), generator=gen,
+            device="cuda")).to(torch.bfloat16)
+    n0, max_seq = cfg.n_patches + PROMPT, cfg.n_patches + MAX_SEQ
+    layers = [spec for stage in lm.build_plan(cfg)
+              for spec in stage.unit * stage.repeats]
+    cross = sum(spec.cross for spec in layers) if extra.get(
+        "enc_frames") is not None else 0
 
     def run(backend, dtype=torch.bfloat16):
-        logits, caches = lm.prefill(cfg, params, prompt, max_seq=MAX_SEQ,
-                                    backend=backend, dtype=dtype)
+        logits, caches = lm.prefill(cfg, params, prompt, max_seq=max_seq,
+                                    backend=backend, dtype=dtype, **extra)
         out = [logits.float()]
-        lengths = torch.full((B,), PROMPT, dtype=torch.int32, device="cuda")
+        lengths = torch.full((B,), n0, dtype=torch.int32, device="cuda")
         for tok in steps:
             logits, caches = lm.decode_step(cfg, params, tok, caches,
                                             lengths, backend=backend,
@@ -1505,8 +1645,23 @@ def phase_model(gen: torch.Generator, arch: str) -> None:
                    for g, w in zip(got, want))
 
     # The plain runs route as the kernel run did (see MODEL_REL_L2).
+    ops.reset_launch_counts()
     with Routes() as routes_kernel:
         got = run("kernel")
+    launches = ops.launch_counts()
+    if extra:
+        # every attention layer (encoder, self, cross) through flash in the
+        # prefill; each decode step's self attention through the decode
+        # kernel and its cross attention through flash at Sq 1
+        enc = cfg.encoder.n_layers if cross else 0
+        want = {"flash_attention": enc + len(layers) + cross * 5,
+                "decode_attention": 4 * len(layers)}
+        print(f"[model] {arch} kernel launches {launches} (expected "
+              f"{want}: {enc} encoder, {len(layers)} decoder and {cross} "
+              f"cross layers, 4 decode steps)", flush=True)
+        if any(launches[k] != n for k, n in want.items()):
+            fail(f"{arch}: the kernel run launched {launches}, expected "
+                 f"{want}")
     with Routes(routes_kernel) as routes_plain:
         want = run("ref")
     agree, total = 0, 0
@@ -1545,28 +1700,40 @@ def phase_model(gen: torch.Generator, arch: str) -> None:
 
     # Where a serving step's time goes: prefill and decode-step wall time
     # (back to back, as the serving loop runs them), then the profiler.
-    # A decode step reads every weight once; with tied embeddings the head
-    # reads the whole embedding table too.
+    # A decode step reads every decoder weight once (not the encoder's,
+    # nor cross attention's key and value projections, whose outputs the
+    # prefill cached); with tied embeddings the head reads the whole
+    # embedding table too.  It reads the cached cross keys and values
+    # whole.
     weight_bytes = sum(
         math.prod(shape) * leaf_dtype(key, torch.bfloat16).itemsize
         for key, (shape, _) in lm.param_shapes(cfg).items()
-        if key != "embed/table" or cfg.tie_embeddings)
+        if (key != "embed/table" or cfg.tie_embeddings)
+        and not key.startswith("encoder/")
+        and not re.search(r"/cross/(wk|wv|bk|bv)$", key))
 
     def do_prefill():
-        return lm.prefill(cfg, params, prompt, max_seq=MAX_SEQ)
+        return lm.prefill(cfg, params, prompt, max_seq=max_seq, **extra)
 
     prefill_ms = wall_ms(do_prefill, 3)
     _, caches = do_prefill()
-    lengths = torch.full((B,), PROMPT, dtype=torch.int32, device="cuda")
+    cross_bytes = sum(nbytes(*unit["cross"].values())
+                      for stage in caches.values() for unit in stage.values()
+                      if "cross" in unit)
+    lengths = torch.full((B,), n0, dtype=torch.int32, device="cuda")
 
     def step():
         lm.decode_step(cfg, params, steps[0], caches, lengths)
 
     step_ms = wall_ms(step, 10, warmup=2)
-    print(f"[model] {arch} prefill B{B} S{PROMPT}: {prefill_ms:.3f} ms; "
-          f"decode step B{B}: {step_ms:.3f} ms; decode-step bound: "
-          f"{weight_bytes / 1e9:.2f} GB of weights / 3.35 TB/s = "
-          f"{weight_bytes / PEAK_BYTES * 1e3:.3f} ms", flush=True)
+    read = weight_bytes + cross_bytes
+    print(f"[model] {arch} prefill B{B} S{n0}"
+          + (f" + {cfg.encoder.n_frames} frames" if cross else "")
+          + f": {prefill_ms:.3f} ms; decode step B{B}: {step_ms:.3f} ms; "
+          f"decode-step bound: {weight_bytes / 1e9:.2f} GB of weights"
+          + (f" + {cross_bytes / 1e9:.2f} GB of cross keys and values"
+             if cross_bytes else "")
+          + f" / 3.35 TB/s = {read / PEAK_BYTES * 1e3:.3f} ms", flush=True)
     profile(step, 3, f"{arch} decode step")
     profile(do_prefill, 1, f"{arch} prefill")
     del params, got, want, caches
@@ -1752,8 +1919,19 @@ def phase_executor_sweep() -> None:
 
 
 def train_args(layers: int, arch: str = "yi-6b") -> list:
+    """The train driver's flags for ``arch`` at ``layers`` layers: B 4 x
+    1024 tokens, after the patches where the arch has them."""
     return ["--arch", arch, "--n-layers", str(layers), "--batch", str(B),
-            "--seq", str(PROMPT)]
+            "--seq", str(depth_cut(arch, layers).n_patches + PROMPT)]
+
+
+def depth_cut(arch: str, layers: int):
+    """``arch`` at full width cut to ``layers`` layers, as ``launch.train
+    --n-layers`` cuts it (an encoder's stack alike)."""
+    from repro_torch.launch import train
+
+    return train.arch_config(
+        train.build_parser().parse_args(["--n-layers", str(layers)]), arch)
 
 
 TRAIN_METRICS = ("nll", "aux", "z", "grad_norm", "lr")
@@ -1804,9 +1982,6 @@ def profile_train_step(arch: str = "yi-6b",
     """Where a train step's device time goes at full width and ``layers``
     layers: torch.profiler over two steps after a warm one (outside the
     launch-counting windows)."""
-    import dataclasses
-
-    from repro_torch.configs import get_arch
     from repro_torch.configs.shapes import InputShape
     from repro_torch.data import pipeline as data
     from repro_torch.launch.steps import build_train_step
@@ -1814,8 +1989,8 @@ def profile_train_step(arch: str = "yi-6b",
     from repro_torch.optim import adamw
     from repro_torch.tree import leaves
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
-    shape = InputShape("profile", PROMPT, B, "train")
+    cfg = depth_cut(arch, layers)
+    shape = InputShape("profile", cfg.n_patches + PROMPT, B, "train")
     params = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
                      stacked=True)
     for p in leaves(params):
@@ -1895,21 +2070,19 @@ def phase_train_check(arch: str = "yi-6b", layers: int = TRAIN_LAYERS,
     (:class:`Routes`, call by call, so without remat, whose backward
     would route each layer again), and the share of routings each would
     have changed is printed."""
-    import dataclasses
-
-    from repro_torch.configs import get_arch
     from repro_torch.configs.shapes import InputShape
     from repro_torch.data import pipeline as data
     from repro_torch.models import lm
     from repro_torch.tree import leaves_with_path
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    cfg = depth_cut(arch, layers)
     params = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
                      stacked=True)
     paths = [p for p, _ in leaves_with_path(params)]
     leaves = [t.requires_grad_() for _, t in leaves_with_path(params)]
-    batch = data.batch_for_step(cfg, InputShape("check", PROMPT, B, "train"),
-                                0, device="cuda")
+    batch = data.batch_for_step(
+        cfg, InputShape("check", cfg.n_patches + PROMPT, B, "train"), 0,
+        device="cuda")
 
     if cfg.moe is not None and remat:
         fail(f"train check {arch}: the routing replay counts calls, which "
@@ -2054,6 +2227,46 @@ def phase_train_mla(arch: str, layers: int, peak_gib: float) -> dict:
     return run["launches"]
 
 
+def phase_train_prefixed(arch: str, layers: int) -> dict:
+    """Full-width whisper-large-v3 (its frames through the encoder, cross
+    attention in every decoder layer) or pixtral-12b (its patches in front
+    of the tokens) at ``layers`` layers for ENCDEC_STEPS steps: every loss
+    finite, one flash forward and one flash backward launch per attention
+    layer (encoder, self and cross) and step, the peak under
+    ENCDEC_PEAK_GIB; then where a step's device time goes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    full, cfg = get_arch(arch), depth_cut(arch, layers)
+    specs = [spec for stage in lm.build_plan(cfg)
+             for spec in stage.unit * stage.repeats]
+    n_params = sum(math.prod(shape)
+                   for shape, _ in lm.param_shapes(cfg).values())
+    enc = cfg.encoder.n_layers if cfg.encoder else 0
+    cross = sum(spec.cross for spec in specs)
+    attention = enc + len(specs) + cross
+    print(f"[train] {arch} at full width, {len(specs)} of {full.n_layers} "
+          f"decoder layers" + (f" and {enc} of {full.encoder.n_layers} "
+                               f"encoder layers over {cfg.encoder.n_frames} "
+                               f"frames" if enc else "")
+          + (f", {cfg.n_patches} patches before {PROMPT} tokens"
+             if cfg.n_patches else "")
+          + f"; {attention} attention layers a step ({cross} cross); "
+          f"{n_params / 1e9:.3f} B parameters, "
+          f"{n_params * 16 / 2**30:.2f} GiB of fp32 weights, gradients and "
+          f"AdamW moments", flush=True)
+    run = train_run(train_args(layers, arch) + ["--steps", str(ENCDEC_STEPS)],
+                    layers, ENCDEC_STEPS,
+                    per_step={"flash_attention": attention,
+                              "flash_attention_bwd": attention})
+    peak = run["run"]["peak_bytes"] / 2**30
+    if peak > ENCDEC_PEAK_GIB:
+        fail(f"{arch} at {layers} layers peaked at {peak:.2f} GiB, over the "
+             f"{ENCDEC_PEAK_GIB} GiB headroom rule")
+    profile_train_step(arch, layers)
+    return run["launches"]
+
+
 def phase_train_multi() -> dict:
     """``--jobs yi-6b:8,yi-6b:2`` at full width and 2 layers under SRTF and
     FIFO: every job finishes."""
@@ -2112,7 +2325,9 @@ def main() -> None:
             (phase_train_recurrentgemma,), (phase_train_multi,),
             (phase_train_mla, "minicpm3-4b", MLA_LAYERS, MLA_PEAK_GIB),
             (phase_train_mla, "deepseek-v2-lite-16b", DSV2_LAYERS,
-             DSV2_PEAK_GIB)):
+             DSV2_PEAK_GIB),
+            (phase_train_prefixed, "whisper-large-v3", WHISPER_LAYERS),
+            (phase_train_prefixed, "pixtral-12b", PIXTRAL_LAYERS)):
         counts = timed("train", phase, *args)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
@@ -2125,6 +2340,10 @@ def main() -> None:
           MLA_CHECK_LAYERS)
     timed("train-check", phase_train_check, "deepseek-v2-lite-16b",
           DSV2_CHECK_LAYERS, False)
+    timed("train-check", phase_train_check, "whisper-large-v3",
+          WHISPER_CHECK_LAYERS)
+    timed("train-check", phase_train_check, "pixtral-12b",
+          PIXTRAL_CHECK_LAYERS)
     timed("scenario", phase_scenario_kernels)
     timed("sweep", phase_executor_sweep)
     sources = {

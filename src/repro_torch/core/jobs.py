@@ -7,10 +7,9 @@ against its live cache (attention KV caches, Mamba-2 and RG-LRU states,
 whatever the arch's plan keeps), and its first block runs the prefill too.
 Blocks are homogeneous, the structural property the paper's predictor
 exploits.  Nothing here depends on the arch: any config the port's model
-runs (dense GQA, MLA, MoE, Mamba-2, the RG-LRU hybrid) makes a serving
-job; on the card a training job needs layers that have a backward kernel
-(GQA attention at head dims 64 and 128; the scans refuse to train
-there).
+runs makes a serving and a training job.  As in the JAX package, both
+feed the model tokens alone: whisper-large-v3 runs its decoder with cross
+attention skipped, pixtral-12b its text path.
 """
 
 from __future__ import annotations
@@ -65,8 +64,9 @@ def make_train_job(
     if configured) needs no extra coordination.  With ``resume`` the job
     restores the checkpointer's latest step and runs only the blocks left.
     Weights are ``lm.init(cfg, seed=seed)`` in fp32, stacked; block ``i``
-    trains on uniform token ids from a generator seeded from (seed + 1,
-    i), so a resumed job sees the batches it would have seen.
+    trains on uniform token ids (no frames or patches, as the reference's
+    job) from a generator seeded from (seed + 1, i), so a resumed job sees
+    the batches it would have seen.
     """
     device = resolve_device(device)
     params = lm.init(cfg, seed=seed, device=device, dtype=torch.float32,

@@ -13,7 +13,8 @@ Unlike the JAX driver, which trains reduced configs unless ``--full``, the
 model runs at its full published width unless ``--reduced`` is given, on
 ``cuda`` unless ``--device cpu`` is.  ``--n-layers N`` cuts the chosen
 config's depth (``dataclasses.replace``, as the reference's training
-example builds its model): the reference keeps fp32 weights and fp32
+example builds its model; an encoder's depth alike): the reference keeps
+fp32 weights and fp32
 AdamW moments, 16 bytes a parameter with the gradients, so full yi-6b
 (6.06 B parameters, 97 GB) does not fit one 80 GB card and trains there
 at ``--n-layers 12`` (2.6 B parameters, 41.6 GB of state) with every
@@ -28,7 +29,15 @@ flash backward at qk 96 padded to 128 beside v 64) and MLA + MoE
 (deepseek-v2-lite-16b: 241.6 GiB of state at 27 layers, ``--n-layers 5``,
 one dense and four MoE layers, peaks at ~58.9 GiB; the flash backward at
 (192, 128)); minicpm3-4b at 48 layers and deepseek-v2-lite-16b at 6 ran
-out of memory on an 80 GB card.
+out of memory on an 80 GB card.  whisper-large-v3 trains every layer
+(32 encoder and 32 decoder, 1.60 B parameters; ~52 GiB at B 4 x (1024
+tokens + 1536 frames)), the flash backward at (64, 64) for the encoder,
+the decoder's self attention and cross attention.  pixtral-12b's
+embedding and head alone hold 21.5 GB of state: ``--n-layers 6`` peaks
+at ~59.5 GiB at B 4 x (1024 patches + 1024 tokens), 8 at ~67.6 GiB.  A
+sequence is its patches, then its text, so ``--seq`` must leave at least
+two text tokens (``ValueError`` otherwise): pixtral takes ``--seq 2048``
+for 1024 tokens.
 
 Examples::
 
@@ -50,6 +59,10 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-v2-lite-16b --n-layers 5 --steps 4 --batch 4 \\
         --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch whisper-large-v3 --steps 4 --batch 4 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --arch pixtral-12b \\
+        --n-layers 6 --steps 4 --batch 4 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --reduced --arch yi-6b --steps 4 --batch 2 --seq 32
 """
@@ -83,12 +96,15 @@ from .steps import build_train_step
 
 def arch_config(args, arch_id: str) -> ArchConfig:
     """The arch's config as the flags ask: reduced or full width, depth
-    cut to ``--n-layers`` if given."""
+    cut to ``--n-layers`` if given (an encoder's depth too, both stacks
+    alike)."""
     cfg = get_arch(arch_id)
     if args.reduced:
         cfg = cfg.reduced()
     if args.n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+        enc = None if cfg.encoder is None else dataclasses.replace(
+            cfg.encoder, n_layers=args.n_layers)
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers, encoder=enc)
     return cfg
 
 
@@ -97,6 +113,11 @@ def train_single(args) -> Dict:
     step {"step", "nll", "aux", "z", "grad_norm", "lr", "ms"}],
     "predicted_s", "peak_bytes"}`` (peak None on the CPU)."""
     cfg = arch_config(args, args.arch)
+    if args.seq < cfg.n_patches + 2:
+        raise ValueError(
+            f"{cfg.arch_id}: --seq {args.seq} leaves under two text tokens "
+            f"after its {cfg.n_patches} patches (a sequence is patches, "
+            f"then text, and the loss needs a next token)")
     dev = args.device
     shape = InputShape("train_cli", args.seq, args.batch, "train")
     opt_cfg = adamw.OptConfig(lr=args.lr,

@@ -1,5 +1,6 @@
-"""GQA attention with prefill and decode entry points
-(``repro.models.attention.gqa_apply`` / ``gqa_decode``).
+"""GQA attention with prefill and decode entry points and cross attention
+(``repro.models.attention.gqa_apply`` / ``gqa_decode`` / ``cross_kv`` /
+``cross_apply``).
 
 Weights stay head-major as in the JAX package (``wq [d_model, H, hd]``,
 ``wo [H, hd, d_model]``), so the weight bridge copies them unchanged.
@@ -100,3 +101,37 @@ def gqa_decode(
                              eff_len, backend=backend)
     y = _out(p, o[:, None, :, :], dtype)[:, 0]
     return y, cache
+
+
+# ----------------------------------------------------------------- cross
+def cross_kv(p: Dict, enc_out: torch.Tensor,
+             dtype=DEFAULT_COMPUTE_DTYPE) -> Dict:
+    """The encoder's keys and values for cross attention, computed once a
+    sequence (prefill keeps them in the cache): {"k", "v"} [B, Se, KV,
+    hd]."""
+    k = _proj(enc_out, cast(p["wk"], dtype))
+    v = _proj(enc_out, cast(p["wv"], dtype))
+    if "bk" in p:
+        k = k + cast(p["bk"], dtype)
+        v = v + cast(p["bv"], dtype)
+    return {"k": k, "v": v}
+
+
+def cross_apply(
+    p: Dict,
+    x: torch.Tensor,                   # [B, Sq, D] decoder states
+    enc_kv: Dict,                      # {"k": [B,Se,KV,hd], "v": ...}
+    *,
+    backend: str = "kernel",
+    dtype=DEFAULT_COMPUTE_DTYPE,
+) -> torch.Tensor:
+    """Cross attention of the decoder states over the encoder's keys and
+    values, no mask, through the flash kernel as in the JAX package (a
+    decode step's Sq is 1)."""
+    q = _proj(x, cast(p["wq"], dtype))
+    if "bq" in p:
+        q = q + cast(p["bq"], dtype)
+    o = ops.flash_attention(q.contiguous(), enc_kv["k"].contiguous(),
+                            enc_kv["v"].contiguous(), mask_kind="none",
+                            backend=backend)
+    return _out(p, o, dtype)

@@ -20,7 +20,7 @@ import torch
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from .layers import DEFAULT_COMPUTE_DTYPE
-from .lm import param_shapes, ported_plan
+from .lm import build_plan, param_shapes
 
 _SANITIZE = re.compile(r"[^A-Za-z0-9_.:-]")     # the checkpointer's rule
 # Leaves the JAX package reads in float32 (ssm.py: dt_bias, a_log;
@@ -46,8 +46,9 @@ def params_from_numpy(cfg: ArchConfig, flat: Mapping[str, object], *,
     package casts them at every use, to the same values); norm scales and
     biases and the leaves the JAX package reads in float32 stay float32
     (:func:`leaf_dtype`).  Stacked stage parameters are split along their
-    leading axis into per-layer views, unless ``stacked``: then every stage
-    unit stays one dict of ``[repeats, ...]`` leaves, the JAX package's
+    leading axis into per-layer views (the encoder's layers too), unless
+    ``stacked``: then every stage unit (and ``encoder/layers``) stays one
+    dict of ``[repeats, ...]`` leaves, the JAX package's
     pytree, which is what training takes (``dtype=torch.float32``: the
     reference's fp32 master weights, cast to bf16 at each use; the stacked
     tensors are the leaves that gradients, the optimizer and checkpoints
@@ -81,7 +82,11 @@ def params_from_numpy(cfg: ArchConfig, flat: Mapping[str, object], *,
 
     if stacked:
         return nested
-    for si, stage in enumerate(ported_plan(cfg)):
+    if cfg.encoder is not None:
+        enc = nested["encoder"]
+        enc["layers"] = [_select(enc["layers"], r)
+                         for r in range(cfg.encoder.n_layers)]
+    for si, stage in enumerate(build_plan(cfg)):
         units = nested[f"stage{si}"]
         for ui in range(len(stage.unit)):
             unit = units[f"u{ui}"]

@@ -1,33 +1,40 @@
 """The language model of the port (``repro.models.lm``).
 
-``build_plan`` is the JAX package's.  The port runs these of its plans:
-dense GQA ``Stage((LayerSpec("gqa", "dense"),), n_layers)`` (yi-6b,
-yi-34b, mistral-nemo and pixtral's text path), the same with the MLA
-mixer (minicpm3-4b), MoE plans with either mixer and an optional leading
-dense stage (deepseek-v2-lite: one dense layer of width 10944, then 26 MLA
-+ MoE layers; dbrx: GQA + MoE), the Mamba-2 plan
+``build_plan`` is the JAX package's, and the port runs every plan it
+makes: dense GQA ``Stage((LayerSpec("gqa", "dense"),), n_layers)``
+(yi-6b, yi-34b, mistral-nemo and pixtral-12b, whose precomputed patch
+embeddings are prepended to the tokens), the same with cross attention
+behind an encoder (whisper-large-v3: ``LayerSpec("gqa", "dense",
+cross=True)``, the encoder a stack of biased, unmasked, rope-less GQA
+layers over precomputed frame embeddings), the same with the MLA mixer
+(minicpm3-4b), MoE plans with either mixer and an optional leading dense
+stage (deepseek-v2-lite: one dense layer of width 10944, then 26 MLA +
+MoE layers; dbrx: GQA + MoE), the Mamba-2 plan
 ``Stage((LayerSpec("ssd", "none"),), n_layers)`` (mamba2-2.7b) and the
 Griffin hybrid of RG-LRU and local-attention layers (recurrentgemma-2b:
 8 repeats of (rglru, rglru, local) and a second stage of (rglru, rglru)).
-The JAX package scans each stage's stacked parameters with ``lax.scan``;
-here the stacked parameters are split into a list of per-layer views when
-they are loaded (:mod:`repro_torch.models.bridge`) and a Python loop walks
-them, stage after stage.
+The JAX package scans each stage's stacked parameters (and the encoder's)
+with ``lax.scan``; here the stacked parameters are split into a list of
+per-layer views when they are loaded (:mod:`repro_torch.models.bridge`)
+and a Python loop walks them, the encoder first, then stage after stage.
 
 Parameters are a nested dict: ``params["stage0"]["u0"]`` is the list of
 per-layer dicts of stage 0's unit 0, other leaves are as in the JAX
-package (``params["embed"]["table"]`` and so on).  For training the unit
-is instead one dict of stacked ``[repeats, ...]`` leaves, the JAX
-package's pytree (``init(..., stacked=True)``): those tensors are the
-autograd leaves, and :func:`forward` takes their per-layer views itself.
+package (``params["embed"]["table"]`` and so on; ``params["encoder"]
+["layers"]`` is the encoder's list of per-layer dicts).  For training the
+unit (and the encoder's layers) is instead one dict of stacked ``[repeats,
+...]`` leaves, the JAX package's pytree (``init(..., stacked=True)``):
+those tensors are the autograd leaves, and :func:`forward` takes their
+per-layer views itself.
 Caches keep the JAX package's structure, one dict of stacked ``[L, ...]``
 leaves per unit:
 ``{"k", "v"}`` ``[L, B, slots, KV, hd]`` for attention (``max_seq`` slots,
 or exactly ``window`` for a local layer), ``{"c_kv" [L, B, max_seq, R],
 "k_rope" [L, B, max_seq, r]}`` for MLA, ``{"ssm" [L, B, H, P, N] fp32,
 "conv_x"/"conv_b"/"conv_c" [L, B, W-1, C]}`` for Mamba-2 and ``{"h" [L, B,
-C] fp32, "conv" [L, B, W-1, C]}`` for RG-LRU.  :func:`decode_step` updates
-them in place.
+C] fp32, "conv" [L, B, W-1, C]}`` for RG-LRU; a cross-attention layer's
+entry also holds ``"cross": {"k", "v"}`` [L, B, frames, KV, hd], the
+encoder's keys and values.  :func:`decode_step` updates them in place.
 """
 
 from __future__ import annotations
@@ -94,24 +101,6 @@ def build_plan(cfg: ArchConfig) -> Tuple[Stage, ...]:
                   cfg.n_layers),)
 
 
-_LATER = {
-    "cross": "the encoder and cross attention (whisper) come with the "
-             "encoder-decoder slice",
-}
-
-
-def ported_plan(cfg: ArchConfig) -> Tuple[Stage, ...]:
-    """The plan, if the port runs it; else NotImplementedError."""
-    plan = build_plan(cfg)
-    for stage in plan:
-        for spec in stage.unit:
-            for part in (spec.mixer, spec.ffn, "cross" if spec.cross else ""):
-                if part in _LATER:
-                    raise NotImplementedError(
-                        f"{cfg.arch_id}: not ported yet: {_LATER[part]}")
-    return plan
-
-
 # ================================================================== init
 Init = Union[float, str]        # normal std, or the name of a fixed init
 
@@ -133,9 +122,9 @@ def _fixed_init(how: str, n: int) -> torch.Tensor:
 def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
     """Every parameter by its flat path (the JAX package's pytree path,
     ``stage0/u0/mixer/wq``), with its shape and its initialisation as in
-    ``repro.models.lm.init``.  Stage parameters carry the leading
-    ``[repeats]`` axis, as they do there."""
-    plan = ported_plan(cfg)
+    ``repro.models.lm.init``.  Stage parameters and the encoder's layers
+    carry the leading ``[repeats]`` axis, as they do there."""
+    plan = build_plan(cfg)
     d, V = cfg.d_model, cfg.padded_vocab
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     bias = cfg.norm == "layer"
@@ -147,7 +136,9 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
             out[f"{prefix}/bias"] = (lead + (d,), "zeros")
         return out
 
-    def attention(L: Tuple[int, ...]) -> Dict:
+    def attention(L: Tuple[int, ...], bias: bool = bias) -> Dict:
+        # attention.gqa_init; the encoder's and cross attention's
+        # (attention.cross_init) are always biased
         out = {"wq": (L + (d, H, hd), s_in), "wk": (L + (d, KV, hd), s_in),
                "wv": (L + (d, KV, hd), s_in),
                "wo": (L + (H, hd, d), 1.0 / math.sqrt(H * hd))}
@@ -208,9 +199,18 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
         out["kv_norm/scale"] = (L + (R,), "ones")
         return out
 
-    def swiglu(L: Tuple[int, ...], ff: int) -> Dict:  # layers.mlp_init
-        return {"gate/w": (L + (d, ff), s_in), "up/w": (L + (d, ff), s_in),
-                "down/w": (L + (ff, d), 1.0 / math.sqrt(ff))}
+    def mlp(L: Tuple[int, ...], ff: int,
+            act: str = cfg.act) -> Dict:              # layers.mlp_init
+        if act in ("swiglu", "geglu"):
+            return {"gate/w": (L + (d, ff), s_in),
+                    "up/w": (L + (d, ff), s_in),
+                    "down/w": (L + (ff, d), 1.0 / math.sqrt(ff))}
+        return {"up/w": (L + (d, ff), s_in), "up/b": (L + (ff,), "zeros"),
+                "down/w": (L + (ff, d), 1.0 / math.sqrt(ff)),
+                "down/b": (L + (d,), "zeros")}
+
+    def prefixed(prefix: str, tree: Dict) -> Dict:
+        return {f"{prefix}/{key}": val for key, val in tree.items()}
 
     def moe(L: Tuple[int, ...]) -> Dict:              # moe.moe_init
         E, ff = cfg.moe.n_experts, cfg.d_ff
@@ -219,8 +219,8 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
                "up_w": (L + (E, d, ff), s_in),
                "down_w": (L + (E, ff, d), 1.0 / math.sqrt(ff))}
         if cfg.moe.n_shared:
-            for key, val in swiglu(L, cfg.moe.n_shared * ff).items():
-                out[f"shared/{key}"] = val
+            out.update(prefixed("shared", mlp(L, cfg.moe.n_shared * ff,
+                                              "swiglu")))
         return out
 
     mixers = {"gqa": attention, "local": attention, "mla": mla, "ssd": mamba2,
@@ -230,28 +230,29 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
     shapes.update(norm("final_norm", ()))
     if not cfg.tie_embeddings:
         shapes["lm_head/w"] = ((d, V), 0.02)
+    if cfg.encoder is not None:                       # _encoder_layer_init
+        L, pre = (cfg.encoder.n_layers,), "encoder/layers"
+        shapes.update(norm(f"{pre}/norm1", L))
+        shapes.update(prefixed(f"{pre}/mixer", attention(L, bias=True)))
+        shapes.update(norm(f"{pre}/norm2", L))
+        shapes.update(prefixed(f"{pre}/ffn", mlp(L, cfg.d_ff)))
+        shapes.update(norm("encoder/final_norm", ()))
     for si, stage in enumerate(plan):
         for ui, spec in enumerate(stage.unit):
             L = (stage.repeats,)
             pre = f"stage{si}/u{ui}"
             shapes.update(norm(f"{pre}/norm1", L))
-            for key, val in mixers[spec.mixer](L).items():
-                shapes[f"{pre}/mixer/{key}"] = val
+            shapes.update(prefixed(f"{pre}/mixer", mixers[spec.mixer](L)))
+            if spec.cross:
+                shapes.update(norm(f"{pre}/norm_cross", L))
+                shapes.update(prefixed(f"{pre}/cross",
+                                       attention(L, bias=True)))
             if spec.ffn == "none":
                 continue
-            ff = spec.d_ff or cfg.d_ff
             shapes.update(norm(f"{pre}/norm2", L))
-            if spec.ffn == "moe":
-                ffn = moe(L)
-            elif cfg.act in ("swiglu", "geglu"):
-                ffn = swiglu(L, ff)
-            else:
-                ffn = {"up/w": (L + (d, ff), s_in),
-                       "up/b": (L + (ff,), "zeros"),
-                       "down/w": (L + (ff, d), 1.0 / math.sqrt(ff)),
-                       "down/b": (L + (d,), "zeros")}
-            for key, val in ffn.items():
-                shapes[f"{pre}/ffn/{key}"] = val
+            ffn = moe(L) if spec.ffn == "moe" \
+                else mlp(L, spec.d_ff or cfg.d_ff)
+            shapes.update(prefixed(f"{pre}/ffn", ffn))
     return shapes
 
 
@@ -275,11 +276,12 @@ def init(cfg: ArchConfig, *, seed: int = 0, device=None,
             flat[key] = _fixed_init(how, shape[-1]).to(device).expand(
                 shape).clone()
             continue
-        # A stacked stage leaf is drawn one repeat at a time, so the float32
+        # A stacked leaf is drawn one repeat at a time, so the float32
         # transient is one layer's (deepseek-v2-lite's expert weights are
         # 4.8 G elements per leaf).
         t = torch.empty(shape, dtype=leaf_dtype(key, dtype), device=device)
-        for part in (t if key.startswith("stage") else [t]):
+        stacked_leaf = key.startswith(("stage", "encoder/layers"))
+        for part in (t if stacked_leaf else [t]):
             part.copy_(torch.randn(part.shape, generator=gen,
                                    device=device).mul_(how))
         flat[key] = t
@@ -301,16 +303,20 @@ def _unbind(tree: Dict, reps: int) -> list:
     return layers
 
 
+def _per_layer(unit, reps: int) -> list:
+    """A unit's per-layer dicts: as given (serving) or views of its
+    stacked leaves (training)."""
+    return unit if isinstance(unit, list) else _unbind(unit, reps)
+
+
 def _layers(cfg: ArchConfig, params: Dict):
     """(spec, stage key, unit key, repeat, repeats, layer params) in
     execution order: stage after stage, each repeat of the stage's unit in
     turn.  A unit is a list of per-layer dicts (serving) or a dict of
     stacked leaves (training)."""
-    for si, stage in enumerate(ported_plan(cfg)):
-        units = [params[f"stage{si}"][f"u{ui}"]
+    for si, stage in enumerate(build_plan(cfg)):
+        units = [_per_layer(params[f"stage{si}"][f"u{ui}"], stage.repeats)
                  for ui in range(len(stage.unit))]
-        units = [u if isinstance(u, list) else _unbind(u, stage.repeats)
-                 for u in units]
         for r in range(stage.repeats):
             for ui, spec in enumerate(stage.unit):
                 yield (spec, f"stage{si}", f"u{ui}", r, stage.repeats,
@@ -360,6 +366,67 @@ def _mix(cfg: ArchConfig, spec: LayerSpec, p: Dict, h: torch.Tensor,
                                        backend=backend, dtype=dtype)
 
 
+def _cross(cfg: ArchConfig, p: Dict, x: torch.Tensor, enc_kv: Dict,
+           backend: str, dtype) -> torch.Tensor:
+    """``x`` plus the layer's cross attention over the encoder's keys and
+    values (``repro.models.lm._apply_layer``'s cross branch)."""
+    h = apply_norm(p["norm_cross"], x, cfg.norm)
+    return x + attn.cross_apply(p["cross"], h, enc_kv, backend=backend,
+                                dtype=dtype)
+
+
+def _inputs(params: Dict, tokens: torch.Tensor,
+            patches: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """The token embeddings, with the patch embeddings [B, P, D] in front
+    of them if given: [B, P + S, D]."""
+    x = embed(params["embed"], tokens, dtype)
+    if patches is None:
+        return x
+    return torch.cat([patches.to(dtype), x], dim=1)
+
+
+# =============================================================== encoder
+def _sinusoid(n: int, d: int, device) -> torch.Tensor:
+    """Sinusoidal positions [n, d] in float32 (``repro.models.lm.
+    _sinusoid``): sines of the first d/2 frequencies, then cosines."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10_000.0, 2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def encoder_unit(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
+                 backend: str = "kernel",
+                 dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> torch.Tensor:
+    """One encoder layer: biased GQA with no rope and no mask, then the
+    MLP, each behind a norm and a residual add."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    mix, _ = attn.gqa_apply(p["mixer"], h, rope_theta=None,
+                            mask_kind="none", backend=backend, dtype=dtype)
+    x = x + mix
+    h = apply_norm(p["norm2"], x, cfg.norm)
+    return x + apply_mlp(p["ffn"], h, cfg.act, dtype)
+
+
+def _encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor, *,
+            remat: bool = False, backend: str = "kernel",
+            dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> torch.Tensor:
+    """The whisper-style encoder over precomputed frame embeddings [B, F,
+    D]: sinusoidal positions added in the compute dtype, every encoder
+    layer (each recomputed in the backward with ``remat``), the final
+    norm."""
+    x = frames.to(dtype) + _sinusoid(frames.shape[1], cfg.d_model,
+                                     frames.device).to(dtype)
+    enc = params["encoder"]
+    for p in _per_layer(enc["layers"], cfg.encoder.n_layers):
+        if remat:
+            x = checkpoint(encoder_unit, cfg, p, x, backend=backend,
+                           dtype=dtype, use_reentrant=False)
+        else:
+            x = encoder_unit(cfg, p, x, backend=backend, dtype=dtype)
+    return apply_norm(enc["final_norm"], x, cfg.norm)
+
+
 def _store(unit_c: Dict, entry: Dict, r: int, reps: int,
            slots: Optional[int] = None) -> None:
     """Write one layer's cache ``entry`` at repeat ``r`` of its unit's
@@ -379,9 +446,19 @@ def _store(unit_c: Dict, entry: Dict, r: int, reps: int,
 
 
 def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
-            max_seq: int, backend: str = "kernel",
+            max_seq: int, patches: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None,
+            backend: str = "kernel",
             dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE):
     """Run the prompt, return (last-token logits [B,V], caches).
+
+    ``patches`` ([B, P, D] embeddings) are prepended to the tokens and
+    count against ``max_seq``; the next decode step's length is then P +
+    S.  With ``enc_frames`` ([B, F, D] embeddings) and an encoder, the
+    encoder runs once and each cross-attention layer caches its keys and
+    values of the encoder's output; without them (or without an encoder)
+    the cross layers are skipped, here and in every decode step, as in
+    the JAX package.
 
     A local-attention layer's cache has exactly ``window`` slots, and the
     decode step writes a token at slot ``length`` (``repro.models.
@@ -390,19 +467,24 @@ def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     ``max_seq > window`` raises ``ValueError`` for a config with local
     layers.
     """
-    B, S = tokens.shape
+    S = tokens.shape[1] + (patches.shape[1] if patches is not None else 0)
     if max_seq < S:
         raise ValueError(
-            f"max_seq={max_seq} smaller than prompt length {S}")
-    for stage in ported_plan(cfg):
+            f"max_seq={max_seq} smaller than prompt length {S} (includes "
+            f"patch prefix)")
+    for stage in build_plan(cfg):
         for spec in stage.unit:
             if spec.mixer == "local" and max_seq > _window(cfg, spec):
                 raise ValueError(
                     f"{cfg.arch_id}: max_seq={max_seq} exceeds the local "
                     f"attention window {_window(cfg, spec)}; the window's "
                     f"cache has no slot past it")
-    x = embed(params["embed"], tokens, dtype)
+    x = _inputs(params, tokens, patches, dtype)
     positions = torch.arange(S, device=tokens.device)
+    enc_out = None
+    if cfg.encoder is not None and enc_frames is not None:
+        enc_out = _encode(cfg, params, enc_frames, backend=backend,
+                          dtype=dtype)
     caches: Dict = {}
     for spec, sk, uk, r, reps, p in _layers(cfg, params):
         unit_c = caches.setdefault(sk, {}).setdefault(uk, {})
@@ -418,6 +500,10 @@ def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
         else:
             _store(unit_c, entry, r, reps)
         x = x + mix
+        if spec.cross and enc_out is not None:
+            enc_kv = attn.cross_kv(p["cross"], enc_out, dtype)
+            x = _cross(cfg, p, x, enc_kv, backend, dtype)
+            _store(unit_c.setdefault("cross", {}), enc_kv, r, reps)
         if spec.ffn != "none":
             x = x + _ffn(cfg, spec, p, x, dtype)[0]
     # the head is applied to the last position only, as in the JAX package
@@ -432,7 +518,9 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
     """One token for every sequence in the batch: (logits [B,V], caches).
 
     ``caches`` is updated in place (the JAX package returns new ones) and
-    returned; ``lengths`` (int32 ``[B]``) counts the positions cached.
+    returned; ``lengths`` (int32 ``[B]``) counts the positions cached.  A
+    cross-attention layer attends to the encoder's keys and values that
+    the prefill cached, where it cached them.
     """
     x = embed(params["embed"], token, dtype)                  # [B,D]
     for spec, sk, uk, r, _, p in _layers(cfg, params):
@@ -459,6 +547,9 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
             for name, t in new.items():
                 state[name].copy_(t)
         x = x + mix
+        if spec.cross and "cross" in c:
+            enc_kv = {name: t[r] for name, t in c["cross"].items()}
+            x = _cross(cfg, p, x[:, None, :], enc_kv, backend, dtype)[:, 0]
         if spec.ffn != "none":
             # one token a row: the MoE dispatches it as a sequence of one
             x = x + _ffn(cfg, spec, p, x[:, None, :], dtype)[0][:, 0]
@@ -468,25 +559,36 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
 
 # =============================================================== training
 def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+            patches: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None,
             return_hidden: bool = False, remat: bool = False,
             backend: str = "kernel",
             dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> Tuple:
     """The whole sequence, no cache (``repro.models.lm.forward``): (logits
     [B,S,V] -- or the final hidden states [B,S,D] if ``return_hidden``,
-    for the vocab-chunked loss -- , the summed MoE aux loss).
+    for the vocab-chunked loss -- , the summed MoE aux loss).  ``patches``
+    [B, P, D] are prepended to the tokens (S counts them); with
+    ``enc_frames`` [B, F, D] and an encoder, the encoder runs once and
+    each cross-attention layer attends to its output.
 
-    ``remat`` recomputes each layer in the backward
+    ``remat`` recomputes each layer, the encoder's too, in the backward
     (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on
-    the reference's scan body; here per layer, not per unit).  Patch
-    prefixes and the encoder wait for their slice.
+    the reference's scan body; here per layer, not per unit).
     """
-    x = embed(params["embed"], tokens, dtype)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _inputs(params, tokens, patches, dtype)
+    positions = torch.arange(x.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    enc_out = None
+    if cfg.encoder is not None and enc_frames is not None:
+        enc_out = _encode(cfg, params, enc_frames, remat=remat,
+                          backend=backend, dtype=dtype)
 
-    def layer(spec, p, x):
+    def layer(spec, p, x, enc_out):
         h = apply_norm(p["norm1"], x, cfg.norm)
         x = x + _mix(cfg, spec, p, h, positions, backend, dtype)[0]
+        if spec.cross and enc_out is not None:
+            x = _cross(cfg, p, x, attn.cross_kv(p["cross"], enc_out, dtype),
+                       backend, dtype)
         if spec.ffn == "none":
             return x, None
         y, a = _ffn(cfg, spec, p, x, dtype)
@@ -494,9 +596,9 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
 
     for spec, _, _, _, _, p in _layers(cfg, params):
         if remat:
-            x, a = checkpoint(layer, spec, p, x, use_reentrant=False)
+            x, a = checkpoint(layer, spec, p, x, enc_out, use_reentrant=False)
         else:
-            x, a = layer(spec, p, x)
+            x, a = layer(spec, p, x, enc_out)
         if a is not None:
             aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
@@ -569,16 +671,15 @@ def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *,
             dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE
             ) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross entropy (+ MoE aux + z-loss), vocab-chunked
-    (``repro.models.lm.loss_fn``): (total, {"nll", "aux", "z"})."""
-    for key in ("patches", "frames"):
-        if batch.get(key) is not None:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: batches with {key} wait for the encoder and "
-                f"patch-prefix slice")
-    tokens = batch["tokens"]
-    hidden, aux = forward(cfg, params, tokens, return_hidden=True,
+    (``repro.models.lm.loss_fn``): (total, {"nll", "aux", "z"}).  The
+    batch's ``patches`` and ``frames``, where it has them, go to
+    :func:`forward`; the loss is taken on the token positions only."""
+    tokens, patches = batch["tokens"], batch.get("patches")
+    hidden, aux = forward(cfg, params, tokens, patches=patches,
+                          enc_frames=batch.get("frames"), return_hidden=True,
                           remat=remat, backend=backend, dtype=dtype)
-    x = hidden[:, :-1, :]
+    n_prefix = 0 if patches is None else patches.shape[1]
+    x = hidden[:, n_prefix:-1, :]
     targets = tokens[:, 1:]
     if cfg.tie_embeddings:
         nll, lse = _chunked_nll(x, params["embed"]["table"], True, targets,

@@ -3,7 +3,9 @@ backwards of flash, the SSD scan and the RG-LRU scan too, and all three
 under autograd); also the MLA layer through flash at full width against
 its plain route, the MoE dispatch and combine on the card bitwise equal
 to the CPU's, one executor-sweep cell, one recurrentgemma-2b train step
-at three layers, and the serving example at its full-width default.
+at three layers, full-width whisper-large-v3 and pixtral-12b at two
+layers against their plain route, and the serving example at its
+full-width default.
 
 Marked ``cuda``; each test skips where there is no CUDA device.  On a
 GPU machine::
@@ -113,6 +115,12 @@ FLASH = [
     (2, 300, 300, 4, 4, 192, 128, "window", 50, 0),
     (1, 200, 500, 2, 1, 192, 128, "window", 100, 300),
     (2, 5, 1, 4, 4, 192, 128, "none", 0, 0),
+    # Sq 1 over a whole sequence, no mask: whisper-large-v3's cross
+    # attention in every decode step (20 heads over 20 of 64), at G 4 and
+    # over a ragged Sk.  127 of the query tile's 128 rows lie past Sq.
+    (2, 1, 1536, 20, 20, 64, 64, "none", 0, 0),
+    (2, 1, 1536, 8, 2, 128, 128, "none", 0, 0),
+    (2, 1, 1537, 20, 20, 64, 64, "none", 0, 0),
 ]
 
 
@@ -572,6 +580,9 @@ BWD = [
     (1, 8, 8, 2, 2, 256, "window", 2, 20),
     (2, 5, 0, 4, 2, 256, "none", 0, 0),
     (1, 200, 200, 3, 3, 256, "causal", 0, 0),
+    # whisper-large-v3's cross attention, short: no mask, Sq 100 over its
+    # 1536 frames, G 1
+    (2, 100, 1536, 4, 4, 64, "none", 0, 0),
 ]
 # Backward, kernel vs the plain formula in fp32: relative L2 of each
 # gradient within max(2e-2, 2 x floor), the floor the plain formula in
@@ -1043,6 +1054,66 @@ def test_recurrentgemma_train_step_through_the_kernels(gen):
     for k, p, t in zip(kernels, plain, truth):
         assert torch.isfinite(k).all()
         assert _rel_l2(k, p) <= max(5e-2, 2 * _rel_l2(p, t))
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+def test_prefixed_models_through_the_kernels_match_the_plain_route(arch,
+                                                                   gen):
+    """Full-width whisper-large-v3 (2 encoder and 2 decoder layers, B 2 x
+    (64 tokens + 1536 frames)) and pixtral-12b (2 layers, B 2 x (1024
+    patches + 64 tokens)) in bf16: prefill and two decode steps through
+    the kernels against the plain route, relative L2 of each logits
+    vector within max(5e-2, 2 x floor) (floor: plain bf16 vs plain
+    fp32); whisper's cross attention through flash in the prefill and in
+    each decode step."""
+    import dataclasses
+
+    cfg = get_arch(arch)
+    enc = None if cfg.encoder is None else dataclasses.replace(
+        cfg.encoder, n_layers=2)
+    cfg = dataclasses.replace(cfg, n_layers=2, encoder=enc)
+    params = lm.init(cfg, seed=0, device="cuda")
+    n, prefix = 64, cfg.n_patches
+    tokens = torch.randint(0, cfg.vocab_size, (2, n), generator=gen,
+                           device="cuda")
+    extra = {}
+    if cfg.encoder is not None:
+        extra["enc_frames"] = 0.02 * _randn(gen, 2, cfg.encoder.n_frames,
+                                            cfg.d_model)
+    if prefix:
+        extra["patches"] = 0.02 * _randn(gen, 2, prefix, cfg.d_model)
+
+    def run(backend, dtype=torch.bfloat16):
+        logits, caches = lm.prefill(cfg, params, tokens, backend=backend,
+                                    max_seq=prefix + n + 8, dtype=dtype,
+                                    **extra)
+        out = [logits.float()]
+        lengths = torch.full((2,), prefix + n, dtype=torch.int32,
+                             device="cuda")
+        for tok in tokens[:, :2].T:
+            logits, caches = lm.decode_step(cfg, params, tok, caches,
+                                            lengths, backend=backend,
+                                            dtype=dtype)
+            out.append(logits.float())
+            lengths = lengths + 1
+        return out
+
+    ops.reset_launch_counts()
+    got = run("kernel")
+    counts = ops.launch_counts()
+    # encoder, self and cross layers in the prefill; cross at each step
+    cross = 2 if cfg.encoder is not None else 0
+    assert counts["flash_attention"] == cross + 2 + cross * (1 + 2)
+    assert counts["decode_attention"] == 2 * 2
+    plain, truth = run("ref"), run("ref", torch.float32)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return max(float(((x - y).norm(dim=-1) / y.norm(dim=-1)).max())
+                   for x, y in zip(a, b))
+
+    assert all(torch.isfinite(g).all() for g in got)
+    assert rel(got, plain) <= max(5e-2, 2 * rel(plain, truth))
 
 
 def test_preemptive_training_example_survives_its_preemption(gen):

@@ -164,12 +164,6 @@ def test_prefill_cache_matches_jax(model):
                                    rtol=F32_TOL, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3"])
-def test_later_slices_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lm.init(t_get_arch(arch).reduced(), device="cpu")
-
-
 def test_random_init_has_reference_shapes(model):
     cfg, _, flat, _, _ = model
     tparams = lm.init(cfg, seed=3, device="cpu", dtype=torch.float32)
@@ -445,7 +439,7 @@ def test_latent_moe_random_init_and_bridge_dtypes(latent):
     for key, (shape, _) in shapes.items():
         assert flat[key.replace("/", "_")].shape == shape, key
     tparams = lm.init(tcfg, seed=4, device="cpu")
-    for si in range(len(lm.ported_plan(tcfg))):
+    for si in range(len(lm.build_plan(tcfg))):
         layer = tparams[f"stage{si}"]["u0"][0]
         for name, t in layer["mixer"].items():
             if name.endswith("_norm"):
