@@ -154,18 +154,40 @@ ends the script with a non-zero exit and no result line:
 8. executor sweep -- ``repro_torch.benchmarks.executor_policies`` on the
               card (four policies and SRTF under EWMA over two long+short
               pairs, ``jobs=1``), printing its rows.
+9. reduced -- every arch of the zoo at ``.reduced()`` (head dim 32;
+              reduced MLA's qk 48 padded to 64 beside v 32; dbrx-132b
+              included), as the reference's ``make smoke`` and quickstart
+              run them: prefill of B 4 x 8 tokens (whisper with its 32
+              frames, pixtral after its 8 patches) and 4 decode steps in
+              bf16, then one train step's gradients at B 4 x 64 tokens,
+              through the kernels against the plain versions, the
+              logits and each stacked leaf within max(5e-2, 2 x floor)
+              relative L2 (MoE plain runs take the kernel run's
+              experts); every kernel of the arch's mixers launched and no
+              other.  Then the reference's ``make smoke`` serve line,
+              ``--reduced --jobs yi-6b:4,minicpm3-4b:2 --policy srtf
+              --compare-fifo --tokens-per-block 4 --prompt-len 8 --batch
+              1`` (flash and decode attention), and the port's quickstart
+              with its defaults (12 steps of reduced yi-6b, the staircase
+              prediction from step 1, one flash forward and backward a
+              layer and step).  The kernel phase checks (32, 32) and
+              (64, 32) flash, their backward and (32, 32) decode at the
+              reduced paths' shapes, with the others.
 
 The line before the last is a JSON object with one entry per kernel and
 timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's,
 deepseek-v2-lite's and pixtral-12b's prefill and whisper-large-v3's
-encoder, cross attention and cross attention at Sq 1; the flash
-backward: yi-6b's, recurrentgemma-2b's, minicpm3-4b's,
-deepseek-v2-lite's, whisper-large-v3's three and pixtral-12b's training
-shapes; the SSD backward: mamba2-2.7b's;
-decode: yi-6b's and recurrentgemma-2b's decode steps; RG-LRU:
-recurrentgemma-2b's prefill at B 4 and at B 1; the RG-LRU backward:
-recurrentgemma-2b's training shape; launches summed over the serve and
-train paths); the last line is ``{"ok": true, "device": {...}}``.
+encoder, cross attention and cross attention at Sq 1, and the reduced
+paths' (32, 32) serve prefill and training shape and (64, 32) training
+shape; the flash backward: yi-6b's, recurrentgemma-2b's,
+minicpm3-4b's, deepseek-v2-lite's, whisper-large-v3's three and
+pixtral-12b's training shapes and the reduced (32, 32) and (64, 32)
+ones; the SSD backward: mamba2-2.7b's; decode: yi-6b's,
+recurrentgemma-2b's and the reduced make smoke line's decode steps;
+RG-LRU: recurrentgemma-2b's prefill at B 4 and at B 1; the RG-LRU
+backward: recurrentgemma-2b's training shape; launches summed over the
+serve, train and reduced paths); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -322,6 +344,26 @@ WHISPER_LAYERS, WHISPER_CHECK_LAYERS = 32, 4
 PIXTRAL_LAYERS, PIXTRAL_CHECK_LAYERS = 6, 2
 ENCDEC_STEPS, ENCDEC_PEAK_GIB = 4, 64.0
 SLEEP_CYCLES = 200_000_000            # device sleep before a timed run
+# The reduced configs (``.reduced()``: d_model 128, 4 heads of 32, MLA's
+# qk 48 padded to 64 beside v 32), as the reference's ``make smoke`` and
+# quickstart run them: a prompt of 8 tokens (after pixtral's 8 patches;
+# whisper with its 32 frames), REDUCED_DECODE decode steps, and one train
+# step at the quickstart's B 4 x 64 tokens.  The make smoke serve line
+# (tokens per block 4, longest job 4 blocks) caches REDUCED_MAX_SEQ slots.
+REDUCED_PROMPT, REDUCED_SEQ, REDUCED_DECODE = 8, 64, 4
+REDUCED_MAX_SEQ = REDUCED_PROMPT + 4 * 4 + 8
+MAKE_SMOKE = ["--reduced", "--policy", "srtf", "--compare-fifo",
+              "--tokens-per-block", "4", "--prompt-len", "8", "--batch", "1"]
+MAKE_SMOKE_JOBS = "yi-6b:4,minicpm3-4b:2"
+# The kernels each mixer launches when a model serves (prefill, decode)
+# and trains; MLA decodes with plain products, as the reference does.
+MIXER_KERNELS = {
+    "gqa": ("flash_attention", "decode_attention", "flash_attention_bwd"),
+    "local": ("flash_attention", "decode_attention", "flash_attention_bwd"),
+    "mla": ("flash_attention", "flash_attention_bwd"),
+    "ssd": ("ssd_scan", "ssd_scan_bwd"),
+    "rglru": ("rglru_scan", "rglru_scan_bwd"),
+}
 
 
 def fail(msg: str) -> None:
@@ -538,6 +580,24 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
          PROMPT, 1536, 20, 20, 64, 64, 64, "none", 0, 0),
         ("pixtral train B4 S2048 H32 KV8 D128 causal", B, 2 * PROMPT,
          2 * PROMPT, 32, 8, 128, 128, 128, "causal", 0, 0),
+        # The reduced configs' (32, 32) and reduced MLA's qk 48 padded to
+        # (64, 32), the split kernels on (64, 64) tiles: the quickstart's
+        # training batch (yi-6b's 4 heads over 2; MLA's 4 over 4), then
+        # recurrentgemma's window 64 over a longer S, a ragged S with a
+        # q_offset and no mask with Sq != Sk (whisper's cross attention
+        # over its 32 frames).
+        ("reduced train B4 S64 H4 KV2 D32 causal", B, REDUCED_SEQ,
+         REDUCED_SEQ, 4, 2, 32, 32, 32, "causal", 0, 0),
+        ("reduced MLA train B4 S64 H4 KV4 qk48->64 Dv32 causal", B,
+         REDUCED_SEQ, REDUCED_SEQ, 4, 4, 48, 64, 32, "causal", 0, 0),
+        ("reduced window B2 S200 H4 KV1 D32 w64", 2, 200, 200, 4, 1, 32, 32,
+         32, "window", 64, 0),
+        ("reduced ragged B2 Sq150 Sk201 H4 KV2 D32 causal q_offset51", 2, 150,
+         201, 4, 2, 32, 32, 32, "causal", 0, 51),
+        ("reduced cross B4 Sq56 Sk32 H4 KV4 D32 none", B, 56, 32, 4, 4, 32,
+         32, 32, "none", 0, 0),
+        ("reduced MLA ragged B2 Sq150 Sk201 H4 KV4 qk48->64 Dv32 causal "
+         "q_offset51", 2, 150, 201, 4, 4, 48, 64, 32, "causal", 0, 51),
     ]
     # Timed: the training shapes of yi-6b, recurrentgemma-2b, minicpm3-4b,
     # deepseek-v2-lite, whisper-large-v3 (three) and pixtral-12b.
@@ -811,6 +871,28 @@ def kernels_attention(gen: torch.Generator) -> dict:
          0, 0),
         ("pixtral prefill B4 S2048 H32 KV8 D128 causal", B, 2 * PROMPT,
          2 * PROMPT, 32, 8, (128, 128), "causal", 0, 0),
+        # The reduced configs' head dim 32 on the (64, 64) tiles: the make
+        # smoke serve line's yi-6b prefill (B 1, 8 tokens, 4 heads over 2),
+        # the quickstart's training batch (B 4 x 64), recurrentgemma's
+        # window 64, whisper's encoder and cross attention at Sq 1 over its
+        # 32 frames, a ragged edge with a q_offset; reduced MLA's qk 48
+        # padded to (64, 32), at the quickstart's batch and ragged.
+        ("reduced serve prefill B1 S8 H4 KV2 D32 causal", 1,
+         REDUCED_PROMPT, REDUCED_PROMPT, 4, 2, (32, 32), "causal", 0, 0),
+        ("reduced train B4 S64 H4 KV2 D32 causal", B, REDUCED_SEQ,
+         REDUCED_SEQ, 4, 2, (32, 32), "causal", 0, 0),
+        ("reduced window B2 S200 H4 KV1 D32 w64", 2, 200, 200, 4, 1,
+         (32, 32), "window", 64, 0),
+        ("reduced whisper encoder B2 S32 H4 KV4 D32 none", 2, 32, 32, 4, 4,
+         (32, 32), "none", 0, 0),
+        ("reduced whisper cross decode B2 Sq1 Sk32 H4 KV4 D32 none", 2, 1, 32,
+         4, 4, (32, 32), "none", 0, 0),
+        ("reduced ragged B3 Sq77 Sk150 H4 KV2 D32 causal q_offset73", 3, 77,
+         150, 4, 2, (32, 32), "causal", 0, 73),
+        ("reduced MLA qk48 padded to 64 Dv32 train B4 S64 H4 KV4 causal", B,
+         REDUCED_SEQ, REDUCED_SEQ, 4, 4, (48, 32), "causal", 0, 0),
+        ("reduced MLA qk48 padded to 64 Dv32 ragged Sq77 Sk150 causal "
+         "q_offset73", 2, 77, 150, 4, 4, (48, 32), "causal", 0, 73),
     ]
 
     def padded(q, k, dv):
@@ -838,7 +920,7 @@ def kernels_attention(gen: torch.Generator) -> dict:
     print("[kernels] flash_attention: two launches bitwise equal in every "
           "case", flush=True)
 
-    def time_flash(case, sq, sk, h, kv, d, dv, kind, window, label):
+    def time_flash(case, sq, sk, h, kv, d, dv, kind, window, label, b=B):
         """Times at a path's shape, with the error of ``case``, the check
         at that shape.  A masked shape must be causal in effect (S <=
         window, so the window mask is the causal one and SDPA's is_causal
@@ -849,8 +931,8 @@ def kernels_attention(gen: torch.Generator) -> dict:
         in turn, as a decode step finds them in HBM (the 50 MB L2 would
         hold one)."""
         turns = 8 if sq == 1 else 1
-        q = randn(B, sq, h, d)
-        raw = [(randn(B, sk, kv, d), randn(B, sk, kv, dv))
+        q = randn(b, sq, h, d)
+        raw = [(randn(b, sk, kv, d), randn(b, sk, kv, dv))
                for _ in range(turns)]
         qp = padded(q, raw[0][0], dv)[0]
         kvs = [(padded(q, kc, dv)[1], vc) for kc, vc in raw]
@@ -869,10 +951,10 @@ def kernels_attention(gen: torch.Generator) -> dict:
             fail(f"flash_attention {label}: timed masks must be causal in "
                  f"effect (SDPA runs is_causal)")
         pairs = sq * sk if mask is None else int(mask.sum())
-        flops = 2.0 * B * h * pairs * (d + dv)
-        out_bytes = B * sq * h * dv * 2
+        flops = 2.0 * b * h * pairs * (d + dv)
+        out_bytes = b * sq * h * dv * 2
         b_ms, b_by = bound(flops, nbytes(q, k, v) + out_bytes)
-        pad_ms, _ = bound(2.0 * B * h * pairs * (qp.shape[-1] + dv),
+        pad_ms, _ = bound(2.0 * b * h * pairs * (qp.shape[-1] + dv),
                           nbytes(qp, kvs[0][0], v) + out_bytes)
         kw = dict(mask_kind=kind, window=window, scale=scale)
         ms = device_ms(lambda: flash_attention_cuda(qp, *next_kv(kvs), **kw),
@@ -883,7 +965,7 @@ def kernels_attention(gen: torch.Generator) -> dict:
         # SDPA on the unpadded q, k: it takes Dv != D
         lib_ms = device_ms(lambda: sdpa(q, *next_kv(raw), causal=causal,
                                         scale=scale), 20)
-        shape = f"B{B} Sq{sq} Sk{sk} H{h} KV{kv} D{d} Dv{dv} {kind}"
+        shape = f"B{b} Sq{sq} Sk{sk} H{h} KV{kv} D{d} Dv{dv} {kind}"
         if qp.shape[-1] != d:
             shape += f" (q, k padded to D{qp.shape[-1]})"
         extra = ""
@@ -891,7 +973,7 @@ def kernels_attention(gen: torch.Generator) -> dict:
             # The decode kernel computes the same function (one query a
             # row over a full cache); the model calls flash, as the
             # reference does.
-            length = torch.full((B,), sk, dtype=torch.int32, device=dev)
+            length = torch.full((b,), sk, dtype=torch.int32, device=dev)
             q1 = qp[:, 0].contiguous()
             dec_ms = device_ms(lambda: decode_attention_cuda(
                 q1, *next_kv(kvs), length), 20)
@@ -929,12 +1011,21 @@ def kernels_attention(gen: torch.Generator) -> dict:
                    "whisper-large-v3 cross in a decode step"),
         time_flash("pixtral prefill B4 S2048 H32 KV8 D128 causal",
                    2 * PROMPT, 2 * PROMPT, 32, 8, 128, 128, "causal", 0,
-                   "pixtral-12b")]
+                   "pixtral-12b"),
+        time_flash("reduced serve prefill B1 S8 H4 KV2 D32 causal",
+                   REDUCED_PROMPT, REDUCED_PROMPT, 4, 2, 32, 32, "causal", 0,
+                   "reduced yi-6b serve (make smoke)", b=1),
+        time_flash("reduced train B4 S64 H4 KV2 D32 causal", REDUCED_SEQ,
+                   REDUCED_SEQ, 4, 2, 32, 32, "causal", 0,
+                   "reduced yi-6b train (quickstart)"),
+        time_flash("reduced MLA qk48 padded to 64 Dv32 train B4 S64 H4 KV4 "
+                   "causal", REDUCED_SEQ, REDUCED_SEQ, 4, 4, 48, 32, "causal",
+                   0, "reduced minicpm3-4b train")]
 
     # -- decode attention -------------------------------------------------
     from repro_torch.kernels.decode_attention import counters
 
-    errs = {128: [], 256: []}
+    errs = {128: [], 256: [], 32: []}
     decode_cases = [
         # name, B, H, KV, D, cache slots, lengths
         ("decode B4 mixed lengths", B, 32, 4, 128, MAX_SEQ,
@@ -948,6 +1039,13 @@ def kernels_attention(gen: torch.Generator) -> dict:
         # Lengths below the 33 splits: CTAs with no keys reach the combine.
         ("D256 G10 ring of 2048 lengths below n_split", B, 10, 1, 256, 2048,
          [1, 2, 3, 0]),
+        # The reduced configs' (32, 32): the make smoke serve line's yi-6b
+        # cache (G 2, 32 slots), recurrentgemma's 64-slot window (G 4, two
+        # splits of 32 keys at B 1), lengths 0 and 64 at G 1.
+        ("reduced G2 serve cache", 1, 4, 2, 32, REDUCED_MAX_SEQ,
+         [REDUCED_PROMPT + 8]),
+        ("reduced G4 window of 64", 1, 4, 1, 32, 64, [64]),
+        ("reduced G1 lengths 0 and 64", 2, 4, 4, 32, 64, [0, 64]),
     ]
     for name, b, h, kv, d, slots, lens in decode_cases:
         q = randn(b, h, d)
@@ -975,13 +1073,13 @@ def kernels_attention(gen: torch.Generator) -> dict:
         fail("decode_attention: length 0 rows are not zero")
     print("[kernels] decode_attention length 0 rows: zeros ok", flush=True)
 
-    def time_decode(h, kv, d, slots, fill, label):
+    def time_decode(h, kv, d, slots, fill, label, b=B):
         """Times at a serving decode step: every row at a mid-run length;
         eight cache copies in turn so the 50 MB L2 does not hold the K/V
         reads."""
-        length = torch.full((B,), fill, dtype=torch.int32, device=dev)
-        q = randn(B, h, d)
-        caches = [(randn(B, slots, kv, d), randn(B, slots, kv, d))
+        length = torch.full((b,), fill, dtype=torch.int32, device=dev)
+        q = randn(b, h, d)
+        caches = [(randn(b, slots, kv, d), randn(b, slots, kv, d))
                   for _ in range(8)]
         turn = [0]
 
@@ -990,8 +1088,8 @@ def kernels_attention(gen: torch.Generator) -> dict:
             turn[0] += 1
             return fn(q, kc, vc, length)
 
-        kv_bytes = B * fill * kv * (d + d) * 2
-        flops = 2.0 * B * h * fill * (d + d)
+        kv_bytes = b * fill * kv * (d + d) * 2
+        flops = 2.0 * b * h * fill * (d + d)
         b_ms, b_by = bound(flops, kv_bytes + nbytes(q, q, length))
         ms = device_ms(lambda: run(decode_attention_cuda), 100)
         call_ms = wall_ms(lambda: run(decode_attention_cuda), 100)
@@ -1000,12 +1098,12 @@ def kernels_attention(gen: torch.Generator) -> dict:
         amask = valid[:, None, None, :]
         lib_ms = device_ms(lambda: run(lambda q_, k_, v_, _l: sdpa(
             q_[:, None], k_, v_, mask=amask)), 50)
-        print(f"[kernels] decode_attention {label} B{B} S{slots} fill {fill} "
+        print(f"[kernels] decode_attention {label} B{b} S{slots} fill {fill} "
               f"H{h} KV{kv} D{d}: kernel {ms:.4f} ms on the device "
               f"({call_ms:.4f} ms per call back to back), plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}; {kv_bytes / 1e6:.2f} MB of K/V)", flush=True)
-        return dict(shape=f"B{B} S{slots} fill {fill} H{h} KV{kv} D{d}",
+        return dict(shape=f"B{b} S{slots} fill {fill} H{h} KV{kv} D{d}",
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
 
@@ -1016,7 +1114,10 @@ def kernels_attention(gen: torch.Generator) -> dict:
                            "yi-6b")),
         dict(max_abs_err=max(errs[256]),
              **time_decode(10, 1, 256, 2048, PROMPT + TOKENS_PER_BLOCK,
-                           "recurrentgemma-2b"))]
+                           "recurrentgemma-2b")),
+        dict(max_abs_err=max(errs[32]),
+             **time_decode(4, 2, 32, REDUCED_MAX_SEQ, REDUCED_PROMPT + 8,
+                           "reduced yi-6b serve (make smoke)", b=1))]
     return out
 
 
@@ -1741,11 +1842,172 @@ def phase_model(gen: torch.Generator, arch: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(jobs: str, path_kernels, pacing) -> dict:
+def phase_reduced(gen: torch.Generator, arch: str) -> dict:
+    """``arch`` at ``.reduced()`` on the card: prefill of B x
+    REDUCED_PROMPT tokens (after its prefix) and REDUCED_DECODE decode
+    steps in bf16, then one train step's gradients from fp32 weights at B
+    x REDUCED_SEQ tokens, through the kernels against the plain versions:
+    the logits and each stacked leaf within max(MODEL_REL_L2, 2 x floor)
+    relative L2 (floor: plain bf16 vs plain fp32; in the MoE archs the
+    plain runs take the kernel run's experts).  Every kernel of the
+    arch's mixers must have launched in both runs' counts, and no other.
+    Returns the kernel runs' launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import pipeline as data
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves_with_path
+
+    cfg = get_arch(arch).reduced()
+    mixers = sorted({spec.mixer for stage in lm.build_plan(cfg)
+                     for spec in stage.unit})
+    want = {k for m in mixers for k in MIXER_KERNELS[m]}
+    params = lm.init(cfg, seed=0, device="cuda")
+    prefix = cfg.n_patches
+    prompt = torch.randint(0, cfg.vocab_size, (B, REDUCED_PROMPT),
+                           generator=gen, device="cuda")
+    steps = torch.randint(0, cfg.vocab_size, (REDUCED_DECODE, B),
+                          generator=gen, device="cuda")
+    extra = {}
+    if cfg.encoder is not None:
+        extra["enc_frames"] = (0.02 * torch.randn(
+            (B, cfg.encoder.n_frames, cfg.d_model), generator=gen,
+            device="cuda")).to(torch.bfloat16)
+    if prefix:
+        extra["patches"] = (0.02 * torch.randn(
+            (B, prefix, cfg.d_model), generator=gen,
+            device="cuda")).to(torch.bfloat16)
+
+    def serve(backend, dtype=torch.bfloat16):
+        logits, caches = lm.prefill(
+            cfg, params, prompt, max_seq=prefix + REDUCED_PROMPT
+            + REDUCED_DECODE + 8, backend=backend, dtype=dtype, **extra)
+        out = [logits.float()]
+        lengths = torch.full((B,), prefix + REDUCED_PROMPT,
+                             dtype=torch.int32, device="cuda")
+        for tok in steps:
+            logits, caches = lm.decode_step(cfg, params, tok, caches,
+                                            lengths, backend=backend,
+                                            dtype=dtype)
+            out.append(logits.float())
+            lengths = lengths + 1
+        torch.cuda.synchronize()
+        return out
+
+    def worst(got, want):
+        return max(float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+                   for g, w in zip(got, want))
+
+    ops.reset_launch_counts()
+    with Routes() as routes:
+        got = serve("kernel")
+    launches = ops.launch_counts()
+    with Routes(routes):
+        plain = serve("ref")
+    with Routes(routes):
+        truth = serve("ref", torch.float32)
+    if not all(torch.isfinite(g).all() and g.shape == (B, cfg.padded_vocab)
+               for g in got):
+        fail(f"reduced {arch}: non-finite logits or wrong shape")
+    err, floor = worst(got, plain), worst(plain, truth)
+    limit = max(MODEL_REL_L2, 2 * floor)
+    print(f"[reduced] {arch} ({', '.join(mixers)}; head dim "
+          f"{cfg.head_dim_}) prefill B{B} S{prefix + REDUCED_PROMPT} + "
+          f"{REDUCED_DECODE} decode steps, kernels vs plain: max relative L2 "
+          f"of logits {err:.3e} (bound {limit:.3e}; floor {floor:.3e}) "
+          f"{'ok' if err <= limit else 'MISMATCH'}", flush=True)
+    if not err <= limit:
+        fail(f"reduced {arch}: logits through the kernels disagree with the "
+             f"plain versions")
+    del params, got, plain, truth
+
+    tparams = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
+                      stacked=True)
+    paths = [path for path, _ in leaves_with_path(tparams)]
+    ps = [t.requires_grad_() for _, t in leaves_with_path(tparams)]
+    batch = data.batch_for_step(
+        cfg, InputShape("reduced", prefix + REDUCED_SEQ, B, "train"), 0,
+        device="cuda")
+
+    def grads(backend, dtype):
+        total, _ = lm.loss_fn(cfg, tparams, batch, backend=backend,
+                              dtype=dtype)
+        g = torch.autograd.grad(total, ps)
+        torch.cuda.synchronize()
+        return g
+
+    ops.reset_launch_counts()
+    with Routes() as routes:
+        kernel = grads("kernel", torch.bfloat16)
+    for name, n in ops.launch_counts().items():
+        launches[name] += n
+    with Routes(routes):
+        plain = grads("ref", torch.bfloat16)
+    with Routes(routes):
+        truth = grads("ref", torch.float32)
+    ratio, at = 0.0, ""
+    for path, k, p, t in zip(paths, kernel, plain, truth):
+        if not torch.isfinite(k).all():
+            fail(f"reduced {arch} {path}: non-finite kernel gradient")
+        err, floor = rel_l2(k, p), rel_l2(p, t)
+        limit = max(MODEL_REL_L2, 2 * floor)
+        if not err <= limit:
+            fail(f"reduced {arch} train step: {path} through the kernels "
+                 f"disagrees with the plain versions ({err:.3e} > bound "
+                 f"{limit:.3e})")
+        if err / limit >= ratio:
+            ratio, at = err / limit, f"{path} {err:.3e} (bound {limit:.3e})"
+    ran = {name for name, n in launches.items() if n > 0}
+    print(f"[reduced] {arch} train step B{B} S{prefix + REDUCED_SEQ}, "
+          f"{len(paths)} stacked leaves, kernels vs plain: worst {at}, "
+          f"{ratio:.1%} of its bound; kernel launches {launches} "
+          f"(expected {sorted(want)})", flush=True)
+    if ran != want:
+        fail(f"reduced {arch}: launched {sorted(ran)}, expected "
+             f"{sorted(want)}")
+    del tparams, ps, kernel, plain, truth
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_quickstart() -> dict:
+    """The port's quickstart with its defaults (yi-6b reduced, 12 steps) on
+    the card: every nll finite, the staircase prediction made from step 1,
+    one flash forward and backward launch per layer and step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.predictor import staircase_runtime
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+
+    print("[quickstart] python -m repro_torch.examples.quickstart",
+          flush=True)
+    ops.reset_launch_counts()
+    run = quickstart.main([])
+    launches = ops.launch_counts()
+    steps, layers = len(run["nll"]), get_arch("yi-6b").reduced().n_layers
+    if steps != 12 or not all(math.isfinite(x) for x in run["nll"]):
+        fail(f"quickstart: {steps} steps, nll {run['nll']}")
+    if run["predicted_s"] != staircase_runtime(11, 1, run["dt_1"]):
+        fail("quickstart: the prediction is not the staircase of step 1")
+    want = {"flash_attention": steps * layers,
+            "flash_attention_bwd": steps * layers}
+    print(f"[quickstart] step ms {[round(ms, 3) for ms in run['ms']]}; "
+          f"predicted {run['predicted_s']!r} s for steps 1-11 from step 1, "
+          f"steps 1-11 took {sum(run['ms'][1:]) / 1e3!r} s; kernel launches "
+          f"{launches} (expected {want})", flush=True)
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"quickstart launched {launches}, expected {want}")
+    return launches
+
+
+def phase_serve(jobs: str, path_kernels, pacing,
+                common=SERVE_COMMON) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    args = ["--jobs", jobs] + SERVE_COMMON + pacing
+    args = ["--jobs", jobs] + common + pacing
     print(f"[serve] python -m repro_torch.launch.serve {' '.join(args)}",
           flush=True)
     schedule = serve.submission_schedule(serve.build_parser().parse_args(args))
@@ -2346,6 +2608,15 @@ def main() -> None:
           PIXTRAL_CHECK_LAYERS)
     timed("scenario", phase_scenario_kernels)
     timed("sweep", phase_executor_sweep)
+    from repro_torch.configs import ARCHS
+
+    for phase, *args in [(phase_reduced, gen, arch) for arch in sorted(ARCHS)] \
+            + [(phase_serve, MAKE_SMOKE_JOBS,
+                ("flash_attention", "decode_attention"), [], MAKE_SMOKE),
+               (phase_quickstart,)]:
+        counts = timed("reduced", phase, *args)
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
     sources = {
         "flash_attention": "src/repro/kernels/flash_attention.py:109",
         "flash_attention_bwd":

@@ -35,6 +35,9 @@
 //     whichever CTA is last), writes out and resets the counter to 0.  A CTA
 //     with no keys only arrives, and a row of length 0 comes out 0.
 //
+// Head dims (D, Dv): (64, 64), (128, 128), (64, 128), (256, 256) and the
+// reduced configs' (32, 32), whose rows take two k16 steps of QK^T and
+// four n8 tiles of P V.
 // Layout: q [B, H, D], k_cache [B, S, KV, D], v_cache [B, S, KV, Dv],
 // length int32 [B], out [B, H, Dv], all contiguous and 16-byte aligned;
 // part fp32 holds acc [B*KV, n_split, G, Dv] then (m, l) [B*KV, n_split,
@@ -452,6 +455,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
     if (D == 128 && Dv == 128) return (int)launch<128, 128>(a, B, smem, st);
     if (D == 64 && Dv == 128) return (int)launch<64, 128>(a, B, smem, st);
     if (D == 256 && Dv == 256) return (int)launch<256, 256>(a, B, smem, st);
+    if (D == 32 && Dv == 32) return (int)launch<32, 32>(a, B, smem, st);
     return (int)cudaErrorInvalidValue;
 }
 

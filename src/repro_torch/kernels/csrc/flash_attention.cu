@@ -44,7 +44,13 @@
 //
 // Head dims (D, Dv): (64, 64), (128, 128), (64, 128), (128, 64), (192, 128)
 // (MLA, deepseek-v2-lite: qk 128 + 64 rope, v 128; D is three TMA boxes),
-// (256, 256).
+// (256, 256), and the reduced configs' (32, 32) and (64, 32) (reduced MLA:
+// qk 48 zero-padded to 64 by the model, v 32).  A width under one 64-column
+// box runs on the tiles of width 64 (tile_width): its tensor map is 32
+// columns wide and its 64-column box reads columns 32..63 as zeros, so
+// QK^T is unchanged, P V gives zeros past Dv, and only the store of `out`
+// keeps to the true Dv.  The products do twice the work such a shape
+// needs; no host-side copy pads anything.
 // Layout: q [B, Sq, H, D], k [B, Sk, KV, D], v [B, Sk, KV, Dv], out
 // [B, Sq, H, Dv], all contiguous.  Grid (H, B, ceil(Sq / 128)), the query
 // tile reversed along z so that the longest causal tiles start first.
@@ -66,6 +72,10 @@ using namespace hopper;
 constexpr int BM = 128;                 // query rows per CTA
 constexpr int THREADS = 256;            // two warpgroups of 64 rows each
 constexpr int BOX = 64;                 // TMA box width: 64 bf16 = 128 bytes
+
+// The width of the shared-memory tiles for a head dim: whole boxes; a dim
+// under one box takes one, zero-filled past the tensor by the tensor map.
+constexpr int tile_width(int d) { return d < BOX ? BOX : d; }
 
 enum MaskKind { MASK_NONE = 0, MASK_CAUSAL = 1, MASK_WINDOW = 2 };
 
@@ -91,7 +101,8 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
-template <int D, int DV>
+// D and DV are the tile widths; DV_OUT <= DV is the width of `out`.
+template <int D, int DV, int DV_OUT>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
@@ -302,9 +313,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
         if (row >= Sq) continue;
-        bf16* orow = out + ((long long)(b * Sq + row) * H + h) * DV + col_in;
+        bf16* orow =
+            out + ((long long)(b * Sq + row) * H + h) * DV_OUT + col_in;
 #pragma unroll
-        for (int j = 0; j < DV / 8; ++j) {
+        for (int j = 0; j < DV_OUT / 8; ++j) {
             *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(
                 o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
         }
@@ -340,7 +352,8 @@ EncodeTiled encode_tiled() {
 
 // Rank-4 map over a contiguous [batch, seq, heads, width] bf16 tensor,
 // boxes of 64 columns x `rows` positions of one head of one batch, 128-byte
-// swizzled; positions past `seq` read as zeros.
+// swizzled; positions past `seq`, and columns past a `width` under the box,
+// read as zeros.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int width, int heads,
                      int seq, int batch, int rows) {
     const EncodeTiled encode = encode_tiled();
@@ -360,12 +373,15 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int width, int heads,
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// (D, Dv) are the tensors' head dims; the kernel runs on tiles of
+// tile_width(D) and tile_width(Dv) columns.
 template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int Sq, int Sk, int H, int KV,
                    int mask_kind, int window, int q_offset, float scale,
                    cudaStream_t stream) {
-    using T = Tile<D, DV>;
+    constexpr int TD = tile_width(D), TDV = tile_width(DV);
+    using T = Tile<TD, TDV>;
     if (Sk == 0)   // no key anywhere: every row is 0
         return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * DV * sizeof(bf16),
                                stream);
@@ -374,7 +390,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     if (err == cudaSuccess) err = make_map(&tk, k, D, KV, Sk, B, T::BN);
     if (err == cudaSuccess) err = make_map(&tv, v, DV, KV, Sk, B, T::BN);
     if (err != cudaSuccess) return err;
-    auto kern = flash_fwd_kernel<D, DV>;
+    auto kern = flash_fwd_kernel<TD, TDV, DV>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)T::bytes);
     if (err != cudaSuccess) return err;
@@ -415,6 +431,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     if (D == 256 && Dv == 256)   // recurrentgemma; 192 KB of shared memory
         return (int)launch<256, 256>(q, k, v, out, lse, B, Sq, Sk, H, KV,
                                      mask_kind, window, q_offset, scale, st);
+    if (D == 32 && Dv == 32)     // the reduced configs, on (64, 64) tiles
+        return (int)launch<32, 32>(q, k, v, out, lse, B, Sq, Sk, H, KV,
+                                   mask_kind, window, q_offset, scale, st);
+    if (D == 64 && Dv == 32)     // reduced MLA (qk 48 padded to 64)
+        return (int)launch<64, 32>(q, k, v, out, lse, B, Sq, Sk, H, KV,
+                                   mask_kind, window, q_offset, scale, st);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -68,7 +68,13 @@
 // products inside a warpgroup, persistent CTAs.
 //
 // Head dims (D, Dv): (64, 64), (128, 128) and (128, 64) (minicpm3-4b's
-// MLA, qk 96 zero-padded to 128) by the kernels above; (256, 256),
+// MLA, qk 96 zero-padded to 128) by the kernels above, and the reduced
+// configs' (32, 32) and (64, 32) (reduced MLA, qk 48 padded to 64) by
+// the same kernels on tiles of (64, 64) (tile_width): their tensor maps
+// are 32 columns wide, so the 64-column boxes load zeros past column 32
+// (Q, K, V and dO alike), the products give zeros there, and the stores
+// of dQ, dK and dV clip the box to the tensor; the delta pass reads out
+// and dout at their true width.  (256, 256),
 // recurrentgemma-2b's local attention, and (192, 128), deepseek-v2-lite's
 // MLA, by two kernels of their own (flash_bwd_dkdv_wide_kernel,
 // flash_bwd_dq_wide_kernel, below the dQ kernel) whose two warpgroups
@@ -101,6 +107,9 @@ constexpr int STAGES = 4;            // ring depth of both product kernels
 constexpr int KV_THREADS = 256;
 constexpr int Q_THREADS = 384;
 static_assert(STAGES % 2 == 0, "each dK/dV warpgroup owns STAGES / 2 stages");
+// The width of the product kernels' tiles for a head dim: whole boxes; a
+// dim under one box takes one, zero-filled past the tensor by its map.
+constexpr int tile_width(int d) { return d < BOX ? BOX : d; }
 constexpr float LOG2E = 1.4426950408889634f;
 // A wait on a ring stage lasts at most a few steps' work: trap after ~2^22
 // polls (well under a second) instead of the default minutes.
@@ -1498,12 +1507,15 @@ cudaError_t launch_delta(const void* out, const void* dout, const void* lse,
     return cudaGetLastError();
 }
 
+// (D, Dv) are the tensors' head dims; the product kernels run on tiles of
+// tile_width(D) and tile_width(Dv) columns.
 template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const void* lse,
                    void* stats, void* dq, void* dk, void* dv, int B, int Sq,
                    int Sk, int H, int KV, int mask_kind, int window,
                    int q_offset, float scale, cudaStream_t stream) {
+    constexpr int TD = tile_width(D), TDV = tile_width(DV);
     const int Sq_pad = (Sq + BM - 1) / BM * BM;
     cudaError_t err =
         launch_delta<DV>(out, dout, lse, stats, B, Sq, Sq_pad, H, stream);
@@ -1527,8 +1539,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err == cudaSuccess) err = bf16_map(&tdq, dq, D, H, Sq, B, BM);
     if (err != cudaSuccess) return err;
 
-    auto kv_kern = flash_bwd_dkdv_kernel<D, DV>;
-    constexpr int kv_bytes = KvLayout<D, DV>::bytes;
+    auto kv_kern = flash_bwd_dkdv_kernel<TD, TDV>;
+    constexpr int kv_bytes = KvLayout<TD, TDV>::bytes;
     err = cudaFuncSetAttribute(kv_kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kv_bytes);
@@ -1540,8 +1552,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
-    auto q_kern = flash_bwd_dq_kernel<D, DV>;
-    constexpr int q_bytes = QLayout<D, DV>::bytes;
+    auto q_kern = flash_bwd_dq_kernel<TD, TDV>;
+    constexpr int q_bytes = QLayout<TD, TDV>::bytes;
     err = cudaFuncSetAttribute(q_kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                q_bytes);
@@ -1628,7 +1640,8 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
 // wrapper answers the empty cases); stats is fp32 scratch [B, H, 2,
 // Sq_pad] with Sq_pad = Sq rounded up to a multiple of 64.  The pairs
 // (D, Dv): the split kernels take (64, 64), (128, 128) and (128, 64)
-// (minicpm3-4b's qk 96 zero-padded to 128, v 64); the wide kernels take
+// (minicpm3-4b's qk 96 zero-padded to 128, v 64), and the reduced
+// configs' (32, 32) and (64, 32) on (64, 64) tiles; the wide kernels take
 // (256, 256) (recurrentgemma-2b's local attention) and (192, 128)
 // (deepseek-v2-lite's MLA), WIDE_PAIRS in kernels/flash_attention_bwd.py.
 // There the dK/dV kernel takes each KV group's heads in `splits` slices,
@@ -1658,6 +1671,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
         return (int)launch<128, 64>(q, k, v, out, dout, lse, stats, dq, dk,
                                     dv, B, Sq, Sk, H, KV, mask_kind, window,
                                     q_offset, scale, st);
+    if (D == 32 && Dv == 32)
+        return (int)launch<32, 32>(q, k, v, out, dout, lse, stats, dq, dk, dv,
+                                   B, Sq, Sk, H, KV, mask_kind, window,
+                                   q_offset, scale, st);
+    if (D == 64 && Dv == 32)
+        return (int)launch<64, 32>(q, k, v, out, dout, lse, stats, dq, dk, dv,
+                                   B, Sq, Sk, H, KV, mask_kind, window,
+                                   q_offset, scale, st);
     const bool wide = (D == 256 && Dv == 256) || (D == 192 && Dv == 128);
     if (!wide) return (int)cudaErrorInvalidValue;
     if (splits < 1 || (splits > 1 && part == nullptr))
@@ -1679,7 +1700,8 @@ extern "C" long flash_attention_bwd_smem_bytes(int D, int Dv, int kernel) {
     if (D == 128 && Dv == 128)
         return kernel == 0 ? (long)KvLayout<128, 128>::bytes
                            : (long)QLayout<128, 128>::bytes;
-    if (D == 64 && Dv == 64)
+    if ((D == 64 && Dv == 64) || (D == 32 && Dv == 32) ||
+        (D == 64 && Dv == 32))       // the last two on (64, 64) tiles
         return kernel == 0 ? (long)KvLayout<64, 64>::bytes
                            : (long)QLayout<64, 64>::bytes;
     if (D == 128 && Dv == 64)

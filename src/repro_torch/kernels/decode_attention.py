@@ -27,8 +27,8 @@ import torch
 
 from . import _build, ref
 
-#: (D, Dv) pairs the kernel is built for.
-HEAD_DIMS = ((64, 64), (128, 128), (64, 128), (256, 256))
+#: (D, Dv) pairs the kernel is built for; (32, 32) is the reduced configs'.
+HEAD_DIMS = ((64, 64), (128, 128), (64, 128), (256, 256), (32, 32))
 #: K and V bytes one CTA holds in shared memory at once.
 KV_SMEM = 64 * 1024
 #: Fewest keys a split takes when the cache is short: fewer would make the

@@ -26,9 +26,11 @@ import torch
 from . import _build, ref
 
 MASK_KINDS = {"none": 0, "causal": 1, "window": 2}
-#: (D, Dv) pairs the kernel is built for.
+#: (D, Dv) pairs the kernel is built for.  The reduced configs' (32, 32)
+#: and (64, 32) (reduced MLA, qk 48 padded to 64) run on the tiles of
+#: (64, 64): their tensor maps read the columns past 32 as zeros.
 HEAD_DIMS = ((64, 64), (128, 128), (64, 128), (128, 64), (192, 128),
-             (256, 256))
+             (256, 256), (32, 32), (64, 32))
 #: lse of a row that sees no key: the reference's -1e30 + log(1e-30), which
 #: is -1e30 in float32.
 NO_KEY_LSE = -1e30

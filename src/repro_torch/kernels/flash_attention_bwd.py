@@ -44,9 +44,12 @@ from .flash_attention import MASK_KINDS, mask_for
 
 #: (D, Dv) pairs the backward is built for: yi-6b's, the 100M example's,
 #: minicpm3-4b's MLA (qk 96 zero-padded to 128, v 64), deepseek-v2-lite's
-#: MLA and recurrentgemma-2b's local attention.  The forward's (64, 128)
-#: has no backward: no model of the zoo pads to it.
-HEAD_DIMS = ((64, 64), (128, 128), (128, 64), (192, 128), (256, 256))
+#: MLA, recurrentgemma-2b's local attention, and the reduced configs'
+#: (32, 32) and (64, 32) (reduced MLA, qk 48 padded to 64), which the
+#: split kernels run on their (64, 64) tiles (:func:`tile_dims`).  The
+#: forward's (64, 128) has no backward: no model of the zoo pads to it.
+HEAD_DIMS = ((64, 64), (128, 128), (128, 64), (192, 128), (256, 256),
+             (32, 32), (64, 32))
 #: The kernel's tiles: keys per dK/dV CTA and per dQ ring stage (BN),
 #: queries per dK/dV step and per dQ warpgroup (BM), queries per dQ CTA
 #: (Q_BM), and the depth of both rings.
@@ -60,6 +63,15 @@ WIDE_PAIRS = ((192, 128), (256, 256))
 #: warpgroups through HANDOFF bf16 buffers; the dQ kernel's K and V rings
 #: have WQ_K_STAGES and WQ_V_STAGES.
 WKV_STAGES, HANDOFF, WQ_K_STAGES, WQ_V_STAGES = 2, 2, 3, 2
+#: TMA box width: a tile is whole boxes of BOX columns.
+BOX = 64
+
+
+def tile_dims(D: int, Dv: int) -> Tuple[int, int]:
+    """The widths of the product kernels' tiles for the pair (D, Dv)
+    (``tile_width`` in the source): a dim under one box runs in one box,
+    whose columns past the tensor its tensor map reads as zeros."""
+    return max(D, BOX), max(Dv, BOX)
 
 
 def smem_bytes(D: int, Dv: int) -> Tuple[int, int]:
@@ -74,7 +86,8 @@ def smem_bytes(D: int, Dv: int) -> Tuple[int, int]:
     WQ_K_STAGES stages of K and WQ_V_STAGES of V, Q/dO's mbarrier and two
     a stage.  Mirrors
     ``KvLayout``, ``QLayout``, ``KvWideLayout`` and ``QWideLayout`` in
-    ``csrc/flash_attention_bwd.cu``."""
+    ``csrc/flash_attention_bwd.cu``, at the pair's :func:`tile_dims`."""
+    D, Dv = tile_dims(D, Dv)
     if (D, Dv) in WIDE_PAIRS:
         kv = (2 * BN * (D + Dv) + WKV_STAGES * (2 * BM * (D + Dv)
                                                 + 2 * BM * 4)

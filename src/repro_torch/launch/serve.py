@@ -35,19 +35,19 @@ spec, lane count and device), so a second run measures none.
 The archs served are those the port's model runs, in any mix: the dense
 GQA ones (yi-6b, yi-34b, mistral-nemo-12b), minicpm3-4b (MLA),
 deepseek-v2-lite-16b (MLA + MoE), mamba2-2.7b, recurrentgemma-2b,
-pixtral-12b and whisper-large-v3.  A serving job passes the model its
-prompt's tokens alone, as the JAX package's does: pixtral serves its text
-path (no patches) and whisper its decoder, whose cross attention is
-skipped without frames.  dbrx-132b (GQA + MoE) runs only with
-``--reduced`` on the CPU: its ~132 B parameters (264 GB in bf16) do not
-fit one card, and its reduced config's head dim 32 has no flash or decode
-kernel on the card.  recurrentgemma's local-attention cache holds exactly
-its window (2048 positions at full width, 64 reduced), so prompt plus
-generated tokens must fit in it.
+pixtral-12b, whisper-large-v3 and dbrx-132b (GQA + MoE).  A serving job
+passes the model its prompt's tokens alone, as the JAX package's does:
+pixtral serves its text path (no patches) and whisper its decoder, whose
+cross attention is skipped without frames.  With ``--reduced`` every arch
+serves on the card through the kernels (head dim 32, reduced MLA's qk 48
+padded to 64 beside v 32); dbrx-132b runs only reduced, since its ~132 B
+parameters (264 GB in bf16) do not fit one card.  recurrentgemma's
+local-attention cache holds exactly its window (2048 positions at full
+width, 64 reduced), so prompt plus generated tokens must fit in it.
 
 Examples (the reference's default mix; a recurrent pair; pixtral beside
-whisper; Poisson arrivals; scenario kernels; MLA beside MoE on the
-CPU)::
+whisper; Poisson arrivals; scenario kernels; the reference's ``make
+smoke`` serve line, reduced, on the card; MLA beside MoE on the CPU)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --policy srtf \
         --compare-fifo --batch 4 --prompt-len 1024 --tokens-per-block 8
@@ -64,6 +64,9 @@ CPU)::
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --scenario poisson-open --scenario-kernels --time-scale 1e-6 \
         --policy srtf --compare-fifo
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --jobs yi-6b:4,minicpm3-4b:2 --policy srtf --compare-fifo \
+        --tokens-per-block 4 --prompt-len 8 --batch 1
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --reduced --jobs minicpm3-4b:4,deepseek-v2-lite-16b:2 \
         --policy srtf --compare-fifo --tokens-per-block 4 --prompt-len 8 \

@@ -37,7 +37,10 @@ embedding and head alone hold 21.5 GB of state: ``--n-layers 6`` peaks
 at ~59.5 GiB at B 4 x (1024 patches + 1024 tokens), 8 at ~67.6 GiB.  A
 sequence is its patches, then its text, so ``--seq`` must leave at least
 two text tokens (``ValueError`` otherwise): pixtral takes ``--seq 2048``
-for 1024 tokens.
+for 1024 tokens.  With ``--reduced`` every arch of the zoo, dbrx-132b
+included, trains on the card through the kernels: the flash forward and
+backward at head dim 32 (reduced MLA's qk 48 padded to 64 beside v 32),
+the SSD and RG-LRU scans and their backwards.
 
 Examples::
 

@@ -8,12 +8,14 @@ latent space, so a step reads ``R + r`` values per cached token.  Its
 products are plain matrix products, as in the JAX package, which runs no
 Pallas kernel there.
 
-The flash kernel takes the (D, Dv) pairs in ``flash_attention.HEAD_DIMS``.
+The flash kernels take the (D, Dv) pairs in ``flash_attention.HEAD_DIMS``
+(the forward) and ``flash_attention_bwd.HEAD_DIMS`` (its backward).
 Prefill zero-pads q and k along D to the smallest D' that pairs with the
-value dim (minicpm3's qk 96 with v 64 runs as (128, 64)); with the scale
-passed explicitly, the padding leaves every score unchanged.  A shape with
-no such pair (the reduced configs' 48 / 32) is not padded, and the kernel
-refuses it on the card.
+value dim in both lists (minicpm3's qk 96 with v 64 runs as (128, 64), the
+reduced configs' qk 48 with v 32 as (64, 32)), on every device; with the
+scale passed explicitly, the padding leaves every score unchanged.  A
+shape with no such pair is not padded, and the kernel refuses it on the
+card.
 """
 
 from __future__ import annotations
@@ -25,14 +27,17 @@ import torch
 from ..configs.base import MLAConfig
 from ..kernels import ops
 from ..kernels.flash_attention import HEAD_DIMS
+from ..kernels.flash_attention_bwd import HEAD_DIMS as BWD_HEAD_DIMS
 from .attention import _proj
 from .layers import DEFAULT_COMPUTE_DTYPE, apply_norm, apply_rope, cast
 
 
 def padded_qk_dim(qk_dim: int, v_dim: int) -> int:
-    """The smallest D' >= ``qk_dim`` with (D', ``v_dim``) a pair the flash
-    kernel takes, or ``qk_dim`` itself when there is none."""
-    fits = [d for d, dv in HEAD_DIMS if dv == v_dim and d >= qk_dim]
+    """The smallest D' >= ``qk_dim`` with (D', ``v_dim``) a pair that the
+    flash kernel and its backward take, or ``qk_dim`` itself when there is
+    none."""
+    fits = [d for d, dv in HEAD_DIMS if dv == v_dim and d >= qk_dim
+            and (d, dv) in BWD_HEAD_DIMS]
     return min(fits) if fits else qk_dim
 
 

@@ -25,7 +25,7 @@ import ctypes
 import pytest
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (
     _lib as decode_lib,
@@ -121,6 +121,19 @@ FLASH = [
     (2, 1, 1536, 20, 20, 64, 64, "none", 0, 0),
     (2, 1, 1536, 8, 2, 128, 128, "none", 0, 0),
     (2, 1, 1537, 20, 20, 64, 64, "none", 0, 0),
+    # The reduced configs' head dim 32 (and reduced MLA's (64, 32)), on
+    # the (64, 64) tiles with the columns past 32 read as zeros: a serve
+    # prompt, recurrentgemma's window 64, whisper's 32 frames through the
+    # encoder and cross attention at Sq 1, ragged edges with a q_offset.
+    (1, 8, 8, 4, 2, 32, 32, "causal", 0, 0),
+    (1, 130, 130, 4, 1, 32, 32, "window", 64, 0),
+    (2, 32, 32, 4, 4, 32, 32, "none", 0, 0),
+    (2, 1, 32, 4, 4, 32, 32, "none", 0, 0),
+    (3, 77, 150, 4, 2, 32, 32, "causal", 0, 73),
+    (2, 300, 600, 4, 2, 32, 32, "window", 150, 300),
+    (2, 5, 0, 4, 2, 32, 32, "none", 0, 0),
+    (2, 100, 100, 4, 4, 64, 32, "causal", 0, 0),
+    (1, 77, 190, 4, 2, 64, 32, "none", 0, 0),
 ]
 
 
@@ -152,6 +165,13 @@ DECODE = [
     (8, 300, 64, 8, 128, 128, [1, 37, 64, 100, 150, 200, 299, 300]),
     # G = 5: passes of 4 heads and of 1.
     (2, 500, 5, 1, 128, 128, [499, 33]),
+    # The reduced configs' (32, 32) at G 1, 2 and 4: a serve batch's cache
+    # (prompt 8 + 16 tokens + 8 slots), recurrentgemma's 64-slot window
+    # (B 1: two splits of 32 keys) and lengths 0 and 64.
+    (2, 32, 4, 4, 32, 32, [0, 17]),
+    (3, 64, 4, 2, 32, 32, [64, 1, 33]),
+    (1, 64, 4, 1, 32, 32, [64]),
+    (2, 64, 4, 1, 32, 32, [0, 64]),
 ]
 
 
@@ -175,7 +195,7 @@ def test_decode_plan_matches_the_kernel_shared_memory(gen):
     lib.decode_attention_smem.restype = ctypes.c_longlong
     for S, D, Dv, G, bkv in [(1096, 128, 128, 8, 16), (2048, 256, 256, 10, 4),
                              (70, 64, 128, 16, 2), (300, 128, 128, 8, 64),
-                             (8, 64, 64, 1, 1)]:
+                             (8, 64, 64, 1, 1), (64, 32, 32, 4, 1)]:
         n_split, smem = decode_plan(S, D, Dv, G, bkv, 132)
         assert lib.decode_attention_smem(S, D, Dv, G, n_split) == smem
 
@@ -203,6 +223,8 @@ SSD = [
     (1, 96, 3, 24, 1, 40, 48, True),         # ragged tiles
     (2, 256, 4, 64, 1, 128, 128, False),     # the mamba2-2.7b head shape
     (4, 1024, 80, 64, 1, 128, 128, False),   # mamba2-2.7b's serve prefill
+    (2, 64, 8, 32, 1, 32, 16, False),        # reduced mamba2-2.7b
+    (1, 16, 8, 32, 1, 32, 16, True),
     # P and N no multiple of 8 (plain loads, not 16-byte copies); P odd.
     (2, 96, 3, 21, 1, 35, 48, True),
     # Q no multiple of 16; Q > 128 (two row tiles for some warps); Q 256.
@@ -457,13 +479,26 @@ def test_mla_layer_through_the_kernel_matches_its_plain_route(arch, gen):
         assert torch.equal(got_c[name], want_c[name])
 
 
-def test_mla_reduced_dims_raise_on_the_card(gen):
-    """The reduced configs' qk 48 / v 32 has no kernel pair: on the card
-    the layer raises instead of taking the plain attention."""
-    cfg, p = _mla_layer("minicpm3-4b", gen, reduced=True)
-    with pytest.raises(ValueError, match="head dims"):
-        mla.mla_apply(p, _randn(gen, 1, 8, cfg.d_model), cfg.mla,
-                      rope_theta=cfg.rope_theta)
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-lite-16b"])
+def test_mla_reduced_dims_match_the_plain_route_on_the_card(arch, gen):
+    """The reduced configs' qk 48 / v 32 runs through flash as (64, 32)
+    (q and k zero-padded to 64): the layer's output against its plain
+    route within the attention tolerance, the cache equal."""
+    cfg, p = _mla_layer(arch, gen, reduced=True)
+    m = cfg.mla
+    assert mla.padded_qk_dim(m.qk_nope_dim + m.qk_rope_dim,
+                             m.v_head_dim) == 64
+    x = _randn(gen, 2, 100, cfg.d_model)
+    ops.reset_launch_counts()
+    got, got_c = mla.mla_apply(p, x, m, rope_theta=cfg.rope_theta)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want, want_c = mla.mla_apply(p, x, m, rope_theta=cfg.rope_theta,
+                                 backend="ref")
+    torch.cuda.synchronize()
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert torch.isfinite(got).all() and rel < TOL, rel
+    for name in ("c_kv", "k_rope"):
+        assert torch.equal(got_c[name], want_c[name])
 
 
 # ------------------------------------------------------------------- MoE
@@ -583,6 +618,18 @@ BWD = [
     # whisper-large-v3's cross attention, short: no mask, Sq 100 over its
     # 1536 frames, G 1
     (2, 100, 1536, 4, 4, 64, "none", 0, 0),
+    # The reduced configs' head dim 32 (the split kernels on (64, 64)
+    # tiles): the quickstart's batch, recurrentgemma's window 64, whisper's
+    # encoder and cross attention over 32 frames, ragged S with a
+    # q_offset, an odd step count, no key in sight and Sk = 0.
+    (4, 64, 64, 4, 2, 32, "causal", 0, 0),
+    (2, 200, 200, 4, 1, 32, "window", 64, 0),
+    (4, 32, 32, 4, 4, 32, "none", 0, 0),
+    (4, 56, 32, 4, 4, 32, "none", 0, 0),
+    (2, 150, 201, 4, 2, 32, "causal", 0, 51),
+    (1, 1000, 1000, 4, 1, 32, "causal", 0, 0),
+    (1, 8, 8, 2, 2, 32, "window", 2, 20),
+    (2, 5, 0, 4, 2, 32, "none", 0, 0),
 ]
 # Backward, kernel vs the plain formula in fp32: relative L2 of each
 # gradient within max(2e-2, 2 x floor), the floor the plain formula in
@@ -615,6 +662,11 @@ BWD_MLA = [
     (1, 77, 190, 4, 2, 192, 192, 128, "none", 0, 0),
     (1, 300, 300, 6, 2, 192, 192, 128, "window", 100, 0),
     (1, 8, 8, 2, 2, 192, 192, 128, "window", 2, 20),     # no key in sight
+    # Reduced MLA: qk 48 run as 64 beside v 32 (the split kernels on
+    # (64, 64) tiles, v's columns past 32 read as zeros), 4 heads over 4.
+    (4, 64, 64, 4, 4, 48, 64, 32, "causal", 0, 0),
+    (2, 150, 201, 4, 4, 48, 64, 32, "causal", 0, 51),
+    (1, 77, 190, 4, 2, 48, 64, 32, "none", 0, 0),
 ]
 
 
@@ -1129,3 +1181,137 @@ def test_preemptive_training_example_survives_its_preemption(gen):
     counts = ops.launch_counts()
     assert counts["flash_attention"] == counts["flash_attention_bwd"] \
         == 10 * 40
+
+
+# ------------------------------------------------------ reduced configs
+# The kernels each mixer launches when a model serves (prefill, decode)
+# and trains; MLA decodes with plain products, as the reference does.
+MIXER_KERNELS = {
+    "gqa": ("flash_attention", "decode_attention", "flash_attention_bwd"),
+    "local": ("flash_attention", "decode_attention", "flash_attention_bwd"),
+    "mla": ("flash_attention", "flash_attention_bwd"),
+    "ssd": ("ssd_scan", "ssd_scan_bwd"),
+    "rglru": ("rglru_scan", "rglru_scan_bwd"),
+}
+
+
+class _Routes:
+    """Records the experts of every MoE routing call (``moe.route``), or,
+    given another run's record, routes each call to the recorded experts
+    with gates renormalised from this run's probabilities: a tie in the
+    router that the kernels' roundings tip would otherwise swamp their
+    own difference."""
+
+    def __init__(self, monkeypatch, replay=None):
+        from repro_torch.models import moe
+
+        # the model's own route, under any earlier _Routes of the test
+        real = getattr(moe.route, "__wrapped__", moe.route)
+        self.picks = []
+
+        def route(*args, **kwargs):
+            probs, gate, idx = real(*args, **kwargs)
+            if replay is not None:
+                idx = replay[len(self.picks)]
+                gate = probs.gather(-1, idx)
+                gate = gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                          min=1e-9)
+            self.picks.append(idx)
+            return probs, gate, idx
+
+        route.__wrapped__ = real
+        monkeypatch.setattr(moe, "route", route)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_reduced_config_serves_and_trains_through_the_kernels(
+        arch, gen, monkeypatch):
+    """Every arch of the zoo at ``.reduced()`` (head dim 32; MLA's qk 48
+    padded to 64 beside v 32) in bf16: prefill of 8 tokens (after
+    pixtral's 8 patches; whisper with its 32 frames) and two decode steps,
+    then one train step's gradients at B 2 x 16 tokens, through the
+    kernels against the plain route, the logits and each stacked leaf
+    within max(5e-2, 2 x floor) relative L2 (floor: plain bf16 vs fp32;
+    in the MoE archs the plain runs take the kernel run's experts); every
+    kernel of the arch's mixers launched, and no other."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import pipeline as data
+    from repro_torch.tree import leaves
+
+    cfg = get_arch(arch).reduced()
+    mixers = {spec.mixer for stage in lm.build_plan(cfg)
+              for spec in stage.unit}
+    want = {k for m in mixers for k in MIXER_KERNELS[m]}
+    params = lm.init(cfg, seed=0, device="cuda")
+    prefix, n = cfg.n_patches, 8
+    tokens = torch.randint(0, cfg.vocab_size, (2, n), generator=gen,
+                           device="cuda")
+    extra = {}
+    if cfg.encoder is not None:
+        extra["enc_frames"] = 0.02 * _randn(gen, 2, cfg.encoder.n_frames,
+                                            cfg.d_model)
+    if prefix:
+        extra["patches"] = 0.02 * _randn(gen, 2, prefix, cfg.d_model)
+
+    def serve(backend, dtype=torch.bfloat16):
+        logits, caches = lm.prefill(cfg, params, tokens, backend=backend,
+                                    max_seq=prefix + n + 8, dtype=dtype,
+                                    **extra)
+        out = [logits.float()]
+        lengths = torch.full((2,), prefix + n, dtype=torch.int32,
+                             device="cuda")
+        for tok in tokens[:, :2].T:
+            logits, caches = lm.decode_step(cfg, params, tok, caches,
+                                            lengths, backend=backend,
+                                            dtype=dtype)
+            out.append(logits.float())
+            lengths = lengths + 1
+        return out
+
+    def rel(a, b):
+        return max(float(((x - y).norm(dim=-1) / y.norm(dim=-1)).max())
+                   for x, y in zip(a, b))
+
+    ops.reset_launch_counts()
+    routes = _Routes(monkeypatch)
+    got = serve("kernel")
+    _Routes(monkeypatch, routes.picks)
+    plain = serve("ref")
+    _Routes(monkeypatch, routes.picks)
+    truth = serve("ref", torch.float32)
+    assert all(torch.isfinite(g).all() for g in got)
+    assert rel(got, plain) <= max(5e-2, 2 * rel(plain, truth))
+
+    tparams = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
+                      stacked=True)
+    ps = [p.requires_grad_() for p in leaves(tparams)]
+    batch = data.batch_for_step(cfg, InputShape("t", prefix + 16, 2,
+                                                "train"), 0, device="cuda")
+
+    def grads(backend, dtype):
+        total, _ = lm.loss_fn(cfg, tparams, batch, backend=backend,
+                              dtype=dtype)
+        return torch.autograd.grad(total, ps)
+
+    routes = _Routes(monkeypatch)
+    kernels = grads("kernel", torch.bfloat16)
+    counts = ops.launch_counts()
+    assert {k for k, c in counts.items() if c > 0} == want, counts
+    _Routes(monkeypatch, routes.picks)
+    plain = grads("ref", torch.bfloat16)
+    _Routes(monkeypatch, routes.picks)
+    truth = grads("ref", torch.float32)
+    for k, p, t in zip(kernels, plain, truth):
+        assert torch.isfinite(k).all()
+        assert _rel_l2(k, p) <= max(5e-2, 2 * _rel_l2(p, t))
+
+
+def test_quickstart_runs_on_the_card(gen):
+    from repro_torch.examples import quickstart
+
+    ops.reset_launch_counts()
+    run = quickstart.main([])
+    assert len(run["nll"]) == 12 and run["predicted_s"] > 0
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+        == 12 * get_arch("yi-6b").reduced().n_layers

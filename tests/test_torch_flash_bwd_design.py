@@ -169,10 +169,12 @@ def test_wide_smem_mirror_matches_the_source_layouts():
                                         - set(fb.WIDE_PAIRS)), ids=str)
 def test_split_smem_mirror_matches_the_source_layouts(dims):
     """smem_bytes at each split pair is the sum of the sections the
-    source's KvLayout and QLayout lay out, read from their initializers;
-    the dK/dV epilogue's exchange fits the ring, as the source asserts."""
+    source's KvLayout and QLayout lay out, read from their initializers,
+    at the pair's tile widths (the reduced configs' (32, 32) and (64, 32)
+    run on (64, 64) tiles); the dK/dV epilogue's exchange fits the ring,
+    as the source asserts."""
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    D, Dv = dims
+    D, Dv = fb.tile_dims(*dims)
 
     def layout(name):
         body = src[src.index(f"struct {name} {{"):]
@@ -185,7 +187,7 @@ def test_split_smem_mirror_matches_the_source_layouts(dims):
         return vals
 
     kv, dq = layout("KvLayout"), layout("QLayout")
-    assert (kv["bytes"], dq["bytes"]) == fb.smem_bytes(D, Dv)
+    assert (kv["bytes"], dq["bytes"]) == fb.smem_bytes(*dims)
     assert (D // 2 + Dv // 2) * 128 * 4 <= \
         fb.STAGES * (kv["q_bytes"] + kv["do_bytes"])
 
