@@ -143,7 +143,22 @@ ends the script with a non-zero exit and no result line:
               and pixtral-12b at 2, each stacked leaf
               within max(5e-2, 2 x floor) relative L2 (floor: plain bf16
               vs plain fp32).
-7. scenario kernels -- ``--scenario poisson-open --scenario-kernels
+7. sharded -- the sharded steps (``launch.steps.build_step`` with a
+              mesh, the ``Sharder``, every kernel inside ``local_map``)
+              on a (1, 1) ``("data", "model")`` mesh of one NCCL rank (a
+              HashStore: no port opened), at full width, against the
+              unsharded steps on the same weights: one train step of
+              yi-6b at 4 layers (nll, grad norm and every AdamW first
+              moment), and prefill of B 4 x 1024 with 4 decode steps of
+              yi-6b, mamba2-2.7b, recurrentgemma-2b and
+              deepseek-v2-lite-16b at 3 layers with capacity factor 16
+              (the expert-parallel MoE); each comparison bitwise or
+              within MODEL_REL_L2 relative L2 (printed which); every
+              kernel of each path launched; the one-rank log-sum-exp
+              combine the identity.  The kernel phase checks the decode
+              kernel's lse (-inf at length 0, ``out`` bitwise the same
+              with it) and times it in turns with the kernel without it.
+8. scenario kernels -- ``--scenario poisson-open --scenario-kernels
               --time-scale 1e-6 --max-blocks 16``: the scenario's first
               workload (8 arrivals) as jobs of synthetic blocks on the
               card, solo baselines through a sweep cache in a temporary
@@ -151,10 +166,10 @@ ends the script with a non-zero exit and no result line:
               baseline.  Prints each job's turnaround and, per block
               shape, the median wall ms of one block (launches plus the
               synchronize the executor times) and its device ms.
-8. executor sweep -- ``repro_torch.benchmarks.executor_policies`` on the
+9. executor sweep -- ``repro_torch.benchmarks.executor_policies`` on the
               card (four policies and SRTF under EWMA over two long+short
               pairs, ``jobs=1``), printing its rows.
-9. reduced -- every arch of the zoo at ``.reduced()`` (head dim 32;
+10. reduced -- every arch of the zoo at ``.reduced()`` (head dim 32;
               reduced MLA's qk 48 padded to 64 beside v 32; dbrx-132b
               included), as the reference's ``make smoke`` and quickstart
               run them: prefill of B 4 x 8 tokens (whisper with its 32
@@ -185,13 +200,15 @@ pixtral-12b's training shapes and the reduced (32, 32) and (64, 32)
 ones; the SSD backward: mamba2-2.7b's; decode: yi-6b's,
 recurrentgemma-2b's and the reduced make smoke line's decode steps;
 RG-LRU: recurrentgemma-2b's prefill at B 4 and at B 1; the RG-LRU
-backward: recurrentgemma-2b's training shape; launches summed over the
-serve, train and reduced paths); the last line is ``{"ok": true,
+backward: recurrentgemma-2b's training shape; decode also yi-6b's with
+the lse; launches summed over the serve, train, sharded and reduced
+paths); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -1062,8 +1079,10 @@ def kernels_attention(gen: torch.Generator) -> dict:
             fail(f"decode_attention {name}: two launches on one input differ")
         if bool(counters(dev).any()):
             fail(f"decode_attention {name}: counters left non-zero")
+        check_decode_lse(name, q, kc, vc, length, got)
     print("[kernels] decode_attention: two launches bitwise equal, counters "
-          "zero after every call", flush=True)
+          "zero after every call; with the lse, out bitwise the same and "
+          "the lse within tolerance of the plain lse", flush=True)
     q, kc, vc = randn(B, 32, 128), randn(B, MAX_SEQ, 4, 128), \
         randn(B, MAX_SEQ, 4, 128)
     zero = torch.tensor([0, 5, 0, 9], dtype=torch.int32, device=dev)
@@ -1073,10 +1092,12 @@ def kernels_attention(gen: torch.Generator) -> dict:
         fail("decode_attention: length 0 rows are not zero")
     print("[kernels] decode_attention length 0 rows: zeros ok", flush=True)
 
-    def time_decode(h, kv, d, slots, fill, label, b=B):
+    def time_decode(h, kv, d, slots, fill, label, b=B, lse=False):
         """Times at a serving decode step: every row at a mid-run length;
         eight cache copies in turn so the 50 MB L2 does not hold the K/V
-        reads."""
+        reads.  With ``lse`` the kernel asked for its lse too, timed in
+        turns with the kernel without it (without, with, with,
+        without)."""
         length = torch.full((b,), fill, dtype=torch.int32, device=dev)
         q = randn(b, h, d)
         caches = [(randn(b, slots, kv, d), randn(b, slots, kv, d))
@@ -1092,6 +1113,17 @@ def kernels_attention(gen: torch.Generator) -> dict:
         flops = 2.0 * b * h * fill * (d + d)
         b_ms, b_by = bound(flops, kv_bytes + nbytes(q, q, length))
         ms = device_ms(lambda: run(decode_attention_cuda), 100)
+        if lse:
+            with_lse = functools.partial(decode_attention_cuda,
+                                         return_lse=True)
+            lse_ms = [device_ms(lambda: run(with_lse), 100)
+                      for _ in range(2)]
+            ms = (ms + device_ms(lambda: run(decode_attention_cuda), 100)) / 2
+            print(f"[kernels] decode_attention {label}: with the lse "
+                  f"{lse_ms[0]:.4f} / {lse_ms[1]:.4f} ms, without "
+                  f"{ms:.4f} ms (mean of two; in turns)", flush=True)
+            ms = sum(lse_ms) / 2
+            label += " with lse"
         call_ms = wall_ms(lambda: run(decode_attention_cuda), 100)
         plain_ms = device_ms(lambda: run(decode_attention_plain), 20)
         valid = torch.arange(slots, device=dev)[None] < length[:, None]
@@ -1103,7 +1135,8 @@ def kernels_attention(gen: torch.Generator) -> dict:
               f"({call_ms:.4f} ms per call back to back), plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}; {kv_bytes / 1e6:.2f} MB of K/V)", flush=True)
-        return dict(shape=f"B{b} S{slots} fill {fill} H{h} KV{kv} D{d}",
+        return dict(shape=f"B{b} S{slots} fill {fill} H{h} KV{kv} D{d}"
+                    + (" with lse" if lse else ""),
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
 
@@ -1112,6 +1145,10 @@ def kernels_attention(gen: torch.Generator) -> dict:
              **time_decode(32, 4, 128, MAX_SEQ,
                            PROMPT + LONGEST * TOKENS_PER_BLOCK // 2,
                            "yi-6b")),
+        dict(max_abs_err=max(errs[128]),
+             **time_decode(32, 4, 128, MAX_SEQ,
+                           PROMPT + LONGEST * TOKENS_PER_BLOCK // 2,
+                           "yi-6b", lse=True)),
         dict(max_abs_err=max(errs[256]),
              **time_decode(10, 1, 256, 2048, PROMPT + TOKENS_PER_BLOCK,
                            "recurrentgemma-2b")),
@@ -1119,6 +1156,29 @@ def kernels_attention(gen: torch.Generator) -> dict:
              **time_decode(4, 2, 32, REDUCED_MAX_SEQ, REDUCED_PROMPT + 8,
                            "reduced yi-6b serve (make smoke)", b=1))]
     return out
+
+
+def check_decode_lse(name: str, q, kc, vc, length, out) -> None:
+    """The decode kernel with its lse: ``out`` bitwise the kernel's without
+    it, the lse within ATTN_TOL + ATTN_TOL * |plain| of the plain lse and
+    -inf exactly where a row's length is 0."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda,
+        decode_attention_plain,
+    )
+
+    got, lse = decode_attention_cuda(q, kc, vc, length, return_lse=True)
+    _, want = decode_attention_plain(q.float(), kc.float(), vc.float(),
+                                     length, return_lse=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, out):
+        fail(f"decode_attention {name}: out differs with the lse asked for")
+    empty = (length == 0)[:, None].expand_as(lse)
+    if not bool((torch.isneginf(lse) == empty).all()) \
+            or not bool(torch.isneginf(want)[empty].all()):
+        fail(f"decode_attention {name}: lse is not -inf exactly at length 0")
+    keep = ~empty
+    check_close(f"decode_attention {name} lse", lse[keep], want[keep])
 
 
 def kernel_ssd(gen: torch.Generator) -> dict:
@@ -2562,6 +2622,200 @@ def phase_train_multi() -> dict:
     return launches
 
 
+# The sharded phase: the sharded steps on a one-rank NCCL mesh of shape
+# (1, 1) ("data", "model"), at full width.  yi-6b trains at SHARD_TRAIN
+# layers: fp32 weights and AdamW moments of the sharded and the unsharded
+# run (12 B a parameter, 1.33 B parameters: 2 x 16 GB) beside their
+# gradients; deepseek-v2-lite-16b at SHARD_DSV2 layers (one dense, two
+# MoE) with capacity factor 16, where the per-row dispatch and the
+# expert-parallel one drop nothing and so compute the same function.
+SHARD_TRAIN, SHARD_DSV2, SHARD_DECODE = 4, 3, 4
+SHARD_PATHS = (("yi-6b", None, ("flash_attention", "decode_attention")),
+               ("mamba2-2.7b", None, ("ssd_scan",)),
+               ("recurrentgemma-2b", None,
+                ("flash_attention", "decode_attention", "rglru_scan")),
+               ("deepseek-v2-lite-16b", SHARD_DSV2, ("flash_attention",)))
+
+
+def compare(name: str, got, want, bound: float = MODEL_REL_L2) -> str:
+    """``got`` (from a DTensor path) against ``want``: bitwise, or within
+    ``bound`` relative L2 (PERF.md's model bound); fails past it."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(got, DTensor):
+        got = got.full_tensor()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"sharded {name}: shape {tuple(got.shape)} vs "
+             f"{tuple(want.shape)} or non-finite values")
+    if torch.equal(got, want):
+        return "bitwise"
+    err = rel_l2(got.float(), want.float())
+    if err > bound:
+        fail(f"sharded {name}: relative L2 {err:.3e} past {bound}")
+    return f"rel L2 {err:.3e}"
+
+
+def phase_sharded() -> dict:
+    """The sharded train, prefill and decode steps (``launch.steps.
+    build_step`` with a mesh, the ``Sharder``, every kernel inside
+    ``local_map``) on a (1, 1) mesh of one NCCL rank (a HashStore: no port
+    opened), against the unsharded steps on the same weights."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import steps
+    from repro_torch.sharding.calls import combine_slices
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    launches: dict = {}
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1).view(1, 1),
+                          mesh_dim_names=("data", "model"))
+        # the slice combine over one rank is the identity, bitwise
+        out = torch.randn(B, 32, 128, device="cuda").to(torch.bfloat16)
+        lse = torch.randn(B, 32, device="cuda")
+        if not torch.equal(combine_slices(mesh, "model", out, lse), out):
+            fail("sharded: the one-rank log-sum-exp combine changed out")
+        for name, count in sharded_train(mesh, steps).items():
+            launches[name] = launches.get(name, 0) + count
+        for arch, layers, kernels in SHARD_PATHS:
+            for name, count in sharded_serve(mesh, steps, arch, layers,
+                                             kernels).items():
+                launches[name] = launches.get(name, 0) + count
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def _counted(fn, *args):
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def sharded_train(mesh, steps) -> dict:
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import pipeline as data
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    cfg = depth_cut("yi-6b", SHARD_TRAIN)
+    shape = InputShape("sharded", PROMPT, B, "train")
+    plain = lm.init(cfg, seed=0, device="cuda", dtype=torch.float32,
+                    stacked=True)
+    for _, t in leaves_with_path(plain):
+        t.requires_grad_()
+    # a copy placed by param_spec (the step updates its params in place)
+    placed = steps.place(tree_map(lambda t: t.detach().clone()
+                                  .requires_grad_(), plain), mesh)
+    batch = data.batch_for_step(cfg, shape, 0, device="cuda")
+    sbatch = steps.place(batch, mesh, steps.batch_specs(cfg, batch, mesh))
+    bundle = steps.build_step(cfg, shape, mesh=mesh)
+    (_, s_state, s_met), counts = _counted(
+        bundle.fn, placed, adamw.init(placed), sbatch)
+    _, u_state, u_met = steps.build_step(cfg, shape).fn(
+        plain, adamw.init(plain), batch)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if counts[name] <= 0:
+            fail(f"sharded yi-6b train step never launched {name}")
+    verdicts = {name: compare(f"train {name}", s_met[name],
+                              u_met[name].reshape(()), bound=1e-3)
+                for name in ("nll", "grad_norm")}
+    # AdamW's first moment after one step is (1 - b1) x the clipped
+    # gradient: each leaf against the unsharded step's
+    worst = "bitwise"
+    for (path, got), (_, want) in zip(leaves_with_path(s_state["m"]),
+                                      leaves_with_path(u_state["m"])):
+        v = compare(f"train m {path}", got, want)
+        if v != "bitwise" and (worst == "bitwise"
+                               or float(v.split()[-1]) > float(
+                                   worst.split()[-1])):
+            worst = v
+    print(f"[sharded] yi-6b train step, {SHARD_TRAIN} layers, B {B} x "
+          f"{PROMPT}: nll {verdicts['nll']}, grad norm "
+          f"{verdicts['grad_norm']}, AdamW first moments {worst} (worst "
+          f"leaf); launches {counts}", flush=True)
+    del plain, placed, s_state, u_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sharded_serve(mesh, steps, arch: str, layers, kernels) -> dict:
+    """Prefill of B x PROMPT and SHARD_DECODE decode steps, sharded and
+    not, on the same bf16 weights."""
+    import dataclasses
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.models import lm
+    from repro_torch.sharding.specs import placements
+
+    cfg = get_arch(arch) if layers is None else depth_cut(arch, layers)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    params = lm.init(cfg, seed=0, device="cuda", stacked=True)
+    placed = steps.place(params, mesh)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
+                           device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (SHARD_DECODE, B), generator=gen,
+                         device="cuda")
+    max_seq = PROMPT + SHARD_DECODE + 8
+    pshape = InputShape("sharded", max_seq, B, "prefill")
+    dshape = InputShape("sharded", max_seq, B, "decode")
+    tspec = placements(steps.token_spec(B, mesh), mesh)
+
+    def run(mesh_):
+        pre = steps.build_step(cfg, pshape, mesh=mesh_).fn
+        dec = steps.build_step(cfg, dshape, mesh=mesh_).fn
+        p = placed if mesh_ is not None else params
+        batch = {"tokens": prompt}
+        if mesh_ is not None:
+            batch = steps.place(batch, mesh, steps.batch_specs(cfg, batch,
+                                                               mesh))
+        (logits, caches), c1 = _counted(pre, p, batch)
+        outs, counts = [logits], dict(c1)
+        lengths = torch.full((B,), PROMPT, dtype=torch.int32, device="cuda")
+        for i, tok in enumerate(toks):
+            n = lengths + i
+            if mesh_ is not None:
+                tok = distribute_tensor(tok, mesh, tspec)
+                n = distribute_tensor(n, mesh, tspec)
+            (logits, caches), c2 = _counted(dec, p, tok, caches, n)
+            outs.append(logits)
+            for k, v in c2.items():
+                counts[k] += v
+        return outs, counts
+
+    t0 = time.perf_counter()
+    got, counts = run(mesh)
+    t_sharded = time.perf_counter() - t0
+    want, _ = run(None)
+    for name in kernels:
+        if counts[name] <= 0:
+            fail(f"sharded {arch} serving never launched {name}")
+    verdicts = [compare(f"{arch} {'prefill' if i == 0 else f'decode {i}'}",
+                        g, w) for i, (g, w) in enumerate(zip(got, want))]
+    print(f"[sharded] {arch}{'' if layers is None else f' {layers} layers'}"
+          f" prefill B {B} x {PROMPT} and {SHARD_DECODE} decode steps "
+          f"({t_sharded:.1f}s sharded): logits "
+          + ", ".join(verdicts) + f"; launches {counts}", flush=True)
+    del params, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     result = fn(*args)
@@ -2606,6 +2860,9 @@ def main() -> None:
           WHISPER_CHECK_LAYERS)
     timed("train-check", phase_train_check, "pixtral-12b",
           PIXTRAL_CHECK_LAYERS)
+    counts = timed("sharded", phase_sharded)
+    for name, count in counts.items():
+        launches[name] = launches.get(name, 0) + count
     timed("scenario", phase_scenario_kernels)
     timed("sweep", phase_executor_sweep)
     from repro_torch.configs import ARCHS

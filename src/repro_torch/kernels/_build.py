@@ -159,3 +159,17 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_plain(name: str, *tensors) -> None:
+    """Raise ``TypeError`` if a tensor subclass (a DTensor, a LocalTensor,
+    a fake tensor) would reach the ctypes launch of kernel ``name``: a
+    launch takes the storage of plain device tensors.  Under a mesh the
+    kernels run inside ``local_map`` on each rank's local tensors
+    (:mod:`repro_torch.kernels.local`)."""
+    for t in tensors:
+        if t is not None and type(t) not in (torch.Tensor,
+                                             torch.nn.Parameter):
+            raise TypeError(
+                f"{name}: got a {type(t).__name__}; the kernel takes plain "
+                f"tensors (run it inside local_map under a mesh)")

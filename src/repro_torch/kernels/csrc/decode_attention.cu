@@ -34,6 +34,11 @@
 //     to arrive combines the partials in split order (bitwise repeatable
 //     whichever CTA is last), writes out and resets the counter to 0.  A CTA
 //     with no keys only arrives, and a row of length 0 comes out 0.
+//     Where the caller asks for it (lse not null), the combining CTA also
+//     writes each head's logsumexp from the (M, L) it already holds,
+//     ln 2 (M + log2 L), or -inf for a row with no keys: the sharded
+//     decode combines the slices of a sequence-sharded cache by it.  The
+//     out it writes is the same either way.
 //
 // Head dims (D, Dv): (64, 64), (128, 128), (64, 128), (256, 256) and the
 // reduced configs' (32, 32), whose rows take two k16 steps of QK^T and
@@ -42,7 +47,7 @@
 // length int32 [B], out [B, H, Dv], all contiguous and 16-byte aligned;
 // part fp32 holds acc [B*KV, n_split, G, Dv] then (m, l) [B*KV, n_split,
 // G, 2] (m in log2 units), written by the splits that hold keys; counter
-// int32 [>= B*KV], zero between calls.
+// int32 [>= B*KV], zero between calls; lse fp32 [B, H] or null.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -61,6 +66,7 @@ constexpr int ROWS = 16;                // mma rows: the query heads, G <= 16
 constexpr int STEP = 16;                // keys per mma step
 constexpr float NEG_INF = -1e30f;       // the Pallas kernel's mask value
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 // Dynamic shared memory a CTA may ask for: the card's 227 KB less 1 KB,
 // which covers the static `last` flag.
@@ -74,6 +80,7 @@ struct Args {
     float* part;
     int* counter;
     bf16* out;
+    float* lse;
     int S, H, KV, n_split;
     float scale;
 };
@@ -355,7 +362,12 @@ decode_attention_kernel(Args a) {
             }
 #pragma unroll
         for (int o = 1; o < 8; o <<= 1) L += __shfl_xor_sync(FULL, L, o);
-        if (g < G && j == 0) inv[g] = 1.f / fmaxf(L, 1e-30f);
+        if (g < G && j == 0) {
+            inv[g] = 1.f / fmaxf(L, 1e-30f);
+            if (a.lse)
+                a.lse[(long long)b * a.H + (long long)hk * G + g] =
+                    L > 0.f ? LN2 * (M + log2f(L)) : __int_as_float(0xff800000);
+        }
     }
     __syncthreads();
 
@@ -437,7 +449,8 @@ extern "C" long long decode_attention_smem(int S, int D, int Dv, int G,
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
                                     const void* v_cache, const void* length,
                                     void* part, void* counter, void* out,
-                                    int B, int S, int H, int KV, int D, int Dv,
+                                    void* lse, int B, int S, int H, int KV,
+                                    int D, int Dv,
                                     int n_split, float scale, int device,
                                     void* stream) {
     cudaError_t err = cudaSetDevice(device);
@@ -449,7 +462,8 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_cache,
     Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k_cache),
            static_cast<const bf16*>(v_cache), static_cast<const int*>(length),
            static_cast<float*>(part), static_cast<int*>(counter),
-           static_cast<bf16*>(out), S, H, KV, n_split, scale};
+           static_cast<bf16*>(out), static_cast<float*>(lse), S, H, KV,
+           n_split, scale};
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     if (D == 64 && Dv == 64) return (int)launch<64, 64>(a, B, smem, st);
     if (D == 128 && Dv == 128) return (int)launch<128, 128>(a, B, smem, st);

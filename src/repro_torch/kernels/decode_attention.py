@@ -14,7 +14,12 @@ every call leaves at zero; the wrapper keeps one such tensor per device
 kernel does not take; it never falls back.
 
 Both versions return zeros for a row with ``length == 0``, as the Pallas
-kernel does (the reference oracle returns NaN there).
+kernel does (the reference oracle returns NaN there).  With
+``return_lse`` both also return each head's logsumexp, fp32 ``[B, H]``,
+-inf for a row of length 0: the sharded decode combines the slices of a
+sequence-sharded cache by it (:mod:`repro_torch.sharding.calls`).  The
+kernel writes it from the combine's running max and sum; ``out`` is the
+same with it or without.
 """
 
 from __future__ import annotations
@@ -67,18 +72,30 @@ def plan(S: int, D: int, Dv: int, G: int, bkv: int,
 
 
 def decode_attention_plain(q, k_cache, v_cache, length, *,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           return_lse: bool = False):
     """The same function through :func:`ref.decode_attention` (float32)."""
     out = ref.decode_attention(q, k_cache, v_cache, length, scale)
-    return torch.where((length > 0)[:, None, None], out, torch.zeros_like(out))
+    out = torch.where((length > 0)[:, None, None], out, torch.zeros_like(out))
+    if not return_lse:
+        return out
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    logits = torch.einsum("bhgd,bshd->bhgs",
+                          q.float().reshape(B, KV, H // KV, D),
+                          k_cache.float()) * scale
+    valid = torch.arange(S, device=q.device)[None] < length[:, None]
+    logits = logits.masked_fill(~valid[:, None, None], float("-inf"))
+    return out, torch.logsumexp(logits, dim=-1).reshape(B, H)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                         i, i, ctypes.c_float, i, p]
+    lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                         i, i, i, ctypes.c_float, i, p]
     lib.decode_attention_fwd.restype = ctypes.c_int
     return lib
 
@@ -103,8 +120,11 @@ def counters(device: torch.device, n: int = 0) -> torch.Tensor:
 
 
 def decode_attention_cuda(q, k_cache, v_cache, length, *,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA kernel (split-K with an in-kernel combine). [B, H, Dv]."""
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
+    """Launch the CUDA kernel (split-K with an in-kernel combine). [B, H, Dv];
+    with ``return_lse``, ``(out, lse)``."""
+    _build.check_plain("decode_attention_cuda", q, k_cache, v_cache, length)
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.dim() != 4:
         raise ValueError("q must be [B, H, D] and the caches [B, S, KV, D]")
     B, H, D = q.shape
@@ -134,8 +154,10 @@ def decode_attention_cuda(q, k_cache, v_cache, length, *,
                          f"and at most {MAX_GROUP} query heads per KV head")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     G = H // KV
     n_split, smem = plan(S, D, Dv, G, B * KV, _sm_count(q.device.index))
     if smem > MAX_SMEM:
@@ -147,12 +169,13 @@ def decode_attention_cuda(q, k_cache, v_cache, length, *,
     status = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         length.data_ptr(), part.data_ptr(),
-        counters(q.device, B * KV).data_ptr(), out.data_ptr(), B, S, H, KV,
+        counters(q.device, B * KV).data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, B, S, H, KV,
         D, Dv, n_split, float(scale), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "decode_attention_fwd")
     decode_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: Launches of the CUDA kernel since the last reset (``launches = 0``).

@@ -89,6 +89,7 @@ def flash_attention_cuda(q, k, v, *, mask_kind: str = "causal",
     """Launch the CUDA kernel.  Returns ``[B, Sq, H, Dv]`` bf16; with
     ``return_lse``, ``(out, lse)`` with lse fp32 ``[B, Sq, H]``.  The
     kernel writes ``out`` the same way either way."""
+    _build.check_plain("flash_attention_cuda", q, k, v)
     B, Sq, H, D = q.shape
     if k.dim() != 4 or v.dim() != 4:
         raise ValueError("k and v must be [B, Sk, KV, D]")

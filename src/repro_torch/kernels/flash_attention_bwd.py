@@ -272,6 +272,7 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *,
                              q_offset: int = 0,
                              scale: Optional[float] = None) -> tuple:
     """Launch the CUDA kernel.  Returns ``(dq, dk, dv)``, bf16."""
+    _build.check_plain("flash_attention_bwd_cuda", q, k, v, out, dout, lse)
     B, Sq, H, D = q.shape
     if k.dim() != 4 or v.dim() != 4:
         raise ValueError("k and v must be [B, Sk, KV, D]")

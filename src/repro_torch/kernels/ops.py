@@ -24,11 +24,18 @@ otherwise.  :func:`rglru` goes through :class:`RGLRUScan` (the JAX package
 differentiates its XLA scan): the forward saves its inputs, and the
 backward recomputes the states, through the CUDA backward kernel on the
 card and its plain version otherwise.
+
+Every kernel and plain call goes through
+:func:`repro_torch.kernels.local.each_rank`, so under a mesh (inside
+``local_map``) a kernel sees each rank's plain local tensors, once per
+simulated rank under ``LocalTensorMode``; a DTensor given here raises
+``TypeError``.  ``q_offset`` may be a function of the rank (a
+sequence-sharded query's global offset).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +46,7 @@ from .flash_attention_bwd import (
     flash_attention_bwd_cuda,
     flash_attention_bwd_plain,
 )
+from .local import each_rank
 from .rglru_scan import rglru_cuda, rglru_plain
 from .rglru_scan_bwd import rglru_bwd_cuda, rglru_bwd_plain
 from .ssd_scan import ssd_cuda, ssd_plain
@@ -59,7 +67,24 @@ KERNELS = {"flash_attention": flash_attention_cuda,
 def _use_kernel(backend: str, x: torch.Tensor) -> bool:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected {BACKENDS})")
+    if _is_dtensor(x):
+        raise TypeError("a DTensor reached a kernel call; under a mesh the "
+                        "kernels run inside local_map "
+                        "(repro_torch.sharding.calls)")
     return backend == "kernel" and x.device.type == "cuda"
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+Offset = Union[int, Callable[[int], int]]
+
+
+def _offset(q_offset: Offset, rank: int) -> int:
+    return q_offset(rank) if callable(q_offset) else q_offset
 
 
 def _needs_grad(*ts) -> bool:
@@ -76,8 +101,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask_kind, window, q_offset, scale, kernel):
         fwd = flash_attention_cuda if kernel else flash_attention_plain
-        out, lse = fwd(q, k, v, mask_kind=mask_kind, window=window,
-                       q_offset=q_offset, scale=scale, return_lse=True)
+        out, lse = each_rank(
+            lambda r, q, k, v: fwd(q, k, v, mask_kind=mask_kind,
+                                   window=window,
+                                   q_offset=_offset(q_offset, r),
+                                   scale=scale, return_lse=True), q, k, v)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = dict(mask_kind=mask_kind, window=window,
                         q_offset=q_offset, scale=scale)
@@ -89,7 +117,11 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         bwd = flash_attention_bwd_cuda if ctx.kernel \
             else flash_attention_bwd_plain
-        dq, dk, dv = bwd(q, k, v, out, dout.contiguous(), lse, **ctx.args)
+        args = dict(ctx.args)
+        off = args.pop("q_offset")
+        dq, dk, dv = each_rank(
+            lambda r, *ts: bwd(*ts, q_offset=_offset(off, r), **args),
+            q, k, v, out, dout.contiguous(), lse)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -104,8 +136,10 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bmat, Cmat, initial_state, chunk, kernel):
         fwd = ssd_cuda if kernel else ssd_plain
-        y, state = fwd(x, dt, A, Bmat, Cmat, chunk=chunk,
-                       initial_state=initial_state)
+        y, state = each_rank(
+            lambda r, x, dt, A, Bmat, Cmat, h0: fwd(
+                x, dt, A, Bmat, Cmat, chunk=chunk, initial_state=h0),
+            x, dt, A, Bmat, Cmat, initial_state)
         ctx.save_for_backward(x, dt, A, Bmat, Cmat, initial_state)
         ctx.chunk, ctx.kernel = chunk, kernel
         ctx.set_materialize_grads(False)
@@ -117,9 +151,11 @@ class SSDScan(torch.autograd.Function):
         if dy is None:
             dy = torch.zeros_like(x)
         bwd = ssd_bwd_cuda if ctx.kernel else ssd_bwd_plain
-        grads = bwd(x, dt, A, Bmat, Cmat, dy.contiguous(),
-                    None if dstate is None else dstate.contiguous(),
-                    chunk=ctx.chunk, initial_state=h0)
+        chunk = ctx.chunk
+        grads = each_rank(
+            lambda r, h0, *ts: bwd(*ts, chunk=chunk, initial_state=h0),
+            h0, x, dt, A, Bmat, Cmat, dy.contiguous(),
+            None if dstate is None else dstate.contiguous())
         return (*grads, None, None)
 
 
@@ -134,14 +170,15 @@ class RGLRUScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gate_a, gate_i, log_a, initial_state, c, kernel):
-        entering = None
-        if kernel:
-            h, state, entering = rglru_cuda(
-                x, gate_a, gate_i, log_a, initial_state=initial_state, c=c,
-                entering=True)
-        else:
-            h, state = rglru_plain(x, gate_a, gate_i, log_a,
-                                   initial_state=initial_state, c=c)
+        def fwd(r, x, gate_a, gate_i, log_a, h0):
+            if kernel:
+                return rglru_cuda(x, gate_a, gate_i, log_a, initial_state=h0,
+                                  c=c, entering=True)
+            return (*rglru_plain(x, gate_a, gate_i, log_a, initial_state=h0,
+                                 c=c), None)
+
+        h, state, entering = each_rank(fwd, x, gate_a, gate_i, log_a,
+                                       initial_state)
         ctx.save_for_backward(x, gate_a, gate_i, log_a, initial_state,
                               entering)
         ctx.c, ctx.kernel = c, kernel
@@ -153,13 +190,17 @@ class RGLRUScan(torch.autograd.Function):
         x, gate_a, gate_i, log_a, h0, entering = ctx.saved_tensors
         if dh is None:
             dh = torch.zeros_like(x)
-        args = (x, gate_a, gate_i, log_a, dh.contiguous(),
-                None if dstate is None else dstate.contiguous())
-        if ctx.kernel:
-            grads = rglru_bwd_cuda(*args, entering=entering,
-                                   initial_state=h0, c=ctx.c)
-        else:
-            grads = rglru_bwd_plain(*args, initial_state=h0, c=ctx.c)
+        c, kernel = ctx.c, ctx.kernel
+
+        def bwd(r, entering, h0, *args):
+            if kernel:
+                return rglru_bwd_cuda(*args, entering=entering,
+                                      initial_state=h0, c=c)
+            return rglru_bwd_plain(*args, initial_state=h0, c=c)
+
+        grads = each_rank(bwd, entering, h0, x, gate_a, gate_i, log_a,
+                          dh.contiguous(),
+                          None if dstate is None else dstate.contiguous())
         return (*grads, None, None)
 
 
@@ -170,7 +211,7 @@ def flash_attention(
     *,
     mask_kind: str = "causal",        # causal|window|none
     window: int = 0,
-    q_offset: int = 0,
+    q_offset: Offset = 0,
     scale: Optional[float] = None,
     backend: str = "kernel",
 ) -> torch.Tensor:
@@ -181,8 +222,10 @@ def flash_attention(
         return FlashAttention.apply(q, k, v, mask_kind, window, q_offset,
                                     scale, kernel)
     fn = flash_attention_cuda if kernel else flash_attention_plain
-    return fn(q, k, v, mask_kind=mask_kind, window=window, q_offset=q_offset,
-              scale=scale)
+    return each_rank(
+        lambda r, q, k, v: fn(q, k, v, mask_kind=mask_kind, window=window,
+                              q_offset=_offset(q_offset, r), scale=scale),
+        q, k, v)
 
 
 def decode_attention(
@@ -192,12 +235,18 @@ def decode_attention(
     length: torch.Tensor,     # [B] int32
     *,
     scale: Optional[float] = None,
+    return_lse: bool = False,
     backend: str = "kernel",
-) -> torch.Tensor:
-    """Single-token attention against a padded KV cache.  [B, H, Dv]."""
+):
+    """Single-token attention against a padded KV cache.  [B, H, Dv]; with
+    ``return_lse``, ``(out, lse)`` with lse fp32 [B, H] (-inf for a row of
+    length 0)."""
     fn = decode_attention_cuda if _use_kernel(backend, q) \
         else decode_attention_plain
-    return fn(q, k_cache, v_cache, length, scale=scale)
+    return each_rank(
+        lambda r, q, k, v, n: fn(q, k, v, n, scale=scale,
+                                 return_lse=return_lse),
+        q, k_cache, v_cache, length)
 
 
 def ssd(
@@ -217,7 +266,10 @@ def ssd(
         return SSDScan.apply(x, dt, A, Bmat, Cmat, initial_state, chunk,
                              kernel)
     fn = ssd_cuda if kernel else ssd_plain
-    return fn(x, dt, A, Bmat, Cmat, chunk=chunk, initial_state=initial_state)
+    return each_rank(
+        lambda r, x, dt, A, Bmat, Cmat, h0: fn(x, dt, A, Bmat, Cmat,
+                                               chunk=chunk, initial_state=h0),
+        x, dt, A, Bmat, Cmat, initial_state)
 
 
 def ssd_decode_step(
@@ -256,7 +308,10 @@ def rglru(
         return RGLRUScan.apply(x, gate_a, gate_i, log_a, initial_state, c,
                                kernel)
     fn = rglru_cuda if kernel else rglru_plain
-    return fn(x, gate_a, gate_i, log_a, initial_state=initial_state, c=c)
+    return each_rank(
+        lambda r, x, gate_a, gate_i, log_a, h0: fn(
+            x, gate_a, gate_i, log_a, initial_state=h0, c=c),
+        x, gate_a, gate_i, log_a, initial_state)
 
 
 def rglru_decode_step(x, gate_a, gate_i, log_a, state, c: float = 8.0):

@@ -76,6 +76,7 @@ def rglru_cuda(x, gate_a, gate_i, log_a, *,
     """Launch the CUDA kernel.  Returns (h ``[B, S, C]`` bf16, final state
     ``[B, C]`` fp32) and, with ``entering``, the fp32 state entering each
     chunk ``[B, ceil(S / CHUNK), C]``."""
+    _build.check_plain("rglru_cuda", x, gate_a, gate_i, log_a, initial_state)
     if x.dim() != 3:
         raise ValueError("x must be [B, S, C]")
     B, S, C = x.shape

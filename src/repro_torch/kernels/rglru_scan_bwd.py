@@ -134,6 +134,8 @@ def rglru_bwd_cuda(x, gate_a, gate_i, log_a, dh, dstate=None, *,
     inputs and initial state).  Returns ``(dx`` bf16, ``d gate_a``, ``d
     gate_i``, ``d log_a`` and ``d initial_state`` fp32, the last None
     without an initial state)."""
+    _build.check_plain("rglru_bwd_cuda", x, gate_a, gate_i, log_a, dh, dstate,
+                        entering, initial_state)
     if x.dim() != 3:
         raise ValueError("x must be [B, S, C]")
     B, S, C = x.shape

@@ -139,6 +139,7 @@ def ssd_cuda(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel.  Returns (y ``[B, S, H, P]`` bf16, final
     state ``[B, H, P, N]`` fp32)."""
+    _build.check_plain("ssd_cuda", x, dt, A, Bmat, Cmat, initial_state)
     if x.dim() != 4 or Bmat.dim() != 4:
         raise ValueError("x must be [B, S, H, P] and B, C [B, S, G, N]")
     Bsz, S, H, P = x.shape

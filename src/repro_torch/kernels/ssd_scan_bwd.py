@@ -340,6 +340,8 @@ def ssd_bwd_cuda(x, dt, A, Bmat, Cmat, dy, dstate=None, *, chunk: int = 128,
     """Launch the CUDA kernel.  Returns ``(dx, ddt, dA, dB, dC, dh0)``:
     bf16, fp32, fp32, bf16, bf16 and fp32 (None without
     ``initial_state``).  ``dstate`` None counts as zeros."""
+    _build.check_plain("ssd_bwd_cuda", x, dt, A, Bmat, Cmat, dy, dstate,
+                        initial_state)
     if x.dim() != 4 or Bmat.dim() != 4:
         raise ValueError("x must be [B, S, H, P] and B, C [B, S, G, N]")
     Bsz, S, H, P = x.shape

@@ -20,11 +20,21 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..sharding import calls
+from ..sharding.annotate import is_dtensor
+
 DEFAULT_COMPUTE_DTYPE = torch.bfloat16
 
 
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x if x.dtype == dtype else x.to(dtype)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor,
+       shard_out: bool = True) -> torch.Tensor:
+    """``x @ w``; under a mesh one local product per rank
+    (:func:`repro_torch.sharding.calls.linear`)."""
+    return calls.linear(x, w, shard_out) if is_dtensor(x) else x @ w
 
 
 # ------------------------------------------------------------------- norms
@@ -46,12 +56,15 @@ def apply_norm(p: Dict, x: torch.Tensor, kind: str = "rms",
 # -------------------------------------------------------------- embeddings
 def embed(p: Dict, tokens: torch.Tensor,
           dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> torch.Tensor:
-    return cast(p["table"], dtype)[tokens]
+    table = cast(p["table"], dtype)
+    if is_dtensor(tokens):      # under a mesh: each rank's rows, locally
+        return calls.embed(table, tokens)
+    return table[tokens]
 
 
 def unembed(p: Dict, x: torch.Tensor,
             dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> torch.Tensor:
-    return x @ cast(p["table"], dtype).T
+    return mm(x, cast(p["table"], dtype).T)
 
 
 # -------------------------------------------------------------------- rope
@@ -89,9 +102,13 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------------------- mlp
 def apply_mlp(p: Dict, x: torch.Tensor, act: str,
-              dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> torch.Tensor:
+              dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE,
+              whook=None) -> torch.Tensor:
+    """The dense FFN.  ``whook``, where given, takes each weight matrix
+    before its product (the sharder's ``weight_for_batch``)."""
     def lin(q, v):
-        y = v @ cast(q["w"], dtype)
+        w = cast(q["w"], dtype)
+        y = mm(v, whook(w) if whook is not None else w)
         if "b" in q:
             y = y + cast(q["b"], dtype)
         return y

@@ -35,6 +35,15 @@ or exactly ``window`` for a local layer), ``{"c_kv" [L, B, max_seq, R],
 C] fp32, "conv" [L, B, W-1, C]}`` for RG-LRU; a cross-attention layer's
 entry also holds ``"cross": {"k", "v"}`` [L, B, frames, KV, hd], the
 encoder's keys and values.  :func:`decode_step` updates them in place.
+
+Every entry point takes ``shard`` (the reference's sharder):
+:data:`~repro_torch.sharding.annotate.NULL_SHARDER` on one device, or a
+:class:`~repro_torch.sharding.annotate.Sharder` on a device mesh, where
+params, batch and caches are DTensors placed by
+:mod:`repro_torch.sharding.specs` and the hooks are called where the
+reference calls them (activations after the embedding and after every
+layer, the logits, the decode activations; the mixers' own).  Under a
+mesh the caches are allocated as DTensors placed by ``cache_spec``.
 """
 
 from __future__ import annotations
@@ -48,6 +57,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
+from ..sharding import calls
+from ..sharding.annotate import NULL_SHARDER
+from ..sharding.specs import cache_spec, placements
 from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -59,6 +71,7 @@ from .layers import (
     apply_norm,
     cast,
     embed,
+    mm,
     unembed,
 )
 
@@ -330,21 +343,26 @@ def _window(cfg: ArchConfig, spec: LayerSpec) -> int:
 def _head(cfg: ArchConfig, params: Dict, x: torch.Tensor, dtype):
     if cfg.tie_embeddings:
         return unembed(params["embed"], x, dtype)
-    return x @ cast(params["lm_head"]["w"], dtype)
+    return mm(x, cast(params["lm_head"]["w"], dtype))
 
 
 def _ffn(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
-         dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+         dtype, shard=NULL_SHARDER
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's dense or MoE FFN on ``x`` [B, S, D]: (out, the MoE's
     aux load-balance loss, None for a dense FFN)."""
     h = apply_norm(p["norm2"], x, cfg.norm)
     if spec.ffn == "moe":
-        return moe_mod.moe_apply(p["ffn"], h, cfg.moe, dtype=dtype)
-    return apply_mlp(p["ffn"], h, cfg.act, dtype), None
+        return moe_mod.moe_apply(p["ffn"], h, cfg.moe, shard=shard,
+                                 dtype=dtype)
+    B = x.shape[0]
+    return apply_mlp(p["ffn"], h, cfg.act, dtype,
+                     whook=lambda w: shard.weight_for_batch(w, B)), None
 
 
 def _mix(cfg: ArchConfig, spec: LayerSpec, p: Dict, h: torch.Tensor,
-         positions: torch.Tensor, backend: str, dtype) -> Tuple:
+         positions: torch.Tensor, backend: str, dtype,
+         shard=NULL_SHARDER) -> Tuple:
     """The layer's mixer on the whole sequence ``h`` (normed): (out, the
     cache entry or recurrent state it leaves)."""
     if spec.mixer in ("gqa", "local"):
@@ -353,26 +371,47 @@ def _mix(cfg: ArchConfig, spec: LayerSpec, p: Dict, h: torch.Tensor,
             p["mixer"], h,
             rope_theta=cfg.rope_theta if cfg.has_attention else None,
             mask_kind="window" if window else "causal", window=window,
-            positions=positions, backend=backend, dtype=dtype)
+            positions=positions, backend=backend, shard=shard, dtype=dtype)
     if spec.mixer == "mla":
         return mla_mod.mla_apply(p["mixer"], h, cfg.mla,
                                  rope_theta=cfg.rope_theta,
                                  positions=positions, backend=backend,
-                                 dtype=dtype)
+                                 shard=shard, dtype=dtype)
     if spec.mixer == "ssd":
         return ssm_mod.mamba2_apply(p["mixer"], h, cfg.ssm, backend=backend,
-                                    dtype=dtype)
+                                    shard=shard, dtype=dtype)
     return rglru_mod.rglru_block_apply(p["mixer"], h, cfg.rglru,
-                                       backend=backend, dtype=dtype)
+                                       backend=backend, shard=shard,
+                                       dtype=dtype)
 
 
 def _cross(cfg: ArchConfig, p: Dict, x: torch.Tensor, enc_kv: Dict,
-           backend: str, dtype) -> torch.Tensor:
+           backend: str, dtype, shard=NULL_SHARDER) -> torch.Tensor:
     """``x`` plus the layer's cross attention over the encoder's keys and
     values (``repro.models.lm._apply_layer``'s cross branch)."""
     h = apply_norm(p["norm_cross"], x, cfg.norm)
     return x + attn.cross_apply(p["cross"], h, enc_kv, backend=backend,
-                                dtype=dtype)
+                                shard=shard, dtype=dtype)
+
+
+def _layer(cfg: ArchConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
+           enc_out, positions: torch.Tensor, backend: str, dtype,
+           shard=NULL_SHARDER) -> Tuple:
+    """One layer on the whole sequence (``repro.models.lm._apply_layer``):
+    (x, the mixer's cache entry or state, the encoder's keys and values
+    where it cross-attends else None, the MoE aux loss or None)."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    mix, entry = _mix(cfg, spec, p, h, positions, backend, dtype, shard)
+    x = x + mix
+    enc_kv = None
+    if spec.cross and enc_out is not None:
+        enc_kv = attn.cross_kv(p["cross"], enc_out, dtype)
+        x = _cross(cfg, p, x, enc_kv, backend, dtype, shard)
+    aux = None
+    if spec.ffn != "none":
+        y, aux = _ffn(cfg, spec, p, x, dtype, shard)
+        x = x + y
+    return shard.activations(x), entry, enc_kv, aux
 
 
 def _inputs(params: Dict, tokens: torch.Tensor,
@@ -396,20 +435,21 @@ def _sinusoid(n: int, d: int, device) -> torch.Tensor:
 
 
 def encoder_unit(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
-                 backend: str = "kernel",
+                 backend: str = "kernel", shard=NULL_SHARDER,
                  dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> torch.Tensor:
     """One encoder layer: biased GQA with no rope and no mask, then the
     MLP, each behind a norm and a residual add."""
     h = apply_norm(p["norm1"], x, cfg.norm)
     mix, _ = attn.gqa_apply(p["mixer"], h, rope_theta=None,
-                            mask_kind="none", backend=backend, dtype=dtype)
+                            mask_kind="none", backend=backend, shard=shard,
+                            dtype=dtype)
     x = x + mix
     h = apply_norm(p["norm2"], x, cfg.norm)
-    return x + apply_mlp(p["ffn"], h, cfg.act, dtype)
+    return shard.activations(x + apply_mlp(p["ffn"], h, cfg.act, dtype))
 
 
 def _encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor, *,
-            remat: bool = False, backend: str = "kernel",
+            remat: bool = False, backend: str = "kernel", shard=NULL_SHARDER,
             dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> torch.Tensor:
     """The whisper-style encoder over precomputed frame embeddings [B, F,
     D]: sinusoidal positions added in the compute dtype, every encoder
@@ -417,38 +457,68 @@ def _encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor, *,
     norm."""
     x = frames.to(dtype) + _sinusoid(frames.shape[1], cfg.d_model,
                                      frames.device).to(dtype)
+    x = shard.activations(x)
     enc = params["encoder"]
     for p in _per_layer(enc["layers"], cfg.encoder.n_layers):
         if remat:
             x = checkpoint(encoder_unit, cfg, p, x, backend=backend,
-                           dtype=dtype, use_reentrant=False)
+                           shard=shard, dtype=dtype, use_reentrant=False)
         else:
-            x = encoder_unit(cfg, p, x, backend=backend, dtype=dtype)
+            x = encoder_unit(cfg, p, x, backend=backend, shard=shard,
+                             dtype=dtype)
     return apply_norm(enc["final_norm"], x, cfg.norm)
 
 
 def _store(unit_c: Dict, entry: Dict, r: int, reps: int,
-           slots: Optional[int] = None) -> None:
+           slots: Optional[int] = None, shard=NULL_SHARDER,
+           path: str = "") -> None:
     """Write one layer's cache ``entry`` at repeat ``r`` of its unit's
     stacked ``[reps, ...]`` leaves (allocated at first use).  With
     ``slots``, axis 1 of every leaf (the sequence) is zero-padded to that
-    many slots."""
+    many slots.  Under a mesh the leaves are DTensors placed by
+    ``specs.cache_spec`` (``path`` is the unit's path in the cache tree)
+    and each rank writes its shard."""
     for name, t in entry.items():
         if name not in unit_c:
             shape = list(t.shape)
             if slots is not None:
                 shape[1] = slots
-            unit_c[name] = t.new_zeros([reps] + shape)
-        if slots is None:
+            unit_c[name] = _zeros(shard, f"{path}/{name}", [reps] + shape, t)
+        if shard.mesh is not None:
+            calls.store(shard, unit_c[name], r, t, slots=slots is not None)
+        elif slots is None:
             unit_c[name][r] = t
         else:
             unit_c[name][r, :, :t.shape[1]] = t
 
 
+def _zeros(shard, path: str, shape: list, like: torch.Tensor):
+    """A zero cache leaf: a plain tensor, or under a mesh a DTensor placed
+    by ``specs.cache_spec``."""
+    if shard.mesh is None:
+        return like.new_zeros(shape)
+    import torch.distributed.tensor as dt
+
+    return dt.zeros(shape, dtype=like.dtype, device_mesh=shard.mesh,
+                    placements=placements(cache_spec(path, tuple(shape),
+                                                     shard.mesh),
+                                          shard.mesh))
+
+
+def _check_window(cfg: ArchConfig, max_seq: int) -> None:
+    for stage in build_plan(cfg):
+        for spec in stage.unit:
+            if spec.mixer == "local" and max_seq > _window(cfg, spec):
+                raise ValueError(
+                    f"{cfg.arch_id}: max_seq={max_seq} exceeds the local "
+                    f"attention window {_window(cfg, spec)}; the window's "
+                    f"cache has no slot past it")
+
+
 def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             max_seq: int, patches: Optional[torch.Tensor] = None,
             enc_frames: Optional[torch.Tensor] = None,
-            backend: str = "kernel",
+            backend: str = "kernel", shard=NULL_SHARDER,
             dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE):
     """Run the prompt, return (last-token logits [B,V], caches).
 
@@ -472,48 +542,82 @@ def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
         raise ValueError(
             f"max_seq={max_seq} smaller than prompt length {S} (includes "
             f"patch prefix)")
-    for stage in build_plan(cfg):
-        for spec in stage.unit:
-            if spec.mixer == "local" and max_seq > _window(cfg, spec):
-                raise ValueError(
-                    f"{cfg.arch_id}: max_seq={max_seq} exceeds the local "
-                    f"attention window {_window(cfg, spec)}; the window's "
-                    f"cache has no slot past it")
-    x = _inputs(params, tokens, patches, dtype)
+    _check_window(cfg, max_seq)
+    x = shard.activations(_inputs(params, tokens, patches, dtype))
     positions = torch.arange(S, device=tokens.device)
     enc_out = None
     if cfg.encoder is not None and enc_frames is not None:
         enc_out = _encode(cfg, params, enc_frames, backend=backend,
-                          dtype=dtype)
+                          shard=shard, dtype=dtype)
     caches: Dict = {}
     for spec, sk, uk, r, reps, p in _layers(cfg, params):
         unit_c = caches.setdefault(sk, {}).setdefault(uk, {})
-        h = apply_norm(p["norm1"], x, cfg.norm)
-        mix, entry = _mix(cfg, spec, p, h, positions, backend, dtype)
+        x, entry, enc_kv, _ = _layer(cfg, spec, p, x, enc_out, positions,
+                                     backend, dtype, shard)
+        slots = None
         if spec.mixer in ("gqa", "local"):
             # S <= max_seq <= window: the JAX package's ring of `window`
             # slots holds position t at slot t, as the padded cache does
-            _store(unit_c, entry, r, reps,
-                   slots=_window(cfg, spec) or max_seq)
+            slots = _window(cfg, spec) or max_seq
         elif spec.mixer == "mla":
-            _store(unit_c, entry, r, reps, slots=max_seq)
-        else:
-            _store(unit_c, entry, r, reps)
-        x = x + mix
-        if spec.cross and enc_out is not None:
-            enc_kv = attn.cross_kv(p["cross"], enc_out, dtype)
-            x = _cross(cfg, p, x, enc_kv, backend, dtype)
-            _store(unit_c.setdefault("cross", {}), enc_kv, r, reps)
-        if spec.ffn != "none":
-            x = x + _ffn(cfg, spec, p, x, dtype)[0]
+            slots = max_seq
+        _store(unit_c, entry, r, reps, slots, shard, f"{sk}/{uk}")
+        if enc_kv is not None:
+            _store(unit_c.setdefault("cross", {}), enc_kv, r, reps,
+                   shard=shard, path=f"{sk}/{uk}/cross")
     # the head is applied to the last position only, as in the JAX package
     last = apply_norm(params["final_norm"], x[:, -1, :], cfg.norm)
     return _head(cfg, params, last, dtype), caches
 
 
+def _decode_layer(cfg: ArchConfig, spec: LayerSpec, p: Dict, c: Dict,
+                  x: torch.Tensor, lengths: torch.Tensor, backend: str,
+                  dtype, shard=NULL_SHARDER) -> torch.Tensor:
+    """One layer of a decode step on [B, D]; ``c`` holds the layer's cache
+    entries (views of the stacked leaves), updated in place."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    if spec.mixer in ("gqa", "local"):
+        mix, _ = attn.gqa_decode(
+            p["mixer"], h, {"k": c["k"], "v": c["v"]}, lengths,
+            rope_theta=cfg.rope_theta, window=_window(cfg, spec),
+            backend=backend, shard=shard, dtype=dtype)
+    elif spec.mixer == "mla":
+        mix, _ = mla_mod.mla_decode(
+            p["mixer"], h, {"c_kv": c["c_kv"], "k_rope": c["k_rope"]},
+            lengths, cfg.mla, rope_theta=cfg.rope_theta, shard=shard,
+            dtype=dtype)
+    else:
+        state = {name: t for name, t in c.items() if name != "cross"}
+        if spec.mixer == "ssd":
+            mix, new = ssm_mod.mamba2_decode(p["mixer"], h, state, cfg.ssm,
+                                             shard=shard, dtype=dtype)
+        else:
+            mix, new = rglru_mod.rglru_block_decode(
+                p["mixer"], h, state, cfg.rglru, shard=shard, dtype=dtype)
+        for name, t in new.items():
+            if shard.mesh is not None:
+                t = t.redistribute(state[name].device_mesh,
+                                   state[name].placements)
+            state[name].copy_(t)
+    x = x + mix
+    if spec.cross and "cross" in c:
+        x = _cross(cfg, p, x[:, None, :], c["cross"], backend, dtype,
+                   shard)[:, 0]
+    if spec.ffn != "none":
+        # one token a row: the MoE dispatches it as a sequence of one
+        x = x + _ffn(cfg, spec, p, x[:, None, :], dtype, shard)[0][:, 0]
+    return x
+
+
+def _repeat(c, r: int):
+    """Repeat ``r``'s views of a unit's stacked cache leaves."""
+    return {name: (_repeat(t, r) if isinstance(t, dict) else t[r])
+            for name, t in c.items()}
+
+
 def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
                 caches: Dict, lengths: torch.Tensor, *,
-                backend: str = "kernel",
+                backend: str = "kernel", shard=NULL_SHARDER,
                 dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE):
     """One token for every sequence in the batch: (logits [B,V], caches).
 
@@ -522,39 +626,76 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
     cross-attention layer attends to the encoder's keys and values that
     the prefill cached, where it cached them.
     """
-    x = embed(params["embed"], token, dtype)                  # [B,D]
+    x = shard.decode_activations(embed(params["embed"], token, dtype))
     for spec, sk, uk, r, _, p in _layers(cfg, params):
-        c = caches[sk][uk]
-        h = apply_norm(p["norm1"], x, cfg.norm)
-        if spec.mixer in ("gqa", "local"):
-            mix, _ = attn.gqa_decode(
-                p["mixer"], h, {"k": c["k"][r], "v": c["v"][r]}, lengths,
-                rope_theta=cfg.rope_theta, window=_window(cfg, spec),
-                backend=backend, dtype=dtype)
-        elif spec.mixer == "mla":
-            mix, _ = mla_mod.mla_decode(
-                p["mixer"], h, {"c_kv": c["c_kv"][r],
-                                "k_rope": c["k_rope"][r]}, lengths, cfg.mla,
-                rope_theta=cfg.rope_theta, dtype=dtype)
-        else:
-            state = {name: t[r] for name, t in c.items()}
-            if spec.mixer == "ssd":
-                mix, new = ssm_mod.mamba2_decode(p["mixer"], h, state,
-                                                 cfg.ssm, dtype=dtype)
-            else:
-                mix, new = rglru_mod.rglru_block_decode(
-                    p["mixer"], h, state, cfg.rglru, dtype=dtype)
-            for name, t in new.items():
-                state[name].copy_(t)
-        x = x + mix
-        if spec.cross and "cross" in c:
-            enc_kv = {name: t[r] for name, t in c["cross"].items()}
-            x = _cross(cfg, p, x[:, None, :], enc_kv, backend, dtype)[:, 0]
-        if spec.ffn != "none":
-            # one token a row: the MoE dispatches it as a sequence of one
-            x = x + _ffn(cfg, spec, p, x[:, None, :], dtype)[0][:, 0]
+        x = _decode_layer(cfg, spec, p, _repeat(caches[sk][uk], r), x,
+                          lengths, backend, dtype, shard)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _head(cfg, params, x, dtype), caches
+
+
+# ============================================================ unit probes
+def _cache_entry(cfg: ArchConfig, spec: LayerSpec, entry: Dict,
+                 max_seq: Optional[int]) -> Dict:
+    """A layer's cache entry as the reference's ``_ring_or_pad_kv`` /
+    ``_pad_mla`` leave it: none without ``max_seq``; attention keys and
+    values padded to ``max_seq`` slots, or a local layer's last ``window``
+    positions in their ring slots; MLA's latent and rope key padded."""
+    if spec.mixer not in ("gqa", "local", "mla"):
+        return entry
+    if max_seq is None:
+        return {}
+    out = {}
+    for name, a in entry.items():
+        S, W = a.shape[1], _window(cfg, spec)
+        if W:
+            n = min(S, W)
+            a = a[:, S - n:]
+            if n < W:
+                a = torch.cat([a, a.new_zeros((a.shape[0], W - n)
+                                              + tuple(a.shape[2:]))], 1)
+            out[name] = torch.roll(a, shifts=S % W if S > W else 0, dims=1)
+        elif max_seq > S:
+            out[name] = torch.cat([a, a.new_zeros(
+                (a.shape[0], max_seq - S) + tuple(a.shape[2:]))], 1)
+        else:
+            out[name] = a
+    return out
+
+
+def apply_unit(cfg: ArchConfig, stage: Stage, repeat_p: Dict,
+               x: torch.Tensor, *, enc_out=None, positions=None,
+               max_seq: Optional[int] = None, backend: str = "kernel",
+               shard=NULL_SHARDER,
+               dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> Tuple:
+    """One repeat of a stage's unit (``repro.models.lm.apply_unit``, the
+    reference's scan body): (x, cache entries by unit key, aux)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    entries: Dict = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for ui, spec in enumerate(stage.unit):
+        x, entry, enc_kv, a = _layer(cfg, spec, repeat_p[f"u{ui}"], x,
+                                     enc_out, positions, backend, dtype,
+                                     shard)
+        entries[f"u{ui}"] = _cache_entry(cfg, spec, entry, max_seq)
+        if enc_kv is not None:
+            entries[f"u{ui}"]["cross"] = enc_kv
+        if a is not None:
+            aux = aux + a
+    return x, entries, aux
+
+
+def decode_unit(cfg: ArchConfig, stage: Stage, repeat_p: Dict,
+                repeat_c: Dict, x: torch.Tensor, lengths: torch.Tensor, *,
+                backend: str = "kernel", shard=NULL_SHARDER,
+                dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> Tuple:
+    """One repeat of a stage's unit in decode mode (``repro.models.lm.
+    decode_unit``): (x, the unit's cache entries, updated in place)."""
+    for ui, spec in enumerate(stage.unit):
+        x = _decode_layer(cfg, spec, repeat_p[f"u{ui}"], repeat_c[f"u{ui}"],
+                          x, lengths, backend, dtype, shard)
+    return x, repeat_c
 
 
 # =============================================================== training
@@ -562,7 +703,7 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             patches: Optional[torch.Tensor] = None,
             enc_frames: Optional[torch.Tensor] = None,
             return_hidden: bool = False, remat: bool = False,
-            backend: str = "kernel",
+            backend: str = "kernel", shard=NULL_SHARDER,
             dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE) -> Tuple:
     """The whole sequence, no cache (``repro.models.lm.forward``): (logits
     [B,S,V] -- or the final hidden states [B,S,D] if ``return_hidden``,
@@ -575,24 +716,18 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on
     the reference's scan body; here per layer, not per unit).
     """
-    x = _inputs(params, tokens, patches, dtype)
+    x = shard.activations(_inputs(params, tokens, patches, dtype))
     positions = torch.arange(x.shape[1], device=tokens.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     enc_out = None
     if cfg.encoder is not None and enc_frames is not None:
         enc_out = _encode(cfg, params, enc_frames, remat=remat,
-                          backend=backend, dtype=dtype)
+                          backend=backend, shard=shard, dtype=dtype)
 
     def layer(spec, p, x, enc_out):
-        h = apply_norm(p["norm1"], x, cfg.norm)
-        x = x + _mix(cfg, spec, p, h, positions, backend, dtype)[0]
-        if spec.cross and enc_out is not None:
-            x = _cross(cfg, p, x, attn.cross_kv(p["cross"], enc_out, dtype),
-                       backend, dtype)
-        if spec.ffn == "none":
-            return x, None
-        y, a = _ffn(cfg, spec, p, x, dtype)
-        return x + y, a
+        x, _, _, a = _layer(cfg, spec, p, x, enc_out, positions, backend,
+                            dtype, shard)
+        return x, a
 
     for spec, _, _, _, _, p in _layers(cfg, params):
         if remat:
@@ -604,18 +739,21 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, aux
-    return _head(cfg, params, x, dtype), aux
+    return shard.logits(_head(cfg, params, x, dtype)), aux
 
 
 def _nll_chunk(x, table, transpose: bool, targets, vocab: int, start: int,
                chunk: int, m, se, tl, dtype):
     """One vocabulary chunk of :func:`_chunked_nll`: its logits, then the
     running max ``m``, sum of exponentials ``se`` and target logit
-    ``tl``."""
+    ``tl``.  Under a mesh each rank's logits hold whole rows (the chunk's
+    columns unsharded) for the target's gather."""
     if transpose:
-        logits = x @ cast(table[start:start + chunk], dtype).T
+        logits = mm(x, cast(table[start:start + chunk], dtype).T,
+                    shard_out=False)
     else:
-        logits = x @ cast(table[:, start:start + chunk], dtype)
+        logits = mm(x, cast(table[:, start:start + chunk], dtype),
+                    shard_out=False)
     logits = logits.float()
     width = logits.shape[-1]
     cols = start + torch.arange(width, device=x.device)
@@ -666,7 +804,7 @@ def _chunked_nll(x: torch.Tensor, table: torch.Tensor, transpose: bool,
 
 
 def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *,
-            backend: str = "kernel", remat: bool = False,
+            backend: str = "kernel", shard=NULL_SHARDER, remat: bool = False,
             aux_coef: float = 0.01, z_coef: float = 1e-4,
             dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE
             ) -> Tuple[torch.Tensor, Dict]:
@@ -677,7 +815,8 @@ def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *,
     tokens, patches = batch["tokens"], batch.get("patches")
     hidden, aux = forward(cfg, params, tokens, patches=patches,
                           enc_frames=batch.get("frames"), return_hidden=True,
-                          remat=remat, backend=backend, dtype=dtype)
+                          remat=remat, backend=backend, shard=shard,
+                          dtype=dtype)
     n_prefix = 0 if patches is None else patches.shape[1]
     x = hidden[:, n_prefix:-1, :]
     targets = tokens[:, 1:]

@@ -16,6 +16,12 @@ reduced configs' qk 48 with v 32 as (64, 32)), on every device; with the
 scale passed explicitly, the padding leaves every score unchanged.  A
 shape with no such pair is not padded, and the kernel refuses it on the
 card.
+
+Under a mesh the latent KV and rope key are gathered across ``model``
+(``replicate_seq``) before the expansion and flash runs on each rank's
+queries (:mod:`repro_torch.sharding.calls`); the absorbed decode's
+products run as DTensor ops over the sequence-sharded compressed cache,
+the token written by the rank that holds its slot.
 """
 
 from __future__ import annotations
@@ -28,8 +34,10 @@ from ..configs.base import MLAConfig
 from ..kernels import ops
 from ..kernels.flash_attention import HEAD_DIMS
 from ..kernels.flash_attention_bwd import HEAD_DIMS as BWD_HEAD_DIMS
-from .attention import _proj
-from .layers import DEFAULT_COMPUTE_DTYPE, apply_norm, apply_rope, cast
+from ..sharding import calls
+from ..sharding.annotate import NULL_SHARDER
+from .attention import _proj, _unproj
+from .layers import DEFAULT_COMPUTE_DTYPE, apply_norm, apply_rope, cast, mm
 
 
 def padded_qk_dim(qk_dim: int, v_dim: int) -> int:
@@ -44,7 +52,7 @@ def padded_qk_dim(qk_dim: int, v_dim: int) -> int:
 def _queries(p: Dict, x: torch.Tensor, m: MLAConfig, rope_theta: float,
              positions: torch.Tensor, dtype) -> Tuple:
     if "wdq" in p:
-        cq = apply_norm(p["q_norm"], x @ cast(p["wdq"], dtype))
+        cq = apply_norm(p["q_norm"], mm(x, cast(p["wdq"], dtype)))
         q = _proj(cq, cast(p["wuq"], dtype))
     else:
         q = _proj(x, cast(p["wq"], dtype))
@@ -61,6 +69,7 @@ def mla_apply(
     rope_theta: float,
     positions: Optional[torch.Tensor] = None,
     backend: str = "kernel",
+    shard=NULL_SHARDER,
     dtype=DEFAULT_COMPUTE_DTYPE,
 ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence MLA (naive expansion).  Returns (out [B,S,D], cache
@@ -70,9 +79,11 @@ def mla_apply(
         else torch.arange(S, device=x.device)
     q_nope, q_rope = _queries(p, x, m, rope_theta, pos, dtype)
 
-    c_kv = apply_norm(p["kv_norm"], x @ cast(p["wdkv"], dtype))   # [B,S,R]
-    k_rope = apply_rope((x @ cast(p["wkr"], dtype))[:, :, None, :],
+    c_kv = apply_norm(p["kv_norm"], mm(x, cast(p["wdkv"], dtype)))  # [B,S,R]
+    k_rope = apply_rope(mm(x, cast(p["wkr"], dtype))[:, :, None, :],
                         pos, rope_theta)                          # [B,S,1,r]
+    c_kv = shard.replicate_seq(c_kv)
+    k_rope = shard.replicate_seq(k_rope)
     k_nope = _proj(c_kv, cast(p["wuk"], dtype))
     v = _proj(c_kv, cast(p["wuv"], dtype))
 
@@ -83,9 +94,13 @@ def mla_apply(
     q = torch.cat([q_nope, q_rope, zeros], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_dim), zeros],
                   dim=-1)
-    o = ops.flash_attention(q, k, v.contiguous(), mask_kind="causal",
-                            scale=qk_dim ** -0.5, backend=backend)
-    y = o.flatten(-2) @ cast(p["wo"], dtype).flatten(0, 1)
+    if shard.mesh is not None:
+        o = calls.flash_attention(shard, q, k, v, mask_kind="causal",
+                                  scale=qk_dim ** -0.5, backend=backend)
+    else:
+        o = ops.flash_attention(q, k, v.contiguous(), mask_kind="causal",
+                                scale=qk_dim ** -0.5, backend=backend)
+    y = _unproj(o, cast(p["wo"], dtype))
     return y, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
 
 
@@ -97,6 +112,7 @@ def mla_decode(
     m: MLAConfig,
     *,
     rope_theta: float,
+    shard=NULL_SHARDER,
     dtype=DEFAULT_COMPUTE_DTYPE,
 ) -> Tuple[torch.Tensor, Dict]:
     """Absorbed-matmul MLA decode on the compressed cache.
@@ -110,14 +126,18 @@ def mla_decode(
     q_nope, q_rope = _queries(p, x[:, None, :], m, rope_theta, pos, dtype)
     q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]              # [B,H,*]
 
-    c_t = apply_norm(p["kv_norm"], x @ cast(p["wdkv"], dtype))     # [B,R]
-    kr_t = apply_rope((x @ cast(p["wkr"], dtype))[:, None, None, :],
+    c_t = apply_norm(p["kv_norm"], mm(x, cast(p["wdkv"], dtype)))  # [B,R]
+    kr_t = apply_rope(mm(x, cast(p["wkr"], dtype))[:, None, None, :],
                       pos, rope_theta)[:, 0, 0]                     # [B,r]
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
-    bidx = torch.arange(B, device=x.device)
     slot = length.long()
-    c_cache[bidx, slot] = c_t.to(c_cache.dtype)
-    r_cache[bidx, slot] = kr_t.to(r_cache.dtype)
+    if shard.mesh is not None:
+        calls.write_token(shard, c_cache, c_t, slot)
+        calls.write_token(shard, r_cache, kr_t, slot)
+    else:
+        bidx = torch.arange(B, device=x.device)
+        c_cache[bidx, slot] = c_t.to(c_cache.dtype)
+        r_cache[bidx, slot] = kr_t.to(r_cache.dtype)
 
     # absorb W_uk into the query: q_lat [B,H,R]
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope, cast(p["wuk"], dtype))
@@ -132,5 +152,5 @@ def mla_decode(
     probs = torch.softmax(logits, dim=-1).to(dtype)
     ctx = torch.einsum("bhs,bsr->bhr", probs, c_cache)       # [B,H,R]
     o = torch.einsum("bhr,rhk->bhk", ctx, cast(p["wuv"], dtype))
-    y = o.flatten(1) @ cast(p["wo"], dtype).flatten(0, 1)
+    y = _unproj(o[:, None], cast(p["wo"], dtype))[:, 0]
     return y, cache

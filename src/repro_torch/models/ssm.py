@@ -5,6 +5,10 @@ The SSD scan itself is :func:`repro_torch.kernels.ops.ssd` (the CUDA
 kernel on the card, its plain chunked version on the CPU).  Weights keep
 the JAX package's separate x/B/C/dt/gate projections and shapes, so the
 weight bridge copies them unchanged.
+
+Under a mesh the reference's hooks apply (``weight_for_batch`` on every
+weight, ``channels`` on the x projection) and the scan and its decode
+step run on each rank's heads (:mod:`repro_torch.sharding.calls`).
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import torch.nn.functional as F
 
 from ..configs.base import SSMConfig
 from ..kernels import ops
+from ..sharding import calls
+from ..sharding.annotate import NULL_SHARDER, splittable
 from .layers import DEFAULT_COMPUTE_DTYPE, apply_norm, cast
 
 
@@ -42,39 +48,45 @@ def mamba2_apply(
     *,
     backend: str = "kernel",
     initial_state: Optional[Dict] = None,
+    shard=NULL_SHARDER,
     dtype=DEFAULT_COMPUTE_DTYPE,
 ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence mamba2 mixer.  Returns (out, state dict)."""
     B, S, _ = x.shape
     heads = _heads(s)
-    gate = x @ cast(p["w_gate"], dtype)
-    xs_r = x @ cast(p["w_x"], dtype)
-    b_r = x @ cast(p["w_b"], dtype)
-    c_r = x @ cast(p["w_c"], dtype)
-    dt_r = x @ cast(p["w_dt"], dtype)
+
+    def wcast(w):
+        return shard.weight_for_batch(cast(w, dtype), B)
+
+    gate = x @ wcast(p["w_gate"])
+    xs_r = shard.channels(x @ wcast(p["w_x"]))  # d_inner (=heads) over model
+    b_r = x @ wcast(p["w_b"])
+    c_r = x @ wcast(p["w_c"])
+    dt_r = x @ wcast(p["w_dt"])
 
     prev = initial_state if initial_state else {}
-    xs_c, conv_x = _causal_conv(cast(p["conv_x_w"], dtype),
-                                cast(p["conv_x_b"], dtype), xs_r,
-                                prev.get("conv_x"))
-    b_c, conv_b = _causal_conv(cast(p["conv_b_w"], dtype),
-                               cast(p["conv_b_b"], dtype), b_r,
-                               prev.get("conv_b"))
-    c_c, conv_c = _causal_conv(cast(p["conv_c_w"], dtype),
-                               cast(p["conv_c_b"], dtype), c_r,
-                               prev.get("conv_c"))
+    xs_c, conv_x = _causal_conv(wcast(p["conv_x_w"]), wcast(p["conv_x_b"]),
+                                xs_r, prev.get("conv_x"))
+    b_c, conv_b = _causal_conv(wcast(p["conv_b_w"]), wcast(p["conv_b_b"]),
+                               b_r, prev.get("conv_b"))
+    c_c, conv_c = _causal_conv(wcast(p["conv_c_w"]), wcast(p["conv_c_b"]),
+                               c_r, prev.get("conv_c"))
 
-    xs = xs_c.reshape(B, S, heads, s.head_dim)
-    Bmat = b_c.reshape(B, S, s.n_groups, s.state_dim)
-    Cmat = c_c.reshape(B, S, s.n_groups, s.state_dim)
+    xs = splittable(xs_c, 2, heads).reshape(B, S, heads, s.head_dim)
+    Bmat = splittable(b_c, 2, s.n_groups).reshape(B, S, s.n_groups,
+                                                  s.state_dim)
+    Cmat = splittable(c_c, 2, s.n_groups).reshape(B, S, s.n_groups,
+                                                  s.state_dim)
     dt = F.softplus(dt_r.float() + p["dt_bias"])
     A = -torch.exp(p["a_log"].float())
-    y, hT = ops.ssd(xs, dt, A, Bmat, Cmat, chunk=s.chunk,
-                    initial_state=prev.get("ssm"), backend=backend)
+    scan = ops.ssd if shard.mesh is None else \
+        (lambda *a, **k: calls.ssd(shard, *a, **k))
+    y, hT = scan(xs, dt, A, Bmat, Cmat, chunk=s.chunk,
+                 initial_state=prev.get("ssm"), backend=backend)
     y = y + xs * cast(p["d_skip"], dtype)[None, None, :, None]
     y = y.reshape(B, S, s.d_inner)
     y = apply_norm(p["gate_norm"], y) * F.silu(gate)
-    out = y @ cast(p["out_proj"], dtype)
+    out = y @ wcast(p["out_proj"])
     return out, {"ssm": hT, "conv_x": conv_x, "conv_b": conv_b,
                  "conv_c": conv_c}
 
@@ -85,6 +97,7 @@ def mamba2_decode(
     state: Dict,
     s: SSMConfig,
     *,
+    shard=NULL_SHARDER,
     dtype=DEFAULT_COMPUTE_DTYPE,
 ) -> Tuple[torch.Tensor, Dict]:
     """One token.  Returns (out [B, D], new state dict)."""
@@ -108,12 +121,14 @@ def mamba2_decode(
     c_c, conv_c = conv_step(p["conv_c_w"], p["conv_c_b"], c_r,
                             state["conv_c"])
 
-    xs = xs_c.reshape(B, heads, s.head_dim)
-    Bvec = b_c.reshape(B, s.n_groups, s.state_dim)
-    Cvec = c_c.reshape(B, s.n_groups, s.state_dim)
+    xs = splittable(xs_c, 1, heads).reshape(B, heads, s.head_dim)
+    Bvec = splittable(b_c, 1, s.n_groups).reshape(B, s.n_groups, s.state_dim)
+    Cvec = splittable(c_c, 1, s.n_groups).reshape(B, s.n_groups, s.state_dim)
     dt = F.softplus(dt_r.float() + p["dt_bias"])
     A = -torch.exp(p["a_log"].float())
-    y, new_ssm = ops.ssd_decode_step(xs, dt, A, Bvec, Cvec, state["ssm"])
+    step = ops.ssd_decode_step if shard.mesh is None else \
+        (lambda *a: calls.ssd_decode_step(shard, *a))
+    y, new_ssm = step(xs, dt, A, Bvec, Cvec, state["ssm"])
     y = y + xs * cast(p["d_skip"], dtype)[None, :, None]
     y = y.reshape(B, s.d_inner)
     y = apply_norm(p["gate_norm"], y) * F.silu(gate)

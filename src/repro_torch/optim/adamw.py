@@ -56,8 +56,8 @@ def schedule_lr(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init(params) -> Dict:
     """Zero ``m`` and ``v`` in fp32 beside every leaf, ``step`` 0."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):      # a DTensor's beside it is placed as it is
+        return torch.zeros_like(p, dtype=torch.float32)
 
     dev = leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),

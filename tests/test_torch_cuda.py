@@ -1315,3 +1315,163 @@ def test_quickstart_runs_on_the_card(gen):
     counts = ops.launch_counts()
     assert counts["flash_attention"] == counts["flash_attention_bwd"] \
         == 12 * get_arch("yi-6b").reduced().n_layers
+
+
+# ---------------------------------------------------------------- sharding
+@pytest.mark.parametrize("lens", [[1, 300, 777, 1096], [0, 5, 0, 9]])
+def test_decode_lse_matches_plain_and_leaves_out_bitwise(gen, lens):
+    """The decode kernel's lse against its plain version (-inf exactly at
+    length 0), and ``out`` bitwise the same with the lse and without."""
+    q = _randn(gen, 4, 32, 128)
+    kc, vc = _randn(gen, 4, 1096, 4, 128), _randn(gen, 4, 1096, 4, 128)
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = decode_attention_cuda(q, kc, vc, length)
+    got, lse = decode_attention_cuda(q, kc, vc, length, return_lse=True)
+    _, want = decode_attention_plain(q.float(), kc.float(), vc.float(),
+                                     length, return_lse=True)
+    assert torch.equal(got, out)
+    empty = (length == 0)[:, None].expand_as(lse)
+    assert bool((torch.isneginf(lse) == empty).all())
+    _close(lse[~empty], want[~empty])
+    assert not bool(decode_counters(q.device).any())
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh of one NCCL rank (a HashStore: no
+    port opened)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield make_test_mesh((1, 1), device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_a_dtensor_reaching_a_kernel_raises(gen, one_rank_mesh):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    q = distribute_tensor(_randn(gen, 1, 64, 2, 64), one_rank_mesh,
+                          [Replicate(), Replicate()])
+    with pytest.raises(TypeError, match="DTensor"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(TypeError, match="local_map"):
+        ops.flash_attention(q, q, q)
+
+
+def _serve(cfg, params, prompt, mesh, steps_):
+    """Prefill and two decode steps through build_step: the logits."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.sharding.specs import placements
+
+    B, S = prompt.shape
+    pre = steps_.build_step(cfg, InputShape("p", S + 8, B, "prefill"),
+                            mesh=mesh).fn
+    dec = steps_.build_step(cfg, InputShape("d", S + 8, B, "decode"),
+                            mesh=mesh).fn
+    batch = {"tokens": prompt}
+    if mesh is not None:
+        params = steps_.place(params, mesh)
+        batch = steps_.place(batch, mesh,
+                             steps_.batch_specs(cfg, batch, mesh))
+    logits, caches = pre(params, batch)
+    outs = [logits]
+    n = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    tok = prompt[:, -1]
+    for i in range(2):
+        t, m = tok, n + i
+        if mesh is not None:
+            pl = placements(steps_.token_spec(B, mesh), mesh)
+            t, m = distribute_tensor(t, mesh, pl), distribute_tensor(m, mesh,
+                                                                     pl)
+        logits, caches = dec(params, t, caches, m)
+        outs.append(logits)
+        tok = (logits.full_tensor() if mesh is not None else logits) \
+            .argmax(-1)
+    torch.cuda.synchronize()
+    return [o.full_tensor() if mesh is not None else o for o in outs]
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-2.7b",
+                                  "recurrentgemma-2b"])
+def test_one_rank_sharded_serving_is_the_unsharded_bitwise(gen, arch,
+                                                           one_rank_mesh):
+    """Reduced configs on the (1, 1) mesh: the sharded prefill and decode
+    steps run the kernels inside local_map (counts > 0) and give the
+    unsharded steps' bits."""
+    from repro_torch.launch import steps as steps_
+
+    cfg = get_arch(arch).reduced()
+    params = lm.init(cfg, seed=0, device="cuda", stacked=True)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                           device="cuda")
+    want = _serve(cfg, params, prompt, None, steps_)
+    ops.reset_launch_counts()
+    got = _serve(cfg, params, prompt, one_rank_mesh, steps_)
+    counts = ops.launch_counts()
+    mixers = {"yi-6b": ("flash_attention", "decode_attention"),
+              "mamba2-2.7b": ("ssd_scan",),
+              "recurrentgemma-2b": ("flash_attention", "decode_attention",
+                                    "rglru_scan")}[arch]
+    assert all(counts[k] > 0 for k in mixers), counts
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _two_rank_worker(rank: int, port: int, result) -> None:
+    """One of two NCCL ranks: reduced yi-6b served on a (1, 2) mesh (the
+    sequence of the prompt and of the cache over ``model``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps as steps_
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2,
+                            device_id=torch.device("cuda", rank))
+    try:
+        cfg = get_arch("yi-6b").reduced()
+        params = lm.init(cfg, seed=0, device="cuda", stacked=True)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                               device="cuda")
+        got = _serve(cfg, params, prompt, make_test_mesh(
+            (1, 2), device_type="cuda"), steps_)
+        want = _serve(cfg, params, prompt, None, steps_)
+        errs = [float(((a.float() - b.float()).norm() / b.float().norm()))
+                for a, b in zip(got, want)]
+        if rank == 0:
+            result.put(errs)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_rank_sharded_serving_matches_unsharded():
+    """Two NCCL ranks on two cards; skips on a machine with fewer."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    result = ctx.Queue()
+    mp.start_processes(_two_rank_worker, args=(port, result), nprocs=2,
+                       join=True, start_method="spawn")
+    errs = result.get(timeout=60)
+    # bf16 serving, slices combined by log-sum-exp in fp32: PERF.md's
+    # model bound
+    assert max(errs) <= 5e-2, errs

@@ -414,7 +414,7 @@ def test_train_step_matches_the_reference(M, monkeypatch):
 
 
 def test_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_train_step(t_get_arch("yi-6b").reduced(),
                          TInputShape("t", S, 4, "train"), mesh=object())
 
