@@ -188,6 +188,21 @@ ends the script with a non-zero exit and no result line:
               layer and step).  The kernel phase checks (32, 32) and
               (64, 32) flash, their backward and (32, 32) decode at the
               reduced paths' shapes, with the others.
+11. benchmarks -- the paper's benchmarks and the cluster example, each in
+              a subprocess with the checkout's ``src`` alone on the path
+              and a temporary working directory (no package of the
+              reference importable): ``python -m
+              repro_torch.benchmarks.run --no-cache`` at full size, every
+              module (the DES ones on the host, the executor rows on
+              ``cuda``, the roofline reading a dry-run record or saying it
+              found none): exit 0, no ``ERROR`` row, rows from every
+              module, the executor's rows its four policies and
+              ``srtf+ewma`` for both workloads and the note; ``--machine
+              des --subset 2 --no-cache`` under ``--engine python`` and
+              ``--engine compiled``: equal rows once ``us_per_call`` is
+              dropped; ``python -m repro_torch.examples.cluster_sim`` at
+              its defaults: exit 0 and its four policy lines.  Rows are
+              printed on ``[bench]`` lines.
 
 The line before the last is a JSON object with one entry per kernel and
 timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's,
@@ -212,6 +227,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2240,6 +2256,101 @@ def phase_executor_sweep() -> None:
              f"cache)")
 
 
+#: Each module of ``repro_torch.benchmarks.run`` and its rows' prefixes.
+BENCH_ROWS = {
+    "fig01_fifo_luck": ("fig01.",),
+    "fig03_staircase_trace": ("fig03.", "fig05."),
+    "fig04_prediction_accuracy": ("fig04.",),
+    "fig06_block_durations": ("fig06.",),
+    "fig07_residency": ("fig07.", "fig08."),
+    "fig09_corunner": ("fig09.", "fig10."),
+    "fig11_ss_predictor": ("fig11.",),
+    "table5_policies": ("table5.",),
+    "fig14_15_16_per_workload": ("fig14.", "fig15.", "fig16."),
+    "table6_arrival_offsets": ("table6.",),
+    "scenarios_openloop": ("scenarios.",),
+    "closedloop": ("closedloop.",),
+    "executor_policies": ("executor.",),
+    "roofline": ("roofline.",),
+}
+
+
+def bench_run(cwd: str, *args: str) -> tuple:
+    """``python -m <args>`` in ``cwd`` with the checkout's ``src`` alone on
+    the path: its stdout lines, after a zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          capture_output=True, text=True, timeout=600)
+    print(f"[bench] python -m {' '.join(args)}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if proc.returncode != 0:
+        fail(f"python -m {' '.join(args)} exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout.splitlines()
+
+
+def bench_rows(lines: list) -> tuple:
+    """A benchmark run's engine token and its ``(name, derived)`` rows."""
+    engine = next(line.split(" -> ")[1] for line in lines
+                  if line.startswith("# engine="))
+    body = lines[lines.index("name,us_per_call,derived") + 1:]
+    return engine, [(name, rest.split(",", 1)[1])
+                    for name, rest in (line.split(",", 1) for line in body)]
+
+
+def phase_benchmarks() -> None:
+    """The paper's benchmarks and the cluster example through their entry
+    points, each in a subprocess run from a temporary directory."""
+    import tempfile
+
+    from repro_torch.benchmarks import executor_policies
+
+    with tempfile.TemporaryDirectory() as cwd:
+        lines = bench_run(cwd, "repro_torch.benchmarks.run", "--no-cache")
+        for line in lines:
+            print(f"[bench] {line}", flush=True)
+        engine, rows = bench_rows(lines)
+        errors = [name for name, derived in rows if derived == '"ERROR"']
+        if errors:
+            fail(f"benchmarks.run: ERROR rows {errors}")
+        missing = [m for m, prefixes in BENCH_ROWS.items()
+                   if not any(n.startswith(prefixes) for n, _ in rows)]
+        if missing:
+            fail(f"benchmarks.run printed no row of {missing}")
+        workloads = [wl["name"] for wl in executor_policies.TRACE["workloads"]]
+        want = ([f"executor.{wl}.{p}" for wl in workloads
+                 for p in executor_policies.POLICY_NAMES]
+                + [f"executor.{wl}.srtf+ewma" for wl in workloads]
+                + ["executor.note"])
+        got = [n for n, _ in rows if n.startswith("executor.")]
+        if got != want:
+            fail(f"benchmarks.run's executor rows {got}, expected {want}")
+        by_engine = {}
+        for name in ("python", "compiled"):
+            lines = bench_run(cwd, "repro_torch.benchmarks.run", "--machine",
+                              "des", "--subset", "2", "--no-cache",
+                              "--engine", name)
+            by_engine[name] = bench_rows(lines)
+            print(f"[bench] --subset 2 --engine {name}: engine "
+                  f"{by_engine[name][0]}, {len(by_engine[name][1])} rows",
+                  flush=True)
+        if by_engine["python"][1] != by_engine["compiled"][1]:
+            fail("the DES rows under --engine python and --engine compiled "
+                 "differ at --subset 2")
+        if not by_engine["compiled"][0].startswith("compiled-"):
+            fail(f"--engine compiled ran {by_engine['compiled'][0]}")
+        print(f"[bench] full size under {engine}; at --subset 2 the python "
+              f"and {by_engine['compiled'][0]} engines' rows are equal",
+              flush=True)
+        lines = bench_run(cwd, "repro_torch.examples.cluster_sim")
+        for line in lines:
+            print(f"[bench] {line}", flush=True)
+        policies = [line.split()[0] for line in lines if " STP=" in line]
+        if policies != ["fifo", "mpmax", "srtf", "srtf-adaptive"]:
+            fail(f"cluster_sim printed the policies {policies}")
+
+
 def train_args(layers: int, arch: str = "yi-6b") -> list:
     """The train driver's flags for ``arch`` at ``layers`` layers: B 4 x
     1024 tokens, after the patches where the arch has them."""
@@ -2874,6 +2985,7 @@ def main() -> None:
         counts = timed("reduced", phase, *args)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
+    timed("benchmarks", phase_benchmarks)
     sources = {
         "flash_attention": "src/repro/kernels/flash_attention.py:109",
         "flash_attention_bwd":

@@ -32,11 +32,11 @@ import argparse
 from pathlib import Path
 from typing import List, Optional, Tuple, Union
 
-from ..core.metrics import WorkloadMetrics
 from ..core.predictor import DEFAULT_PREDICTOR
 from ..core.scenarios import TraceReplay
 from ..core.sweep import SweepResult, SweepSpec, run_sweep
 from ..core.workload import ERCBENCH, scaled_spec
+from .common import metric_row
 
 N_LANES = 4
 POLICY_NAMES = ("fifo", "mpmax", "srtf", "srtf-adaptive")
@@ -69,14 +69,10 @@ TRACE = {
 }
 
 
-def metric_row(prefix: str, m: WorkloadMetrics) -> Tuple[str, str]:
-    """Uniform ``name,derived`` row for an STP/ANTT/fairness triple."""
-    return (prefix,
-            f"stp={m.stp:.2f};antt={m.antt:.2f};fair={m.fairness:.2f}")
-
-
-def _scenario() -> TraceReplay:
-    return TraceReplay(trace=TRACE, specs=SPECS, name="executor-pairs")
+def _scenario(subset: Optional[int] = None) -> TraceReplay:
+    """The trace's workloads, the first ``subset`` of them if given."""
+    trace = {"workloads": TRACE["workloads"][:subset]}
+    return TraceReplay(trace=trace, specs=SPECS, name="executor-pairs")
 
 
 def overlaps(cell) -> bool:
@@ -88,13 +84,15 @@ def overlaps(cell) -> bool:
 
 
 def sweeps(device: Optional[str] = None, jobs: int = 1,
-           cache_dir: Optional[Union[str, Path]] = None
+           cache_dir: Optional[Union[str, Path]] = None,
+           subset: Optional[int] = None
            ) -> Tuple[SweepResult, SweepResult]:
     """The main sweep (every policy, default predictor) and the srtf-only
-    EWMA sweep; every block on ``device`` (``cuda`` unless asked)."""
+    EWMA sweep over the first ``subset`` workloads (all unless given);
+    every block on ``device`` (``cuda`` unless asked)."""
     def sweep(policies, predictors) -> SweepResult:
         return run_sweep(SweepSpec(
-            scenarios=(_scenario(),), policies=policies,
+            scenarios=(_scenario(subset),), policies=policies,
             predictors=predictors, machine="executor", n_sm=N_LANES,
             device=device), jobs=jobs, cache_dir=cache_dir)
 
@@ -106,8 +104,10 @@ def sweeps(device: Optional[str] = None, jobs: int = 1,
 
 def rows(result: SweepResult, ewma_result: SweepResult
          ) -> List[Tuple[str, str]]:
-    """The benchmark's ``(name, derived)`` rows of the two sweeps."""
-    workloads = [wl["name"] for wl in TRACE["workloads"]]
+    """The benchmark's ``(name, derived)`` rows of the two sweeps, for
+    the workloads that swept."""
+    workloads = [wl["name"] for wl in TRACE["workloads"]
+                 if result.select(workload=wl["name"])]
     out = []
     for wl in workloads:
         for policy in POLICY_NAMES:
@@ -132,11 +132,12 @@ def rows(result: SweepResult, ewma_result: SweepResult
 
 
 def run(device: Optional[str] = None, jobs: int = 1,
-        cache_dir: Optional[Union[str, Path]] = None
-        ) -> List[Tuple[str, str]]:
-    """The benchmark's ``(name, derived)`` rows; every block on ``device``
-    (``cuda`` unless asked)."""
-    return rows(*sweeps(device, jobs, cache_dir))
+        cache_dir: Optional[Union[str, Path]] = None,
+        subset: Optional[int] = None) -> List[Tuple[str, str]]:
+    """The benchmark's ``(name, derived)`` rows over the first ``subset``
+    workloads (all unless given); every block on ``device`` (``cuda``
+    unless asked)."""
+    return rows(*sweeps(device, jobs, cache_dir, subset))
 
 
 def main(argv=None) -> None:

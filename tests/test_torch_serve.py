@@ -22,6 +22,7 @@
 
 import ast
 import difflib
+import os
 import re
 import subprocess
 import sys
@@ -359,9 +360,17 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+#: Top-level packages the port may not import: JAX, the JAX package and the
+#: reference's benchmarks and examples (run from the repo root, a copy that
+#: imported them would test the reference instead of the port).
+REFERENCE_PACKAGES = ("jax", "jaxlib", "repro", "benchmarks", "examples")
+#: A string shaped like a module path of the reference's packages.
+REFERENCE_MODULE = re.compile(r"^(repro|benchmarks|examples)(\.\w+)+$")
+
+
+def _reference_imports(paths) -> list:
     bad = []
-    for path in _port_files():
+    for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -371,24 +380,58 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
-                    bad.append(f"{path.relative_to(ROOT)}:{node.lineno} "
-                               f"imports {name}")
+                if name.split(".")[0] in REFERENCE_PACKAGES:
+                    bad.append(f"{os.path.relpath(path, ROOT)}:{node.lineno}"
+                               f" imports {name}")
+    return bad
+
+
+def _reference_module_names(paths) -> list:
+    return [f"{os.path.relpath(path, ROOT)}:{node.lineno} {node.value!r}"
+            for path in paths
+            for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and REFERENCE_MODULE.match(node.value)]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    bad = _reference_imports(_port_files())
     assert not bad, bad
     assert len(_port_files()) > 20
 
 
 def test_port_names_no_module_of_the_jax_package():
     """No string constant of the port is shaped like a module path of the
-    JAX package (a ``-m`` argument, an ``importlib`` target): spawned
-    workers would silently run the reference."""
-    shaped = re.compile(r"^repro(\.\w+)+$")
-    bad = [f"{path.relative_to(ROOT)}:{node.lineno} {node.value!r}"
-           for path in _port_files()
-           for node in ast.walk(ast.parse(path.read_text()))
-           if isinstance(node, ast.Constant) and isinstance(node.value, str)
-           and shaped.match(node.value)]
+    JAX package or of the reference's ``benchmarks`` and ``examples`` (a
+    ``-m`` argument, an ``importlib`` target): spawned workers or the
+    benchmark driver would silently run the reference."""
+    bad = _reference_module_names(_port_files())
     assert not bad, bad
+
+
+@pytest.mark.parametrize("line,refused_by", [
+    ("import benchmarks.common", _reference_imports),
+    ("from benchmarks import common", _reference_imports),
+    ("from examples.cluster_sim import main", _reference_imports),
+    ("import jax.numpy as jnp", _reference_imports),
+    ("from repro.core import sweep", _reference_imports),
+    ("MODULE = 'benchmarks.fig01_fifo_luck'", _reference_module_names),
+    ("MODULE = 'examples.cluster_sim'", _reference_module_names),
+    ("MODULE = 'repro.core.sweep'", _reference_module_names),
+], ids=lambda v: v if isinstance(v, str) else v.__name__)
+def test_package_guards_refuse_the_references_modules(line, refused_by,
+                                                      tmp_path):
+    """Each guard flags such a line in a scratch file, and neither flags
+    the port's own modules beside it."""
+    scratch = tmp_path / "scratch.py"
+    scratch.write_text("from .common import sweep\n"
+                       "from repro_torch.benchmarks import run\n"
+                       "OWN = 'repro_torch.benchmarks.fig01_fifo_luck'\n"
+                       f"{line}\n")
+    assert len(refused_by([scratch])) == 1
+    other = _reference_module_names if refused_by is _reference_imports \
+        else _reference_imports
+    assert other([scratch]) == []
 
 
 def test_entry_points_refuse_to_run_without_a_card():
