@@ -203,6 +203,12 @@ ends the script with a non-zero exit and no result line:
               dropped; ``python -m repro_torch.examples.cluster_sim`` at
               its defaults: exit 0 and its four policy lines.  Rows are
               printed on ``[bench]`` lines.
+12. analysis -- ``python -m repro_torch.analysis --json`` over the
+              checkout (the port's core, its benchmark modules and
+              ``tests/test_torch_*.py``) in a subprocess run the same way:
+              exit 0, ``ok`` true and no blocking finding; one
+              ``[analysis]`` line with the blocking, baselined and stale
+              counts and the seconds.
 
 The line before the last is a JSON object with one entry per kernel and
 timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's,
@@ -2351,6 +2357,39 @@ def phase_benchmarks() -> None:
             fail(f"cluster_sim printed the policies {policies}")
 
 
+def phase_analysis() -> None:
+    """The static analyzer over the checkout in a subprocess run from a
+    temporary directory; stale baseline entries (keys that matched no
+    finding) are counted against the port's ``baseline.json``."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as cwd:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--json"],
+            cwd=cwd, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"python -m repro_torch.analysis exited {proc.returncode}:\n"
+             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    blocking = [f["location"] for f in report["findings"]
+                if not f["suppressed"]]
+    if not report["ok"] or blocking:
+        fail(f"the analyzer's report is not clean: ok {report['ok']}, "
+             f"blocking {blocking}")
+    seen = {f"{f['rule']}::{f['file'][:-3]}::{f['context']}"
+            for f in report["findings"]}
+    baseline = json.loads(
+        (ROOT / "src/repro_torch/analysis/baseline.json").read_text())
+    stale = sorted(e["key"] for e in baseline["entries"]
+                   if e["key"] not in seen)
+    print(f"[analysis] {len(blocking)} blocking, "
+          f"{len(report['findings']) - len(blocking)} baselined, "
+          f"{len(stale)} stale {stale} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def train_args(layers: int, arch: str = "yi-6b") -> list:
     """The train driver's flags for ``arch`` at ``layers`` layers: B 4 x
     1024 tokens, after the patches where the arch has them."""
@@ -2986,6 +3025,7 @@ def main() -> None:
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     timed("benchmarks", phase_benchmarks)
+    timed("analysis", phase_analysis)
     sources = {
         "flash_attention": "src/repro/kernels/flash_attention.py:109",
         "flash_attention_bwd":
