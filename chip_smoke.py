@@ -23,7 +23,10 @@ ends the script with a non-zero exit and no result line:
               mask), its cross attention at prefill (Sq 1024, Sk 1536) and
               in a decode step (Sq 1, where the decode kernel is timed on
               the same inputs beside it), Sq 1 over a ragged Sk and at G
-              4, and pixtral-12b's prefill (S 2048, causal).
+              4, and pixtral-12b's prefill (S 2048, causal); yi-34b's G 7
+              (56 heads over 8 of 128) at its prefill, ragged, windowed
+              and unmasked, and decode at G 7 (seven of the kernel's 16
+              rows a KV head).
               The flash backward against its plain formula (fp32) at
               yi-6b's training shape, the 100M example's, a ragged S, a
               window with q_offset and no mask with Sq != Sk; at head
@@ -36,15 +39,17 @@ ends the script with a non-zero exit and no result line:
               the wide kernels), each pair also with a ragged S and a
               q_offset and with no mask at Sq != Sk; at whisper-large-v3's
               three training shapes ((64, 64), G 1: the encoder and cross
-              attention without a mask, the decoder causal) and
-              pixtral-12b's (S 2048, causal, G 4): relative L2
+              attention without a mask, the decoder causal),
+              pixtral-12b's (S 2048, causal, G 4) and yi-34b's (G 7: an
+              odd count of a dK/dV CTA's steps), G 7 also ragged,
+              windowed and unmasked: relative L2
               of dq, dk, dv within max(2e-2, 2 x the plain formula's bf16
               floor), two launches bitwise equal, the padded columns of
               dq and dk zero, the forward's lse within
               1e-3 of the plain lse and its out unchanged by asking for
               lse; times at yi-6b's, recurrentgemma-2b's, minicpm3-4b's,
-              deepseek-v2-lite's, whisper-large-v3's three and
-              pixtral-12b's training shapes against SDPA's
+              deepseek-v2-lite's, whisper-large-v3's three,
+              pixtral-12b's and yi-34b's training shapes against SDPA's
               backward on the same inputs (and which of SDPA's kernels
               ran) and both bounds (the formula's five products at the
               function's own qk, the design's seven at the padded D), and
@@ -68,9 +73,11 @@ ends the script with a non-zero exit and no result line:
               CUDA kernels' (the scan, the reduction of d log_a).
 4. model   -- full-width yi-6b, mamba2-2.7b, recurrentgemma-2b, minicpm3-4b,
               deepseek-v2-lite-16b, whisper-large-v3 (prefill with 1536
-              frames: the encoder, then the cross keys and values cached)
-              and pixtral-12b (prefill with 1024 patches before the
-              prompt) in bf16 (random weights from a seed): prefill and 4
+              frames: the encoder, then the cross keys and values cached),
+              pixtral-12b (prefill with 1024 patches before the prompt),
+              yi-34b (all 60 layers, 64.1 GiB of weights; G 7) and
+              mistral-nemo-12b (heads 4096 wide on a d_model of 5120,
+              vocab 131072) in bf16 (random weights from a seed): prefill and 4
               decode steps (whisper's through the cached cross attention)
               through the kernels against the same weights through the
               plain versions (whisper's and pixtral's flash and decode
@@ -97,6 +104,12 @@ ends the script with a non-zero exit and no result line:
               ``--jobs pixtral-12b:8,whisper-large-v3:2`` (as the
               reference's serve job: pixtral's text path, whisper's
               decoder without frames), flash and decode attention.
+              Then ``--jobs yi-34b:8,mamba2-2.7b:2`` (yi-34b at full
+              width beside a short job; two yi-34b jobs, each holding
+              its own weights, do not fit the card: flash, decode
+              attention and the SSD scan) and ``--jobs
+              mistral-nemo-12b:8,mistral-nemo-12b:2`` (flash and decode
+              attention); each run's peak memory printed.
 6. train   -- ``python -m repro_torch.launch.train --arch yi-6b
               --n-layers 12 --steps 6 --batch 4 --seq 1024`` (full width,
               depth cut so that fp32 weights, gradients and AdamW moments
@@ -104,10 +117,10 @@ ends the script with a non-zero exit and no result line:
               launch per layer and step; each step's wall ms, the
               predictor's estimate and the peak memory; where a step's
               device time goes (torch.profiler).  The same at 2
-              layers with a checkpoint every 3 steps, then resumed from
-              the step-3 checkpoint: the resumed steps bitwise equal to
-              the uninterrupted ones (the three checkpoints these runs
-              write would take 93 GB at 12 layers, 31 GB at 2).  Then
+              layers with a checkpoint at step 3 alone
+              (``--no-final-checkpoint``), then resumed from it: the
+              resumed steps bitwise equal to the uninterrupted ones (a
+              checkpoint takes 31 GB at 12 layers, 10.4 GB at 2).  Then
               ``--jobs yi-6b:8,yi-6b:2 --n-layers 2`` under SRTF and FIFO,
               every job finishing.  Then ``--arch mamba2-2.7b --n-layers
               56 --steps 4`` (full width, the deepest multiple of 8 layers
@@ -131,7 +144,17 @@ ends the script with a non-zero exit and no result line:
               (1024 patches before 1024 tokens): every loss finite, one
               flash forward and backward launch per attention layer
               (encoder, self, cross) and step, the peak under 64 GiB, the
-              step wall and device split.  Then
+              step wall and device split.  Then ``--arch
+              deepseek-v2-lite-16b --n-layers 2 --steps 4`` twice from
+              one seed (one dense and one MoE layer): every step's metrics
+              bitwise equal between the runs; the second with a
+              checkpoint at step 2 (``--no-final-checkpoint``: one of
+              13.0 GB, in the temporary directory), then resumed from it:
+              the resumed steps bitwise equal to the uninterrupted
+              run's.  Then ``--arch yi-34b --n-layers 4 --steps 4``
+              (full width, G 7): every loss finite, one flash forward and
+              backward launch per layer and step, the peak under 64 GiB,
+              the step wall and device split.  Then
               one step's gradients through the kernels against the plain
               versions, yi-6b at 12 layers, mamba2-2.7b at 16,
               recurrentgemma-2b at 9 (three (rec, rec, local) units),
@@ -212,14 +235,15 @@ ends the script with a non-zero exit and no result line:
 
 The line before the last is a JSON object with one entry per kernel and
 timed shape (flash: yi-6b's, recurrentgemma-2b's, minicpm3-4b's,
-deepseek-v2-lite's and pixtral-12b's prefill and whisper-large-v3's
+deepseek-v2-lite's, pixtral-12b's and yi-34b's prefill and whisper-large-v3's
 encoder, cross attention and cross attention at Sq 1, and the reduced
 paths' (32, 32) serve prefill and training shape and (64, 32) training
 shape; the flash backward: yi-6b's, recurrentgemma-2b's,
-minicpm3-4b's, deepseek-v2-lite's, whisper-large-v3's three and
-pixtral-12b's training shapes and the reduced (32, 32) and (64, 32)
-ones; the SSD backward: mamba2-2.7b's; decode: yi-6b's,
-recurrentgemma-2b's and the reduced make smoke line's decode steps;
+minicpm3-4b's, deepseek-v2-lite's, whisper-large-v3's three,
+pixtral-12b's and yi-34b's training shapes and the reduced (32, 32) and
+(64, 32) ones; the SSD backward: mamba2-2.7b's; decode: yi-6b's,
+recurrentgemma-2b's, yi-34b's and the reduced make smoke line's decode
+steps;
 RG-LRU: recurrentgemma-2b's prefill at B 4 and at B 1; the RG-LRU
 backward: recurrentgemma-2b's training shape; decode also yi-6b's with
 the lse; launches summed over the serve, train, sharded and reduced
@@ -321,12 +345,20 @@ SERVE_PATHS = [
     # whisper's decoder with cross attention skipped (no frames)
     ("pixtral-12b:8,whisper-large-v3:2",
      ("flash_attention", "decode_attention"), []),
+    # yi-34b at full width beside a small arch's short job: each serve job
+    # holds its own weights (64.1 GiB of bf16 for yi-34b), so two yi-34b
+    # jobs do not fit the card
+    ("yi-34b:8,mamba2-2.7b:2",
+     ("flash_attention", "decode_attention", "ssd_scan"), []),
+    ("mistral-nemo-12b:8,mistral-nemo-12b:2",
+     ("flash_attention", "decode_attention"), []),
 ]
 # submission_offsets("poisson-open", 3, time_scale=1e-6, seed=0) of the JAX
 # package, to 4 decimals: the scenario path must submit at these.
 POISSON_OFFSETS = (0.0, 0.1068, 0.1875)
 MODELS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-2b", "minicpm3-4b",
-          "deepseek-v2-lite-16b", "whisper-large-v3", "pixtral-12b")
+          "deepseek-v2-lite-16b", "whisper-large-v3", "pixtral-12b",
+          "yi-34b", "mistral-nemo-12b")
 # Training: full-width yi-6b cut to 12 layers (fp32 weights, gradients and
 # AdamW moments, 16 bytes a parameter: 2.6 B parameters, 41.6 GB; the 32
 # layers' 97 GB do not fit the card), B 4 x 1024 tokens.
@@ -370,6 +402,19 @@ MLA_LAYERS, MLA_STEPS, MLA_CHECK_LAYERS, MLA_PEAK_GIB = 40, 4, 16, 64.0
 # one MoE layer (1.59 B parameters, 17.8 GiB at the check's 12 B a
 # parameter).
 DSV2_LAYERS, DSV2_CHECK_LAYERS, DSV2_PEAK_GIB = 5, 2, 64.0
+# deepseek-v2-lite-16b trained twice from one seed and resumed: one dense
+# and one MoE layer at full width, 1.085 B parameters, so a checkpoint of
+# fp32 weights and AdamW moments (12 B a parameter) is 13.0 GB.  A GPU
+# host may end a command that writes 45 GiB to its disk, deleted files
+# included, so each resume check writes its middle checkpoint alone:
+# yi-6b's 10.4 GB and this 13.0.
+DSV2_REPEAT_LAYERS, DSV2_REPEAT_STEPS = 2, 4
+# Full-width yi-34b (60 layers, d 7168, 56 heads over 8 of 128, d_ff
+# 20480, vocab 64000) cut to 4 layers: 3.149 B parameters, 46.9 GiB of
+# fp32 weights, gradients and AdamW moments (the 60 layers' 512 GiB do
+# not fit), peak under the 64 GiB headroom rule of the MLA and prefixed
+# trains.
+YI34_LAYERS, YI34_STEPS, YI34_PEAK_GIB = 4, 4, 64.0
 # Full-width whisper-large-v3: 1.60 B parameters (ArchConfig.n_params'
 # 1.39 B leaves out cross attention), 25.6 GB of fp32 state; all 32
 # encoder and 32 decoder layers at B 4 x (1024 tokens + 1536 frames),
@@ -619,6 +664,18 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
          PROMPT, 1536, 20, 20, 64, 64, 64, "none", 0, 0),
         ("pixtral train B4 S2048 H32 KV8 D128 causal", B, 2 * PROMPT,
          2 * PROMPT, 32, 8, 128, 128, 128, "causal", 0, 0),
+        # yi-34b's G 7 (56 heads over 8 of 128): a dK/dV CTA's (head,
+        # query tile) steps, dealt to its two warpgroups in turns, come to
+        # an odd count wherever the query tiles are; then a ragged S with
+        # a q_offset, a window and no mask with Sq != Sk.
+        ("yi-34b train B4 S1024 H56 KV8 D128 causal", B, PROMPT, PROMPT, 56,
+         8, 128, 128, 128, "causal", 0, 0),
+        ("G7 ragged B2 Sq150 Sk201 H14 KV2 D128 causal q_offset51", 2, 150,
+         201, 14, 2, 128, 128, 128, "causal", 0, 51),
+        ("G7 window B2 Sq300 Sk600 H7 KV1 D128 w150 q_offset300", 2, 300,
+         600, 7, 1, 128, 128, 128, "window", 150, 300),
+        ("G7 none B1 Sq77 Sk190 H7 KV1 D128", 1, 77, 190, 7, 1, 128, 128,
+         128, "none", 0, 0),
         # The reduced configs' (32, 32) and reduced MLA's qk 48 padded to
         # (64, 32), the split kernels on (64, 64) tiles: the quickstart's
         # training batch (yi-6b's 4 heads over 2; MLA's 4 over 4), then
@@ -639,7 +696,7 @@ def kernel_flash_bwd(gen: torch.Generator) -> list:
          "q_offset51", 2, 150, 201, 4, 4, 48, 64, 32, "causal", 0, 51),
     ]
     # Timed: the training shapes of yi-6b, recurrentgemma-2b, minicpm3-4b,
-    # deepseek-v2-lite, whisper-large-v3 (three) and pixtral-12b.
+    # deepseek-v2-lite, whisper-large-v3 (three), pixtral-12b and yi-34b.
     timed_cases = [c for c in cases if "train" in c[0]]
     results = {}
     for name, b, sq, sk, h, kv, qk, d, dv, kind, window, off in cases:
@@ -910,6 +967,16 @@ def kernels_attention(gen: torch.Generator) -> dict:
          0, 0),
         ("pixtral prefill B4 S2048 H32 KV8 D128 causal", B, 2 * PROMPT,
          2 * PROMPT, 32, 8, (128, 128), "causal", 0, 0),
+        # yi-34b's G 7 (56 heads over 8 of 128): its prefill, then a
+        # ragged edge with a q_offset, a window and no mask at Sq != Sk.
+        ("yi-34b prefill B4 S1024 H56 KV8 D128 causal", B, PROMPT, PROMPT,
+         56, 8, (128, 128), "causal", 0, 0),
+        ("G7 ragged B3 Sq200 Sk333 H56 KV8 D128 causal q_offset133", 3, 200,
+         333, 56, 8, (128, 128), "causal", 0, 133),
+        ("G7 window B2 S700 H14 KV2 D128 w128", 2, 700, 700, 14, 2,
+         (128, 128), "window", 128, 0),
+        ("G7 none B2 Sq77 Sk150 H7 KV1 D128", 2, 77, 150, 7, 1, (128, 128),
+         "none", 0, 0),
         # The reduced configs' head dim 32 on the (64, 64) tiles: the make
         # smoke serve line's yi-6b prefill (B 1, 8 tokens, 4 heads over 2),
         # the quickstart's training batch (B 4 x 64), recurrentgemma's
@@ -1051,6 +1118,8 @@ def kernels_attention(gen: torch.Generator) -> dict:
         time_flash("pixtral prefill B4 S2048 H32 KV8 D128 causal",
                    2 * PROMPT, 2 * PROMPT, 32, 8, 128, 128, "causal", 0,
                    "pixtral-12b"),
+        time_flash("yi-34b prefill B4 S1024 H56 KV8 D128 causal", PROMPT,
+                   PROMPT, 56, 8, 128, 128, "causal", 0, "yi-34b"),
         time_flash("reduced serve prefill B1 S8 H4 KV2 D32 causal",
                    REDUCED_PROMPT, REDUCED_PROMPT, 4, 2, 32, 32, "causal", 0,
                    "reduced yi-6b serve (make smoke)", b=1),
@@ -1064,7 +1133,7 @@ def kernels_attention(gen: torch.Generator) -> dict:
     # -- decode attention -------------------------------------------------
     from repro_torch.kernels.decode_attention import counters
 
-    errs = {128: [], 256: [], 32: []}
+    errs = {128: [], 256: [], 32: [], "G7": []}
     decode_cases = [
         # name, B, H, KV, D, cache slots, lengths
         ("decode B4 mixed lengths", B, 32, 4, 128, MAX_SEQ,
@@ -1073,6 +1142,11 @@ def kernels_attention(gen: torch.Generator) -> dict:
         # B * KV = 64 (b, kv head) counters.
         ("decode B8 KV8", 8, 64, 8, 128, MAX_SEQ,
          [1, 37, 64, 100, 555, 1000, 1095, MAX_SEQ]),
+        # yi-34b's G 7: seven of the 16 mma rows a (batch row, KV head)
+        # used, nine idle.
+        ("yi-34b G7 mixed lengths", B, 56, 8, 128, MAX_SEQ,
+         [1, 300, 777, MAX_SEQ]),
+        ("yi-34b G7 short lengths", B, 56, 8, 128, MAX_SEQ, [1, 2, 63, 65]),
         ("D256 G10 ring of 2048 mixed lengths", B, 10, 1, 256, 2048,
          [1, PROMPT, MAX_SEQ, 2048]),
         # Lengths below the 33 splits: CTAs with no keys reach the combine.
@@ -1095,8 +1169,8 @@ def kernels_attention(gen: torch.Generator) -> dict:
         want = decode_attention_plain(q.float(), kc.float(), vc.float(),
                                       length)
         torch.cuda.synchronize()
-        errs[d].append(check_close(f"decode_attention {name} {lens}", got,
-                                   want))
+        errs["G7" if h // kv == 7 else d].append(check_close(
+            f"decode_attention {name} {lens}", got, want))
         if not torch.equal(got, again):
             fail(f"decode_attention {name}: two launches on one input differ")
         if bool(counters(dev).any()):
@@ -1174,6 +1248,10 @@ def kernels_attention(gen: torch.Generator) -> dict:
         dict(max_abs_err=max(errs[256]),
              **time_decode(10, 1, 256, 2048, PROMPT + TOKENS_PER_BLOCK,
                            "recurrentgemma-2b")),
+        dict(max_abs_err=max(errs["G7"]),
+             **time_decode(56, 8, 128, MAX_SEQ,
+                           PROMPT + LONGEST * TOKENS_PER_BLOCK // 2,
+                           "yi-34b")),
         dict(max_abs_err=max(errs[32]),
              **time_decode(4, 2, 32, REDUCED_MAX_SEQ, REDUCED_PROMPT + 8,
                            "reduced yi-6b serve (make smoke)", b=1))]
@@ -2422,7 +2500,9 @@ def train_run(args: list, layers: int, steps_run: int,
     print(f"[train] python -m repro_torch.launch.train {' '.join(args)}",
           flush=True)
     ops.reset_launch_counts()
+    t0 = time.perf_counter()
     run = train.main(args)
+    secs = time.perf_counter() - t0
     launches = ops.launch_counts()
     for r in run["steps"]:
         if not all(math.isfinite(r[k]) for k in TRAIN_METRICS):
@@ -2433,9 +2513,10 @@ def train_run(args: list, layers: int, steps_run: int,
     want = {name: per_step[name] * steps_run for name in kernels}
     expected = ", ".join(f"{name}: {per_step[name]} a step x {steps_run} "
                          f"steps = {want[name]}" for name in kernels)
-    print(f"[train] {len(run['steps'])} steps; predictor after the first "
-          f"steady step: {run['predicted_s']!r} s for the rest; peak device "
-          f"memory {run['peak_bytes'] / 2**30:.2f} GiB "
+    print(f"[train] {len(run['steps'])} steps in {secs:.1f}s of "
+          f"train.main (weights, steps, checkpoints); predictor after the "
+          f"first steady step: {run['predicted_s']!r} s for the rest; peak "
+          f"device memory {run['peak_bytes'] / 2**30:.2f} GiB "
           f"(max_memory_allocated); kernel launches {launches} ({expected})",
           flush=True)
     if len(run["steps"]) != steps_run:
@@ -2476,7 +2557,10 @@ def profile_train_step(arch: str = "yi-6b",
 
     step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     profile(step, 2, f"{arch} {layers}-layer train step")
+    print(f"[train] the profile of two {arch} steps took "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -2484,15 +2568,9 @@ def profile_train_step(arch: str = "yi-6b",
 
 def phase_train() -> dict:
     """Full-width yi-6b cut to TRAIN_LAYERS layers for TRAIN_STEPS steps;
-    then, at RESUME_LAYERS layers, TRAIN_STEPS steps with a checkpoint
-    every TRAIN_STEPS // 2 and a run resumed from that checkpoint, whose
-    steps must equal the uninterrupted run's bitwise.  (The runs write
-    three checkpoints of fp32 state: 93 GB at 12 layers, past a 45 GiB
-    limit on disk writes that a GPU host may set; 31 GB at 2.)"""
-    import os
-    import shutil
-    import tempfile
-
+    then the resume check (``resume_check``) at RESUME_LAYERS layers.
+    (A checkpoint of fp32 state is 31 GB at 12 layers, 10.4 GB at 2; a GPU
+    host may end a command that writes 45 GiB to its disk.)"""
     launches = {}
 
     def add(counts):
@@ -2502,30 +2580,102 @@ def phase_train() -> dict:
     add(train_run(train_args(TRAIN_LAYERS) + ["--steps", str(TRAIN_STEPS)],
                   TRAIN_LAYERS, TRAIN_STEPS)["launches"])
     profile_train_step()
-    half = TRAIN_STEPS // 2
-    with tempfile.TemporaryDirectory() as tmp:
-        whole = train_run(train_args(RESUME_LAYERS) + [
-            "--steps", str(TRAIN_STEPS), "--checkpoint-dir", tmp,
-            "--checkpoint-every", str(half)], RESUME_LAYERS, TRAIN_STEPS)
-        shutil.rmtree(os.path.join(tmp, f"step_{TRAIN_STEPS:010d}"))
-        resumed = train_run(train_args(RESUME_LAYERS) + [
-            "--steps", str(TRAIN_STEPS), "--checkpoint-dir", tmp,
-            "--resume"], RESUME_LAYERS, TRAIN_STEPS - half)
-    add(whole["launches"])
-    add(resumed["launches"])
-    diffs = []
-    for a, b in zip(whole["run"]["steps"][half:], resumed["run"]["steps"]):
-        for name in TRAIN_METRICS:
-            if a[name] != b[name]:
-                diffs.append((a["step"], name, a[name], b[name]))
-    if diffs:
-        # Every kernel on the path is deterministic and the data are
-        # seekable, so a difference is a fault, not noise.
-        fail(f"resumed steps differ from the uninterrupted run: {diffs}")
-    print(f"[train] resumed from step {half}: steps {half}-{TRAIN_STEPS - 1} "
-          f"bitwise equal to the uninterrupted run in {TRAIN_METRICS}",
-          flush=True)
+    for run in resume_check("yi-6b", RESUME_LAYERS, TRAIN_STEPS):
+        add(run["launches"])
     return launches
+
+
+def require_bitwise(what: str, want: list, got: list) -> None:
+    """Fails unless the two runs' step records agree in every bit of
+    TRAIN_METRICS.  Every kernel on the train paths is deterministic, the
+    MoE's dispatch and combine have no atomics and the data are seekable,
+    so a difference is a fault, not noise."""
+    if len(want) != len(got):
+        fail(f"{what}: {len(got)} steps, expected {len(want)}")
+    diffs = [(a["step"], name, a[name], b[name]) for a, b in zip(want, got)
+             for name in TRAIN_METRICS if a[name] != b[name]]
+    if diffs:
+        fail(f"{what} steps differ from the uninterrupted run: {diffs}")
+
+
+def resume_check(arch: str, layers: int, steps: int) -> tuple:
+    """``arch`` at full width and ``layers`` layers for ``steps`` steps
+    with one checkpoint, at the middle step (``--no-final-checkpoint``),
+    in the temporary directory; then a run resumed from it, whose steps
+    must equal the uninterrupted run's bitwise.  Returns both runs."""
+    import tempfile
+
+    half = steps // 2
+    args = train_args(layers, arch) + ["--steps", str(steps),
+                                       "--no-final-checkpoint"]
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = train_run(args + ["--checkpoint-dir", tmp,
+                                  "--checkpoint-every", str(half)],
+                          layers, steps)
+        written = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                      if f.is_file())
+        resumed = train_run(args + ["--checkpoint-dir", tmp, "--resume"],
+                            layers, steps - half)
+        kept = sorted(f.name for f in Path(tmp).iterdir())
+    if kept != [f"step_{half:010d}"]:
+        fail(f"{arch} resume check: the runs left {kept}, expected the "
+             f"step-{half} checkpoint alone")
+    require_bitwise(f"{arch} resumed", whole["run"]["steps"][half:],
+                    resumed["run"]["steps"])
+    print(f"[train] {arch} resumed from step {half}: steps {half}-"
+          f"{steps - 1} bitwise equal to the uninterrupted run in "
+          f"{TRAIN_METRICS}; one checkpoint, {written / 1e9:.2f} GB, "
+          f"written", flush=True)
+    return whole, resumed
+
+
+def phase_train_moe_repeat() -> dict:
+    """Full-width deepseek-v2-lite-16b at DSV2_REPEAT_LAYERS layers (one
+    dense, one MoE) for DSV2_REPEAT_STEPS steps, once and then in
+    ``resume_check``: every step's metrics bitwise equal between the
+    first run and the check's uninterrupted one (the MoE dispatch's and
+    combine's backwards are gathers summed in a fixed order, not atomic
+    scatter-adds)."""
+    arch, layers, steps = ("deepseek-v2-lite-16b", DSV2_REPEAT_LAYERS,
+                           DSV2_REPEAT_STEPS)
+    first = train_run(train_args(layers, arch) + ["--steps", str(steps)],
+                      layers, steps)
+    whole, resumed = resume_check(arch, layers, steps)
+    require_bitwise(f"{arch} second run", first["run"]["steps"],
+                    whole["run"]["steps"])
+    print(f"[train] {arch} at {layers} layers: two runs from one seed "
+          f"bitwise equal in every step's {TRAIN_METRICS}", flush=True)
+    launches = {}
+    for run in (first, whole, resumed):
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+def phase_train_yi34() -> dict:
+    """Full-width yi-34b cut to YI34_LAYERS layers for YI34_STEPS steps:
+    every loss finite, one flash forward and one flash backward launch per
+    layer and step, the peak under YI34_PEAK_GIB; then where a step's
+    device time goes."""
+    from repro_torch.configs import get_arch
+
+    arch, layers = "yi-34b", YI34_LAYERS
+    full, cfg = get_arch(arch), depth_cut(arch, layers)
+    print(f"[train] {arch} at full width, depth cut {full.n_layers} -> "
+          f"{layers} layers (d {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} of {cfg.head_dim or cfg.d_model // cfg.n_heads},"
+          f" d_ff {cfg.d_ff}, vocab {cfg.vocab_size}); "
+          f"{cfg.n_params() / 1e9:.3f} B parameters, "
+          f"{cfg.n_params() * 16 / 2**30:.2f} GiB of fp32 weights, "
+          f"gradients and AdamW moments", flush=True)
+    run = train_run(train_args(layers, arch) + ["--steps", str(YI34_STEPS)],
+                    layers, YI34_STEPS)
+    peak = run["run"]["peak_bytes"] / 2**30
+    if peak > YI34_PEAK_GIB:
+        fail(f"{arch} at {layers} layers peaked at {peak:.2f} GiB, over the "
+             f"{YI34_PEAK_GIB} GiB headroom rule")
+    profile_train_step(arch, layers)
+    return run["launches"]
 
 
 def phase_train_check(arch: str = "yi-6b", layers: int = TRAIN_LAYERS,
@@ -2993,7 +3143,9 @@ def main() -> None:
             (phase_train_mla, "deepseek-v2-lite-16b", DSV2_LAYERS,
              DSV2_PEAK_GIB),
             (phase_train_prefixed, "whisper-large-v3", WHISPER_LAYERS),
-            (phase_train_prefixed, "pixtral-12b", PIXTRAL_LAYERS)):
+            (phase_train_prefixed, "pixtral-12b", PIXTRAL_LAYERS),
+            (phase_train_moe_repeat,),
+            (phase_train_yi34,)):
         counts = timed("train", phase, *args)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count

@@ -9,7 +9,10 @@ CPU tensor goes to the kernel's plain version.  ``backend="ref"`` asks for
 the plain version on any device, as ``backend="ref"`` does in the JAX
 package; comparisons with the kernels use it.  The single-token decode
 steps and the MoE dispatch are plain tensor code, as in the JAX package
-(which leaves the MoE's sort, scatter and products to XLA).
+(which leaves the MoE's sort, scatter and products to XLA); the
+dispatch's and the combine's row gathers are autograd functions
+(:class:`MoEDispatchGather`, :class:`MoECombineGather`) whose backwards
+are gathers summed in a fixed order, not autograd's atomic scatter-add.
 
 Under autograd (grad enabled and an input that requires grad),
 :func:`flash_attention` goes through :class:`FlashAttention`, the
@@ -327,6 +330,63 @@ def rglru_decode_step(x, gate_a, gate_i, log_a, state, c: float = 8.0):
 # The JAX package dispatches one batch row at a time (``jax.vmap`` over
 # ``ops.moe_apply``), so capacity is per (row, expert).  Here every function
 # takes the rows as a leading axis and is written without a loop over them.
+#
+# Both row gathers are autograd functions whose backward is a gather too:
+# autograd's own backward of ``gather`` is a ``scatter_add``, which sums
+# with atomics on CUDA, so a token's K contributions (and the dropped
+# entries' zeros) would add in another order on every run.  The backwards
+# here sum a token's contributions in ascending expert order, the order in
+# which XLA's scatter-add visits them in the JAX package, so a step gives
+# the same bits on every run.
+class MoEDispatchGather(torch.autograd.Function):
+    """``buf[b, s] = x[b, token[b, s]]`` where slot ``s`` is filled, else 0.
+
+    Backward: ``dx[b, t] = sum_k keep[b, t, k] * dbuf[b, slot[b, t, k]]``,
+    in ascending k (ascending expert).  Each (token, rank) entry fills at
+    most one slot and each filled slot comes from one entry, so this is
+    the exact adjoint of the forward."""
+
+    @staticmethod
+    def forward(ctx, x, token, filled, slot, keep):
+        ctx.save_for_backward(slot, keep)
+        rows = x.gather(1, token[..., None].expand(-1, -1, x.shape[-1]))
+        return torch.where(filled, rows, x.new_zeros(()))
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        slot, keep = ctx.saved_tensors
+        B, T, K = slot.shape
+        D = dbuf.shape[-1]
+        got = dbuf.gather(1, slot.reshape(B, -1, 1).expand(-1, -1, D))
+        got = torch.where(keep[..., None], got.view(B, T, K, D),
+                          dbuf.new_zeros(()))
+        dx = got[:, :, 0]
+        for k in range(1, K):
+            dx = dx + got[:, :, k]
+        return dx, None, None, None, None
+
+
+class MoECombineGather(torch.autograd.Function):
+    """``got[b, e] = y[b, slot[b, e]]`` for each (token, rank) entry ``e``
+    (a dropped entry reads slot 0; its weight is 0).
+
+    Backward: ``dy[b, s] = dgot[b, entry[b, s]]`` where slot ``s`` is
+    filled (``entry``: the one entry that fills it), else 0.  A dropped
+    entry's cotangent is its weight, 0, times the output's, and is not
+    read."""
+
+    @staticmethod
+    def forward(ctx, y, slot, entry, filled):
+        ctx.save_for_backward(entry, filled)
+        return y.gather(1, slot[..., None].expand(-1, -1, y.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, dgot):
+        entry, filled = ctx.saved_tensors
+        dy = dgot.gather(1, entry[..., None].expand(-1, -1, dgot.shape[-1]))
+        return torch.where(filled, dy, dgot.new_zeros(())), None, None, None
+
+
 def moe_dispatch(
     x: torch.Tensor,          # [B, T, D]
     topk_idx: torch.Tensor,   # [B, T, K] int64
@@ -363,16 +423,15 @@ def moe_dispatch(
     c = torch.arange(capacity, device=dev)
     src = (starts[..., None] + c).clamp_(max=TK - 1).reshape(B, -1)
     filled = (c < counts[..., None]).reshape(B, -1, 1)
-    token = (order // K).gather(1, src)                    # [B, E*C]
-    rows = x.gather(1, token[..., None].expand(-1, -1, D))
-    buf = torch.where(filled, rows, x.new_zeros(()))
+    entry = order.gather(1, src)                           # [B, E*C]
     # meta, in (token, rank) order: the entry's slot (0 when dropped, as the
     # JAX package reads y[0, 0] for it) and its weight (0 when dropped).
     pos = torch.empty_like(pos).scatter_(1, order, pos).view(B, T, K)
     keep = pos < capacity
     slot = torch.where(keep, topk_idx * capacity + pos, 0)
     weight = (topk_gate * keep).to(x.dtype)
-    return buf.view(B, n_experts, capacity, D), (slot, weight)
+    buf = MoEDispatchGather.apply(x, entry // K, filled, slot, keep)
+    return buf.view(B, n_experts, capacity, D), (slot, weight, entry, filled)
 
 
 def moe_combine(y: torch.Tensor, meta) -> torch.Tensor:
@@ -381,11 +440,11 @@ def moe_combine(y: torch.Tensor, meta) -> torch.Tensor:
     in ascending expert order, rounding to ``y``'s dtype after each add as
     the JAX package's scatter-add does; no atomics, so the result is the
     same on every run and device."""
-    slot, weight = meta
+    slot, weight, entry, filled = meta
     B, T, K = slot.shape
     D = y.shape[-1]
-    got = y.reshape(B, -1, D).gather(
-        1, slot.reshape(B, -1, 1).expand(-1, -1, D)).view(B, T, K, D)
+    got = MoECombineGather.apply(y.reshape(B, -1, D), slot.reshape(B, -1),
+                                 entry, filled).view(B, T, K, D)
     contrib = got * weight[..., None]
     out = contrib[:, :, 0]
     for k in range(1, K):

@@ -41,7 +41,10 @@ pixtral serves its text path (no patches) and whisper its decoder, whose
 cross attention is skipped without frames.  With ``--reduced`` every arch
 serves on the card through the kernels (head dim 32, reduced MLA's qk 48
 padded to 64 beside v 32); dbrx-132b runs only reduced, since its ~132 B
-parameters (264 GB in bf16) do not fit one card.  recurrentgemma's
+parameters (264 GB in bf16) do not fit one card.  Each job initialises and
+holds its own weights, so yi-34b (64.1 GiB in bf16) serves at full width
+beside a small arch's job (``yi-34b:8,mamba2-2.7b:2`` runs on one 80 GB
+card) but not beside another yi-34b job.  recurrentgemma's
 local-attention cache holds exactly its window (2048 positions at full
 width, 64 reduced), so prompt plus generated tokens must fit in it.
 

@@ -151,7 +151,6 @@ def train_single(args) -> Dict:
 
     records = []
     predicted = None
-    saved = None
     t_accum = 0.0
     for step in range(start_step, args.steps):
         batch = data.batch_for_step(cfg, shape, step,
@@ -175,12 +174,12 @@ def train_single(args) -> Dict:
                   f"gnorm={rec['grad_norm']:.3f} lr={rec['lr']:.2e} "
                   f"{dt:.3f}s", flush=True)
         if ck is not None and args.checkpoint_every and \
+                step + 1 < args.steps and \
                 (step + 1) % args.checkpoint_every == 0:
             ck.save(step + 1, {"params": params, "opt": opt_state},
                     {"arch": args.arch})
-            saved = step + 1
     if ck is not None:
-        if saved != args.steps:       # the last step's state, once
+        if not args.no_final_checkpoint:      # the last step's state
             ck.save(args.steps, {"params": params, "opt": opt_state},
                     {"arch": args.arch})
         ck.wait()
@@ -266,6 +265,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--no-final-checkpoint", action="store_true",
+                    help="save no state after the last step, only the "
+                         "--checkpoint-every ones before it")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda unless asked; no fallback)")
     ap.add_argument("--reduced", action="store_true",

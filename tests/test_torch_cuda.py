@@ -1,11 +1,11 @@
 """The port's CUDA kernels against their plain versions, on the card (the
 backwards of flash, the SSD scan and the RG-LRU scan too, and all three
 under autograd); also the MLA layer through flash at full width against
-its plain route, the MoE dispatch and combine on the card bitwise equal
-to the CPU's, one executor-sweep cell, one recurrentgemma-2b train step
-at three layers, full-width whisper-large-v3 and pixtral-12b at two
-layers against their plain route, and the serving example at its
-full-width default.
+its plain route, the MoE dispatch and combine (and their backwards) on
+the card bitwise equal run to run and to the CPU's, one executor-sweep
+cell, one recurrentgemma-2b train step at three layers, full-width
+whisper-large-v3 and pixtral-12b at two layers against their plain
+route, and the serving example at its full-width default.
 
 Marked ``cuda``; each test skips where there is no CUDA device.  On a
 GPU machine::
@@ -521,6 +521,35 @@ def test_moe_dispatch_and_combine_on_the_card_equal_the_cpu(gen):
     again = ops.moe_combine(y, meta)
     assert torch.equal(out, again)
     assert torch.equal(out.cpu(), ops.moe_combine(y.cpu(), cmeta))
+
+
+def test_moe_backward_on_the_card_repeats_and_equals_the_cpu(gen):
+    """The backwards of the dispatch and the combine are gathers and
+    in-order sums too (autograd's own backward of ``gather``, an atomic
+    ``scatter_add``, summed a token's K rows in another order on every
+    run): two backwards on the card give the same bits, and dx and dy are
+    the CPU's bits (deepseek-v2-lite's routing at B 2, S 300, with
+    drops)."""
+    B, T, D, E, K, cap = 2, 300, 256, 64, 6, 20
+    x = _randn(gen, B, T, D)
+    scores = torch.rand((B, T, E), generator=gen, device="cuda")
+    idx = scores.argsort(dim=-1)[..., :K]
+    gate = torch.rand((B, T, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    y, dout = _randn(gen, B, E, cap, D), _randn(gen, B, T, D)
+
+    def grads(x, idx, gate, y, dout):
+        x, gate, y = (t.detach().requires_grad_() for t in (x, gate, y))
+        buf, meta = ops.moe_dispatch(x, idx, gate, E, cap)
+        out = ops.moe_combine(buf + y, meta)
+        return torch.autograd.grad(out, (x, gate, y), dout)
+
+    got = grads(x, idx, gate, y, dout)
+    again = grads(x, idx, gate, y, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    cpu = grads(*(t.cpu() for t in (x, idx, gate, y, dout)))
+    assert torch.equal(got[0].cpu(), cpu[0])
+    assert torch.equal(got[2].cpu(), cpu[2])
 
 
 # ------------------------------------------------------- executor bridge

@@ -554,6 +554,21 @@ def test_resume_continues_with_the_uninterrupted_losses(tmp_path, capsys):
     assert Checkpointer(tmp_path / "b").latest_step() == 4
 
 
+def test_no_final_checkpoint_writes_only_the_periodic_ones(tmp_path):
+    # --checkpoint-every 2 of 4 steps: step 2's state alone, since the
+    # last step's save is the final one that the flag leaves out
+    args = _cli("--steps", "4", "--checkpoint-dir", str(tmp_path),
+                "--no-final-checkpoint")
+    whole = train.main([*args, "--checkpoint-every", "2"])
+    assert Checkpointer(tmp_path).all_steps() == [2]
+    resumed = train.main([*args, "--resume"])
+    assert Checkpointer(tmp_path).all_steps() == [2]
+    assert [r["step"] for r in resumed["steps"]] == [2, 3]
+    for a, b in zip(whole["steps"][2:], resumed["steps"]):
+        for name in ("nll", "aux", "z", "grad_norm", "lr"):
+            assert a[name] == b[name], (a, b)
+
+
 # ------------------------------------------------------- train job and CLI
 def test_train_jobs_finish_under_the_lane_executor_and_resume(tmp_path):
     cfg = t_get_arch("yi-6b").reduced()
