@@ -181,6 +181,26 @@ ends the script with a non-zero exit and no result line:
               combine the identity.  The kernel phase checks the decode
               kernel's lse (-inf at length 0, ``out`` bitwise the same
               with it) and times it in turns with the kernel without it.
+7b. ops   -- the seven kernels as operators (``torch.ops.repro_torch.*``):
+              ``torch.library.opcheck`` on the card for every op at one
+              shape per instantiation of its kernel (flash and its
+              backward at every (D, Dv) pair, decode at every pair, both
+              SSD scan and both RG-LRU instantiations with and without an
+              initial state, the SSD backward at every (P, N) tile pair,
+              both RG-LRU backward instantiations); then steps built as
+              the sharded phase builds them, on a (1, 1) mesh: yi-6b's
+              train and decode steps and mamba2-2.7b's and
+              recurrentgemma-2b's train steps at full width, depth cut
+              (TRACE_STEPS), B 4 x 1024 (recurrentgemma-2b: x 512),
+              each traced by the dry-run
+              (``launch.dryrun.trace_step``, both backends) in a child
+              process under a fake process group, then run for real on
+              both backends: the peak of allocated bytes from the
+              arguments' placing on (``torch.cuda.max_memory_allocated``,
+              reset once they are placed) must lie within [traced,
+              traced x 1.05 + 256 MiB]; both printed with the arguments'
+              bytes, real and traced, and the kernel run's launches
+              (every op of the step's mixers, the backwards included).
 8. scenario kernels -- ``--scenario poisson-open --scenario-kernels
               --time-scale 1e-6 --max-blocks 16``: the scenario's first
               workload (8 arrivals) as jobs of synthetic blocks on the
@@ -3116,6 +3136,313 @@ def sharded_serve(mesh, steps, arch: str, layers, kernels) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- 7b. ops
+# The steps the ops phase traces and runs: (arch, layers, kind, tokens),
+# at full width, B x tokens (decode: the cache of a prefill of PROMPT
+# plus the serving paths' tokens, the token at PROMPT).  Together they
+# reach all seven ops: flash and its backward at (128, 128) and at (256,
+# 256) (recurrentgemma-2b's local layer, its third), decode, the SSD scan
+# and its backward, the RG-LRU scan and its backward.  recurrentgemma-2b
+# trains on 512 tokens: its `ref` trace walks the plain RG-LRU step by
+# step, and at 1024 it kept the phase past 60 s.
+TRACE_STEPS = (("yi-6b", 4, "train", PROMPT), ("yi-6b", 4, "decode", PROMPT),
+               ("mamba2-2.7b", 4, "train", PROMPT),
+               ("recurrentgemma-2b", 3, "train", 512))
+# A step's measured peak against its traced one: never below it (the
+# trace must miss no allocation), at most 5% and 256 MiB above it (the
+# allocator rounds each block up to 512 bytes, or keeps up to 1 MiB past
+# a large one, and keeps cuBLAS's workspace).
+TRACE_RATIO, TRACE_SLACK = 1.05, 256 * 2 ** 20
+# One child per (step, backend), all started at the phase's start: each
+# traces under a fake process group of one rank with the card hidden.
+TRACE_CHILD = """
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import chip_smoke
+from repro_torch.launch import dryrun
+arch, layers, kind, tokens, backend = sys.argv[2:]
+t0 = time.perf_counter()
+with dryrun.fake_world(1):
+    mesh = dryrun._mesh((1, 1), ("data", "model"), "cpu")
+    rec = dryrun.trace_step(chip_smoke.depth_cut(arch, int(layers)),
+                            chip_smoke.trace_shape(kind, int(tokens)), mesh,
+                            backend, probes=False)
+out = dict(rec["memory_analysis"], seconds=time.perf_counter() - t0)
+print("TRACED " + json.dumps(out, allow_nan=False))
+"""
+
+
+def trace_shape(kind: str, tokens: int):
+    from repro_torch.configs.shapes import InputShape
+
+    return InputShape(f"ops-{kind}", MAX_SEQ if kind == "decode" else tokens,
+                      B, kind)
+
+
+def opcheck_cases(gen: torch.Generator) -> list:
+    """``(label, op, args)``: each op at one shape per instantiation of its
+    kernel (bf16 inputs, fp32 dt, A, gates and states)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fwd
+    from repro_torch.kernels import flash_attention_bwd as bwd
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rglru_scan_bwd as rgb
+    from repro_torch.kernels import ssd_scan as sd
+    from repro_torch.kernels import ssd_scan_bwd as sdb
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    cases = []
+    for D, Dv in fwd.HEAD_DIMS:
+        q, k, v = randn(1, 80, 4, D), randn(1, 80, 2, D), randn(1, 80, 2, Dv)
+        cases.append((f"flash ({D}, {Dv})", fwd.OP,
+                      (q, k, v, "causal", 0, 0, D ** -0.5, True)))
+    for D, Dv in bwd.HEAD_DIMS:
+        H, KV = (4, 1) if (D, Dv) == (256, 256) else (2, 2) \
+            if (D, Dv) == (192, 128) else (4, 2)
+        q, k, v = randn(1, 80, H, D), randn(1, 80, KV, D), randn(1, 80, KV,
+                                                                  Dv)
+        out, lse = fwd.OP(q, k, v, "causal", 0, 0, D ** -0.5, True)
+        cases.append((f"flash backward ({D}, {Dv})", bwd.OP,
+                      (q, k, v, out, randn(1, 80, H, Dv), lse, "causal", 0,
+                       0, D ** -0.5)))
+    for D, Dv in dec.HEAD_DIMS:
+        length = torch.tensor([60, 0], dtype=torch.int32, device="cuda")
+        cases.append((f"decode ({D}, {Dv})", dec.OP,
+                      (randn(2, 8, D), randn(2, 100, 2, D),
+                       randn(2, 100, 2, Dv), length, D ** -0.5, True)))
+
+    def ssd_inputs(b, s, h, p, g, n, init):
+        return (randn(b, s, h, p, scale=0.5),
+                F.softplus(randn(b, s, h, dtype=torch.float32)),
+                -torch.exp(randn(h, dtype=torch.float32)),
+                randn(b, s, g, n, scale=0.3), randn(b, s, g, n, scale=0.3),
+                randn(b, h, p, n, dtype=torch.float32, scale=0.2)
+                if init else None)
+
+    for label, shape in (("TMA", (1, 256, 2, 64, 1, 128, 128, False)),
+                         ("plain loads", (1, 96, 3, 24, 1, 40, 48, True))):
+        *dims, chunk, init = shape
+        cases.append((f"ssd scan {label}", sd.OP,
+                      (*ssd_inputs(*dims, init), chunk)))
+    for p_, n_ in ((32, 64), (64, 128), (128, 32), (128, 128)):
+        x, dt, A, Bm, Cm, h0 = ssd_inputs(1, 128, 2, p_, 1, n_, p_ == 128)
+        cases.append((f"ssd backward P{p_} N{n_}", sdb.OP,
+                      (x, dt, A, Bm, Cm, randn(1, 128, 2, p_),
+                       None if h0 is None else randn(
+                           1, 2, p_, n_, dtype=torch.float32), h0, 64)))
+
+    def rglru_inputs(b, s, c, init):
+        gates = torch.sigmoid(randn(2, b, s, c, dtype=torch.float32))
+        return (randn(b, s, c), gates[0], gates[1],
+                -F.softplus(randn(c, dtype=torch.float32)),
+                randn(b, c, dtype=torch.float32) if init else None)
+
+    for label, (b, s, c, init) in (("TMA", (2, 130, 64, False)),
+                                   ("plain loads", (2, 70, 100, True))):
+        x, ga, gi, la, h0 = rglru_inputs(b, s, c, init)
+        cases.append((f"rglru scan {label}", rg.OP,
+                      (x, ga, gi, la, h0, 8.0, True)))
+        _, _, entering = rg.OP(x, ga, gi, la, h0, 8.0, True)
+        cases.append((f"rglru backward {label}", rgb.OP,
+                      (x, ga, gi, la, randn(b, s, c),
+                       randn(b, c, dtype=torch.float32), entering, h0,
+                       8.0)))
+    return cases
+
+
+def start_traces() -> dict:
+    """Start the dry-run's trace of each of TRACE_STEPS on both backends,
+    a child process each: ``{(arch, kind, backend): process}``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return {(arch, kind, backend): subprocess.Popen(
+        [sys.executable, "-c", TRACE_CHILD, str(ROOT), arch, str(layers),
+         kind, str(tokens), backend], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, layers, kind, tokens in TRACE_STEPS
+        for backend in ("kernel", "ref")}
+
+
+def collect_traces(procs: dict) -> dict:
+    """Each child's memory record (the dry-run's ``memory_analysis``)."""
+    out = {}
+    for key, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("TRACED ")]
+        if proc.returncode != 0 or not lines:
+            fail(f"the dry-run's trace of {key} exited {proc.returncode}:\n"
+                 f"{stdout[-3000:]}{stderr[-3000:]}")
+        out[key] = json.loads(lines[-1][len("TRACED "):])
+    return out
+
+
+def real_args(cfg, shape, bundle, mesh) -> list:
+    """Tensors on the card for a bundle's argument structs, placed as the
+    dry-run's fake ones are: trained params from ``lm.init`` (fp32 master
+    weights, grad on), AdamW's state and a batch of the data pipeline;
+    serving params in bf16, zeroed caches, tokens and lengths at PROMPT."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.data import pipeline as data
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.specs import placements
+    from repro_torch.tree import tree_map
+
+    def put(struct, t, grad=False):
+        d = distribute_tensor(t.detach(), mesh, placements(struct.spec, mesh))
+        return d.requires_grad_(grad)
+
+    train = shape.kind == "train"
+    params = lm.init(cfg, seed=0, device="cuda", stacked=True,
+                     dtype=torch.float32 if train else torch.bfloat16)
+    placed = tree_map(lambda s, t: put(s, t, train), bundle.arg_specs[0],
+                      params)
+    del params
+    if train:
+        batch = data.batch_for_step(cfg, shape, 0, device="cuda")
+        return [placed, adamw.init(placed),
+                tree_map(put, bundle.arg_specs[2], batch)]
+    _, tok, caches, lengths = bundle.arg_specs
+    return [placed,
+            put(tok, torch.randint(0, cfg.vocab_size, tok.shape,
+                                   generator=torch.Generator(
+                                       device="cuda").manual_seed(1),
+                                   device="cuda", dtype=tok.dtype)),
+            tree_map(lambda s: put(s, torch.zeros(s.shape, dtype=s.dtype,
+                                                  device="cuda")), caches),
+            put(lengths, torch.full(lengths.shape, PROMPT,
+                                    dtype=lengths.dtype, device="cuda"))]
+
+
+def run_steps() -> dict:
+    """Each of TRACE_STEPS on both backends on the card, on a (1, 1) mesh
+    of one NCCL rank (a HashStore, as the sharded phase's):
+    ``{(arch, kind, backend): (peak bytes from before the arguments,
+    their bytes, the kernels' launches)}``; the peak statistic is reset
+    once the arguments are placed."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1).view(1, 1),
+                          mesh_dim_names=("data", "model"))
+        for arch, layers, kind, tokens in TRACE_STEPS:
+            cfg, shape = depth_cut(arch, layers), trace_shape(kind, tokens)
+            for backend in ("kernel", "ref"):
+                bundle = steps.build_step(cfg, shape, mesh=mesh,
+                                          backend=backend)
+                gc.collect()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                args = real_args(cfg, shape, bundle, mesh)
+                gc.collect()
+                torch.cuda.synchronize()
+                arg_bytes = torch.cuda.memory_allocated() - base
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                result = bundle.fn(*args)
+                torch.cuda.synchronize()
+                out[arch, kind, backend] = (
+                    torch.cuda.max_memory_allocated() - base, arg_bytes,
+                    {k: v for k, v in ops.launch_counts().items() if v})
+                del result, args
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_ops(gen: torch.Generator) -> None:
+    """opcheck of every op on the card, then TRACE_STEPS traced (child
+    processes, started first) and run (see the module docstring, 7b)."""
+    t0 = time.perf_counter()
+    procs = start_traces()
+    try:
+        opcheck_all(gen)
+        measured = run_steps()
+        t1 = time.perf_counter()
+        traced = collect_traces(procs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"[ops] {len(traced)} traces from child processes: waited "
+          f"{time.perf_counter() - t1:.1f}s for them after the runs, "
+          f"{time.perf_counter() - t0:.1f}s since they started", flush=True)
+    check_peaks(traced, measured)
+
+
+def opcheck_all(gen: torch.Generator) -> None:
+    t0 = time.perf_counter()
+    cases = opcheck_cases(gen)
+    for label, op, args in cases:
+        try:
+            torch.library.opcheck(op, args)
+        except Exception as exc:       # report which op and shape
+            fail(f"opcheck of {op} at {label}: {exc}")
+    print(f"[ops] opcheck passed for {len(cases)} cases, every op at one "
+          f"shape per kernel instantiation: "
+          + "; ".join(label for label, _, _ in cases)
+          + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
+
+
+def check_peaks(traced: dict, measured: dict) -> None:
+    """Each step's measured peak within [traced, traced x TRACE_RATIO +
+    TRACE_SLACK] on both backends; the kernel runs launched every op of
+    their mixers (all seven in all), the ref runs none."""
+    from repro_torch.kernels import ops
+
+    expect = {"yi-6b": {"train": {"flash_attention", "flash_attention_bwd"},
+                        "decode": {"decode_attention"}},
+              "mamba2-2.7b": {"train": {"ssd_scan", "ssd_scan_bwd"}},
+              "recurrentgemma-2b": {"train": {
+                  "rglru_scan", "rglru_scan_bwd", "flash_attention",
+                  "flash_attention_bwd"}}}
+    reached = set()
+    for arch, layers, kind, tokens in TRACE_STEPS:
+        for backend in ("kernel", "ref"):
+            rec = traced[arch, kind, backend]
+            want = rec["peak_bytes"]
+            peak, arg_bytes, counts = measured[arch, kind, backend]
+            top = want * TRACE_RATIO + TRACE_SLACK
+            print(f"[ops] {arch} {layers} layers {kind} B {B} x {tokens}, "
+                  f"{backend}: measured peak {peak / 2**30:.3f} GiB, traced "
+                  f"{want / 2**30:.3f} GiB (bound {top / 2**30:.3f}; "
+                  f"measured - traced {(peak - want) / 2**20:.1f} MiB); "
+                  f"arguments {arg_bytes / 2**30:.3f} GiB real, "
+                  f"{rec['argument_size_in_bytes'] / 2**30:.3f} traced "
+                  f"in {rec['seconds']:.1f}s; launches {counts}", flush=True)
+            if backend == "ref" and counts:
+                fail(f"{arch} {kind} on the ref backend launched {counts}")
+            if backend == "kernel":
+                if not expect[arch][kind] <= set(counts):
+                    fail(f"{arch} {kind} launched {counts}, not every op of "
+                         f"{sorted(expect[arch][kind])}")
+                reached |= set(counts)
+            if not want <= peak <= top:
+                fail(f"{arch} {kind} {backend}: measured peak {peak} bytes "
+                     f"outside [traced {want}, {int(top)}]")
+    if reached != set(ops.KERNELS):
+        fail(f"the traced steps launched {sorted(reached)}, not all seven "
+             f"ops")
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     result = fn(*args)
@@ -3165,6 +3492,7 @@ def main() -> None:
     counts = timed("sharded", phase_sharded)
     for name, count in counts.items():
         launches[name] = launches.get(name, 0) + count
+    timed("ops", phase_ops, gen)
     timed("scenario", phase_scenario_kernels)
     timed("sweep", phase_executor_sweep)
     from repro_torch.configs import ARCHS

@@ -11,10 +11,21 @@ all of them.
 A failed build raises :class:`KernelBuildError` carrying the compiler's
 output; nothing falls back to another implementation.  Nothing is built
 or loaded when this module is imported.
+
+Each kernel is also an operator of the ``repro_torch`` namespace
+(``torch.ops.repro_torch.<name>``, :func:`define_op`): its CUDA
+implementation is the ctypes launch, its CPU implementation the plain
+version (for ``torch.library.opcheck``; the model's ops route CPU tensors
+to the plain versions directly), its fake implementation allocates what a
+launch allocates without a device (the dry-run traces through it, sizing
+launch plans for :data:`H100_SMS` SMs and reporting scratch through
+:func:`fake_scratch`), and its flop formula is registered with
+``torch.utils.flop_counter``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +33,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -145,10 +156,12 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
-                 shape: Tuple[int, ...], device: torch.device) -> None:
+                 shape: Tuple[int, ...], device: torch.device,
+                 real: bool = True) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor on ``device`` with
-    this dtype and shape: what a kernel's raw pointer arguments assume."""
-    if t.device.type != "cuda":
+    this dtype and shape: what a kernel's raw pointer arguments assume.
+    ``real`` False (a fake implementation) leaves out the device type."""
+    if real and t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -173,3 +186,65 @@ def check_plain(name: str, *tensors) -> None:
             raise TypeError(
                 f"{name}: got a {type(t).__name__}; the kernel takes plain "
                 f"tensors (run it inside local_map under a mesh)")
+
+
+#: The kernels' operator namespace, the package's name:
+#: ``torch.ops.repro_torch.<name>`` (another tree's copy imported beside
+#: this one under another package name registers ops of its own).
+NAMESPACE = __package__.split(".")[0]
+#: SMs of the card the kernels are built for (an NVIDIA H100 SXM5): what
+#: a fake implementation plans a launch for, having no device to ask.  A
+#: real launch asks its device.
+H100_SMS = 132
+
+_op_lib: Optional[torch.library.Library] = None
+_scratch_watchers: List[Callable[[List[torch.Tensor]], None]] = []
+
+
+def define_op(name: str, schema: str, *, cuda: Callable, cpu: Callable,
+              fake: Callable, flops: Callable):
+    """Define ``repro_torch::<name><schema>`` with its CUDA, CPU and fake
+    implementations and its flop formula (``flops(*shapes, out_shape=)``
+    in ``torch.utils.flop_counter``'s form), and return the op's overload.
+    The low-level ``torch.library`` API: no Python autograd layer sits on
+    the call (the model's autograd functions call the ops), which keeps
+    the per-call host time of the serving path's launches small."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    global _op_lib
+    if _op_lib is None:
+        _op_lib = torch.library.Library(NAMESPACE, "DEF")
+    _op_lib.define(name + schema)
+    _op_lib.impl(name, cuda, "CUDA")
+    _op_lib.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_op_lib)
+    packet = getattr(getattr(torch.ops, NAMESPACE), name)
+    register_flop_formula(packet)(flops)
+    return packet.default
+
+
+def nothing(like: torch.Tensor) -> torch.Tensor:
+    """The empty fp32 tensor an op returns for an output that was not
+    asked for (an op returns tensors, never None): no bytes allocated."""
+    return like.new_empty((0,), dtype=torch.float32)
+
+
+def fake_scratch(*tensors: Optional[torch.Tensor]) -> None:
+    """Hand the scratch a fake implementation allocated (what its launch
+    allocates beside its outputs and frees when it returns; None entries
+    skipped) to whoever watches (:func:`watch_scratch`: the dry-run adds
+    its bytes to the peak at the op)."""
+    got = [t for t in tensors if t is not None]
+    for watcher in _scratch_watchers:
+        watcher(got)
+
+
+@contextlib.contextmanager
+def watch_scratch(watcher: Callable[[List[torch.Tensor]], None]):
+    """Call ``watcher(tensors)`` with every fake implementation's scratch
+    while the context is open."""
+    _scratch_watchers.append(watcher)
+    try:
+        yield
+    finally:
+        _scratch_watchers.remove(watcher)

@@ -20,6 +20,15 @@ kernel does (the reference oracle returns NaN there).  With
 sequence-sharded cache by it (:mod:`repro_torch.sharding.calls`).  The
 kernel writes it from the combine's running max and sum; ``out`` is the
 same with it or without.
+
+The launch is the operator ``torch.ops.repro_torch.decode_attention`` (q,
+k_cache, v_cache, length, scale, return_lse) -> (out, lse), lse empty
+without ``return_lse``: its CUDA implementation launches, its fake one
+allocates the outputs and the split partials, planned for
+``_build.H100_SMS`` SMs (the counters live outside any call), its flop
+formula counts the plain version's products.  :func:`decode_attention_op`
+calls it; :func:`decode_attention_cuda` also refuses tensor subclasses and
+tensors off the card.
 """
 
 from __future__ import annotations
@@ -119,23 +128,20 @@ def counters(device: torch.device, n: int = 0) -> torch.Tensor:
     return t
 
 
-def decode_attention_cuda(q, k_cache, v_cache, length, *,
-                          scale: Optional[float] = None,
-                          return_lse: bool = False):
-    """Launch the CUDA kernel (split-K with an in-kernel combine). [B, H, Dv];
-    with ``return_lse``, ``(out, lse)``."""
-    _build.check_plain("decode_attention_cuda", q, k_cache, v_cache, length)
+def _check(q, k_cache, v_cache, length, real: bool) -> None:
+    """Raise on anything the kernel does not take; ``real`` also checks
+    what only a tensor with storage has (the device, the alignment)."""
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.dim() != 4:
         raise ValueError("q must be [B, H, D] and the caches [B, S, KV, D]")
     B, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     Dv = v_cache.shape[-1]
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device.type != "cuda":
+        if real and t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (real and t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if length.device != q.device or length.dtype != torch.int32 \
             or tuple(length.shape) != (B,) or not length.is_contiguous():
@@ -152,20 +158,38 @@ def decode_attention_cuda(q, k_cache, v_cache, length, *,
         raise ValueError(f"unsupported shape H={H} KV={KV} S={S} head dims "
                          f"(D, Dv)=({D}, {Dv}); the kernel takes {HEAD_DIMS} "
                          f"and at most {MAX_GROUP} query heads per KV head")
-    scale = scale if scale is not None else D ** -0.5
-    out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
-        if return_lse else None
+
+
+def _allocate(q, k_cache, v_cache, return_lse: bool, n_sm: int):
+    """``(out, lse, part, n_split)``: the outputs and the split partials
+    of a launch on ``n_sm`` SMs (``part`` None when B is 0)."""
+    B, H, D = q.shape
+    S, KV, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[-1]
+    out = q.new_empty((B, H, Dv))
+    lse = q.new_empty((B, H), dtype=torch.float32) if return_lse \
+        else _build.nothing(q)
     if B == 0:
-        return (out, lse) if return_lse else out
+        return out, lse, None, 0
     G = H // KV
-    n_split, smem = plan(S, D, Dv, G, B * KV, _sm_count(q.device.index))
+    n_split, smem = plan(S, D, Dv, G, B * KV, n_sm)
     if smem > MAX_SMEM:
         raise ValueError(f"S={S} needs {smem} bytes of shared memory per "
                          f"CTA, more than {MAX_SMEM}")
+    part = q.new_empty((B * KV * n_split * G * (Dv + 2),),
+                       dtype=torch.float32)
+    return out, lse, part, n_split
+
+
+def _launch(q, k_cache, v_cache, length, scale: float, return_lse: bool):
+    """The op's CUDA implementation: check, allocate, launch."""
+    _check(q, k_cache, v_cache, length, True)
+    out, lse, part, n_split = _allocate(q, k_cache, v_cache, return_lse,
+                                        _sm_count(q.device.index))
+    if part is None:
+        return out, lse
+    B, H, D = q.shape
+    S, KV, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[-1]
     lib = _lib()
-    part = torch.empty(B * KV * n_split * G * (Dv + 2), dtype=torch.float32,
-                       device=q.device)
     status = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         length.data_ptr(), part.data_ptr(),
@@ -175,7 +199,64 @@ def decode_attention_cuda(q, k_cache, v_cache, length, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "decode_attention_fwd")
     decode_attention_cuda.launches += 1
+    return out, lse
+
+
+def _plain(q, k_cache, v_cache, length, scale: float, return_lse: bool):
+    """The op's CPU implementation: the plain version, laid out as the
+    kernel lays its outputs."""
+    got = decode_attention_plain(q, k_cache, v_cache, length, scale=scale,
+                                 return_lse=return_lse)
+    out, lse = got if return_lse else (got, _build.nothing(q))
+    return out.clone(memory_format=torch.contiguous_format), lse.contiguous()
+
+
+def _fake(q, k_cache, v_cache, length, scale: float, return_lse: bool):
+    _check(q, k_cache, v_cache, length, False)
+    out, lse, part, _ = _allocate(q, k_cache, v_cache, return_lse,
+                                  _build.H100_SMS)
+    _build.fake_scratch(part)
+    return out, lse
+
+
+def flops(q_shape, k_shape, v_shape, length_shape, scale, return_lse,
+          out_shape=None) -> int:
+    """The plain version's products over every slot of the cache (the
+    kernel reads only the filled ones): q.K^T and p.V, and with the lse
+    the plain version's second q.K^T."""
+    B, H, D = q_shape
+    S, Dv = k_shape[1], v_shape[-1]
+    return 2 * B * H * S * (D + Dv + (D if return_lse else 0))
+
+
+OP = _build.define_op(
+    "decode_attention",
+    "(Tensor q, Tensor k_cache, Tensor v_cache, Tensor length, float scale, "
+    "bool return_lse) -> (Tensor, Tensor)",
+    cuda=_launch, cpu=_plain, fake=_fake, flops=flops)
+
+
+def decode_attention_op(q, k_cache, v_cache, length, *,
+                        scale: Optional[float] = None,
+                        return_lse: bool = False):
+    """The op: the kernel for CUDA tensors, the fake implementation for
+    fake ones.  Returns what :func:`decode_attention_cuda` returns."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    out, lse = OP(q, k_cache, v_cache, length, float(scale), return_lse)
     return (out, lse) if return_lse else out
+
+
+def decode_attention_cuda(q, k_cache, v_cache, length, *,
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
+    """Launch the CUDA kernel (split-K with an in-kernel combine). [B, H, Dv];
+    with ``return_lse``, ``(out, lse)``."""
+    _build.check_plain("decode_attention_cuda", q, k_cache, v_cache, length)
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    return decode_attention_op(q, k_cache, v_cache, length, scale=scale,
+                               return_lse=return_lse)
 
 
 #: Launches of the CUDA kernel since the last reset (``launches = 0``).

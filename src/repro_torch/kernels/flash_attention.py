@@ -13,6 +13,14 @@ backward (:mod:`.flash_attention_bwd`) recomputes the probabilities from:
 fp32 ``[B, Sq, H]``, the natural log of the sum of exponentials of the
 scaled logits, as ``repro.kernels.ops._flash_fwd_core`` returns it; a row
 that no key may attend to gets :data:`NO_KEY_LSE`.
+
+The launch is the operator ``torch.ops.repro_torch.flash_attention`` (q,
+k, v, mask kind, window, q offset, scale, return_lse) -> (out, lse), lse
+empty without ``return_lse`` (the kernel then writes none): its CUDA
+implementation launches, its fake one allocates the same outputs (the
+kernel needs no scratch), its flop formula counts the plain version's
+products.  :func:`flash_attention_op` calls it; :func:`flash_attention_cuda`
+also refuses tensor subclasses and tensors off the card.
 """
 
 from __future__ import annotations
@@ -82,25 +90,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention_cuda(q, k, v, *, mask_kind: str = "causal",
-                         window: int = 0, q_offset: int = 0,
-                         scale: Optional[float] = None,
-                         return_lse: bool = False):
-    """Launch the CUDA kernel.  Returns ``[B, Sq, H, Dv]`` bf16; with
-    ``return_lse``, ``(out, lse)`` with lse fp32 ``[B, Sq, H]``.  The
-    kernel writes ``out`` the same way either way."""
-    _build.check_plain("flash_attention_cuda", q, k, v)
+def _check(q, k, v, mask_kind: str, real: bool) -> None:
+    """Raise on anything the kernel does not take; ``real`` also checks
+    what only a tensor with storage has (the device, the alignment)."""
     B, Sq, H, D = q.shape
     if k.dim() != 4 or v.dim() != 4:
         raise ValueError("k and v must be [B, Sk, KV, D]")
     Sk, KV = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
+        if real and t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (real and t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
@@ -115,12 +118,25 @@ def flash_attention_cuda(q, k, v, *, mask_kind: str = "causal",
                          f"(kernel is built for {HEAD_DIMS})")
     if mask_kind not in MASK_KINDS:
         raise ValueError(f"unknown mask_kind {mask_kind!r}")
-    scale = scale if scale is not None else D ** -0.5
-    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) \
-        if return_lse else None
+
+
+def _outputs(q, v, return_lse: bool):
+    B, Sq, H = q.shape[:3]
+    out = q.new_empty((B, Sq, H, v.shape[-1]))
+    lse = q.new_empty((B, Sq, H), dtype=torch.float32) if return_lse \
+        else _build.nothing(q)
+    return out, lse
+
+
+def _launch(q, k, v, mask_kind: str, window: int, q_offset: int,
+            scale: float, return_lse: bool):
+    """The op's CUDA implementation: check, allocate, launch."""
+    _check(q, k, v, mask_kind, True)
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    out, lse = _outputs(q, v, return_lse)
     if B == 0 or Sq == 0 or H == 0:
-        return (out, lse) if return_lse else out
+        return out, lse
     lib = _lib()
     status = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -130,11 +146,73 @@ def flash_attention_cuda(q, k, v, *, mask_kind: str = "causal",
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_fwd")
     flash_attention_cuda.launches += 1
-    if not return_lse:
-        return out
-    if Sk == 0:                       # the kernel only zeroed out
+    if return_lse and Sk == 0:        # the kernel only zeroed out
         lse.fill_(NO_KEY_LSE)
     return out, lse
+
+
+def _plain(q, k, v, mask_kind: str, window: int, q_offset: int,
+           scale: float, return_lse: bool):
+    """The op's CPU implementation: the plain version, laid out as the
+    kernel lays its outputs."""
+    got = flash_attention_plain(q, k, v, mask_kind=mask_kind, window=window,
+                                q_offset=q_offset, scale=scale,
+                                return_lse=return_lse)
+    out, lse = got if return_lse else (got, _build.nothing(q))
+    return out.clone(memory_format=torch.contiguous_format), lse.contiguous()
+
+
+def _fake(q, k, v, mask_kind: str, window: int, q_offset: int,
+          scale: float, return_lse: bool):
+    _check(q, k, v, mask_kind, False)
+    return _outputs(q, v, return_lse)
+
+
+def flops(q_shape, k_shape, v_shape, mask_kind, window, q_offset, scale,
+          return_lse, out_shape=None) -> int:
+    """The plain version's products, whole: QK^T over every key and PV
+    (the kernel skips masked tiles), and with the lse the plain version's
+    second QK^T (the kernel takes the lse from its one pass), so that a
+    trace of either backend counts the same."""
+    B, Sq, H, D = q_shape
+    Sk, Dv = k_shape[1], v_shape[-1]
+    return 2 * B * H * Sq * Sk * (D + Dv + (D if return_lse else 0))
+
+
+OP = _build.define_op(
+    "flash_attention",
+    "(Tensor q, Tensor k, Tensor v, str mask_kind, int window, "
+    "int q_offset, float scale, bool return_lse) -> (Tensor, Tensor)",
+    cuda=_launch, cpu=_plain, fake=_fake, flops=flops)
+
+
+def flash_attention_op(q, k, v, *, mask_kind: str = "causal",
+                       window: int = 0, q_offset: int = 0,
+                       scale: Optional[float] = None,
+                       return_lse: bool = False):
+    """The op on ``q, k, v``: the kernel for CUDA tensors, the fake
+    implementation for fake ones.  Returns what
+    :func:`flash_attention_cuda` returns."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    out, lse = OP(q, k, v, mask_kind, int(window), int(q_offset),
+                  float(scale), return_lse)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_cuda(q, k, v, *, mask_kind: str = "causal",
+                         window: int = 0, q_offset: int = 0,
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
+    """Launch the CUDA kernel.  Returns ``[B, Sq, H, Dv]`` bf16; with
+    ``return_lse``, ``(out, lse)`` with lse fp32 ``[B, Sq, H]``.  The
+    kernel writes ``out`` the same way either way."""
+    _build.check_plain("flash_attention_cuda", q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    return flash_attention_op(q, k, v, mask_kind=mask_kind, window=window,
+                              q_offset=q_offset, scale=scale,
+                              return_lse=return_lse)
 
 
 #: Launches of the CUDA kernel since the last reset (``launches = 0``).

@@ -29,6 +29,15 @@ taken in :func:`wide_splits` slices (:func:`slice_heads`), whose fp32
 parts a fourth CUDA kernel sums (one slice writes the bf16 gradients
 itself); in the dQ kernel each warpgroup takes half of every key tile
 and holds 64 x D of dQ, and K and V have rings of their own.
+
+The launch is the operator ``torch.ops.repro_torch.flash_attention_bwd``
+(q, k, v, out, dout, lse, mask kind, window, q offset, scale) -> (dq, dk,
+dv): its CUDA implementation launches, its fake one allocates the
+gradients and the scratch (lse and delta, and at the wide pairs the
+slices' parts, with :func:`wide_splits` at ``_build.H100_SMS`` SMs), its
+flop formula counts the five products the kernel performs.
+:func:`flash_attention_bwd_op` calls it; :func:`flash_attention_bwd_cuda`
+also refuses tensor subclasses and tensors off the card.
 """
 
 from __future__ import annotations
@@ -267,18 +276,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *,
-                             mask_kind: str = "causal", window: int = 0,
-                             q_offset: int = 0,
-                             scale: Optional[float] = None) -> tuple:
-    """Launch the CUDA kernel.  Returns ``(dq, dk, dv)``, bf16."""
-    _build.check_plain("flash_attention_bwd_cuda", q, k, v, out, dout, lse)
+def _check(q, k, v, out, dout, lse, mask_kind: str, real: bool) -> None:
+    """Raise on anything the kernel does not take; ``real`` also checks
+    what only a tensor with storage has (the device, the alignment)."""
     B, Sq, H, D = q.shape
     if k.dim() != 4 or v.dim() != 4:
         raise ValueError("k and v must be [B, Sk, KV, D]")
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     dev = q.device
-    if dev.type != "cuda":
+    if real and dev.type != "cuda":
         raise ValueError(f"q must be a CUDA tensor, got {dev}")
     if (D, Dv) not in HEAD_DIMS:
         raise ValueError(f"head dims D={D}, Dv={Dv} not supported by the "
@@ -292,28 +298,48 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *,
                            ("v", v, (B, Sk, KV, Dv)),
                            ("out", out, (B, Sq, H, Dv)),
                            ("dout", dout, (B, Sq, H, Dv))):
-        _build.check_tensor(name, t, torch.bfloat16, shape, dev)
-        if t.data_ptr() % 16:
+        _build.check_tensor(name, t, torch.bfloat16, shape, dev, real)
+        if real and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    _build.check_tensor("lse", lse, torch.float32, (B, Sq, H), dev)
-    scale = scale if scale is not None else D ** -0.5
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    _build.check_tensor("lse", lse, torch.float32, (B, Sq, H), dev, real)
+
+
+def _allocate(q, k, v, mask_kind: str, window: int, q_offset: int,
+              sms: int):
+    """``(dq, dk, dv, stats, part, splits)`` of a launch on ``sms`` SMs:
+    the gradients, lse log2(e) and delta per (batch, head) with the
+    queries padded to BM rows, and at the wide pairs with more than one
+    slice the slices' fp32 parts of dK, then dV (else None).  ``stats``
+    is None where the launch has nothing to do."""
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or Sq == 0 or Sk == 0 or H == 0:
-        # nothing to attend to, or no query to attend: zero gradients
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    # lse log2(e) and delta per (batch, head), queries padded to BM rows
-    stats = torch.empty((B, H, 2, -(-Sq // BM) * BM), dtype=torch.float32,
-                        device=dev)
+        return dq, dk, dv, None, None, 1
+    stats = q.new_empty((B, H, 2, -(-Sq // BM) * BM), dtype=torch.float32)
     splits, part = 1, None
     if (D, Dv) in WIDE_PAIRS:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         splits = wide_splits(B, Sq, Sk, H, KV, mask_kind, window, q_offset,
                              sms=sms)
-    if splits > 1:              # the slices' fp32 parts of dK, then dV
-        part = torch.empty(splits * B * Sk * KV * (D + Dv),
-                           dtype=torch.float32, device=dev)
+    if splits > 1:
+        part = q.new_empty((splits * B * Sk * KV * (D + Dv),),
+                           dtype=torch.float32)
+    return dq, dk, dv, stats, part, splits
+
+
+def _launch(q, k, v, out, dout, lse, mask_kind: str, window: int,
+            q_offset: int, scale: float):
+    """The op's CUDA implementation: check, allocate, launch."""
+    _check(q, k, v, out, dout, lse, mask_kind, True)
+    dev = q.device
+    dq, dk, dv, stats, part, splits = _allocate(
+        q, k, v, mask_kind, window, q_offset,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    if stats is None:
+        # nothing to attend to, or no query to attend: zero gradients
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     lib = _lib()
     status = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -326,6 +352,66 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *,
     _build.check(lib, status, "flash_attention_bwd")
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
+
+
+def _plain(q, k, v, out, dout, lse, mask_kind: str, window: int,
+           q_offset: int, scale: float):
+    """The op's CPU implementation: the plain formula (float32), laid out
+    as the kernel lays its outputs."""
+    return tuple(g.contiguous() for g in flash_attention_bwd_plain(
+        q, k, v, out, dout, lse, mask_kind=mask_kind, window=window,
+        q_offset=q_offset, scale=scale))
+
+
+def _fake(q, k, v, out, dout, lse, mask_kind: str, window: int,
+          q_offset: int, scale: float):
+    _check(q, k, v, out, dout, lse, mask_kind, False)
+    dq, dk, dv, stats, part, _ = _allocate(q, k, v, mask_kind, window,
+                                           q_offset, _build.H100_SMS)
+    _build.fake_scratch(stats, part)
+    return dq, dk, dv
+
+
+def flops(q_shape, k_shape, v_shape, out_shape_, dout_shape, lse_shape,
+          mask_kind, window, q_offset, scale, out_shape=None) -> int:
+    """The five products the kernel performs, over every (query, key)
+    pair as the plain formula counts them: QK^T recomputed and dO V^T (D
+    and Dv deep), dV = P^T dO, dK = dS^T Q and dQ = dS K."""
+    B, Sq, H, D = q_shape
+    Sk, Dv = k_shape[1], v_shape[-1]
+    return 2 * B * H * Sq * Sk * (3 * D + 2 * Dv)
+
+
+OP = _build.define_op(
+    "flash_attention_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor dout, Tensor lse, "
+    "str mask_kind, int window, int q_offset, float scale) "
+    "-> (Tensor, Tensor, Tensor)",
+    cuda=_launch, cpu=_plain, fake=_fake, flops=flops)
+
+
+def flash_attention_bwd_op(q, k, v, out, dout, lse, *,
+                           mask_kind: str = "causal", window: int = 0,
+                           q_offset: int = 0,
+                           scale: Optional[float] = None) -> tuple:
+    """The op: the kernel for CUDA tensors, the fake implementation for
+    fake ones.  Returns ``(dq, dk, dv)``."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return OP(q, k, v, out, dout, lse, mask_kind, int(window),
+              int(q_offset), float(scale))
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *,
+                             mask_kind: str = "causal", window: int = 0,
+                             q_offset: int = 0,
+                             scale: Optional[float] = None) -> tuple:
+    """Launch the CUDA kernel.  Returns ``(dq, dk, dv)``, bf16."""
+    _build.check_plain("flash_attention_bwd_cuda", q, k, v, out, dout, lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"q must be a CUDA tensor, got {q.device}")
+    return flash_attention_bwd_op(q, k, v, out, dout, lse,
+                                  mask_kind=mask_kind, window=window,
+                                  q_offset=q_offset, scale=scale)
 
 
 #: Launches of the CUDA kernel since the last reset (``launches = 0``).

@@ -4,10 +4,14 @@
 ``moe_combine``, ``moe_apply``).
 
 ``backend="kernel"`` (the default) routes by where the tensors lie: a CUDA
-tensor goes to the hand-written CUDA kernel, which launches or raises; a
-CPU tensor goes to the kernel's plain version.  ``backend="ref"`` asks for
-the plain version on any device, as ``backend="ref"`` does in the JAX
-package; comparisons with the kernels use it.  The single-token decode
+tensor goes to the hand-written CUDA kernel through its operator
+(``torch.ops.repro_torch.*``), which launches or raises; a CPU tensor
+goes to the kernel's plain version.  A fake tensor (the dry-run's, under
+``FakeTensorMode``) goes to the operator on any device: its fake
+implementation allocates what a launch on the card allocates, so a trace
+of the ``kernel`` backend follows the card's path.  ``backend="ref"``
+asks for the plain version on any device, as ``backend="ref"`` does in
+the JAX package; comparisons with the kernels use it.  The single-token decode
 steps and the MoE dispatch are plain tensor code, as in the JAX package
 (which leaves the MoE's sort, scatter and products to XLA); the
 dispatch's and the combine's row gathers are autograd functions
@@ -42,22 +46,33 @@ from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
-from .decode_attention import decode_attention_cuda, decode_attention_plain
-from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .decode_attention import (
+    decode_attention_cuda,
+    decode_attention_op,
+    decode_attention_plain,
+)
+from .flash_attention import (
+    flash_attention_cuda,
+    flash_attention_op,
+    flash_attention_plain,
+)
 from .flash_attention_bwd import (
     flash_attention_bwd_cuda,
+    flash_attention_bwd_op,
     flash_attention_bwd_plain,
 )
 from .local import each_rank
-from .rglru_scan import rglru_cuda, rglru_plain
-from .rglru_scan_bwd import rglru_bwd_cuda, rglru_bwd_plain
-from .ssd_scan import ssd_cuda, ssd_plain
-from .ssd_scan_bwd import ssd_bwd_cuda, ssd_bwd_plain
+from .rglru_scan import rglru_cuda, rglru_op, rglru_plain
+from .rglru_scan_bwd import rglru_bwd_cuda, rglru_bwd_op, rglru_bwd_plain
+from .ssd_scan import ssd_cuda, ssd_op, ssd_plain
+from .ssd_scan_bwd import ssd_bwd_cuda, ssd_bwd_op, ssd_bwd_plain
 
 BACKENDS = ("kernel", "ref")
 
-#: Every kernel wrapper, by the kernel's name.
+#: Every kernel wrapper, by the kernel's name; each counts its kernel's
+#: launches (``launches``), however the kernel's operator was reached.
 KERNELS = {"flash_attention": flash_attention_cuda,
            "flash_attention_bwd": flash_attention_bwd_cuda,
            "decode_attention": decode_attention_cuda,
@@ -74,7 +89,8 @@ def _use_kernel(backend: str, x: torch.Tensor) -> bool:
         raise TypeError("a DTensor reached a kernel call; under a mesh the "
                         "kernels run inside local_map "
                         "(repro_torch.sharding.calls)")
-    return backend == "kernel" and x.device.type == "cuda"
+    return backend == "kernel" and (x.device.type == "cuda"
+                                    or isinstance(x, FakeTensor))
 
 
 def _is_dtensor(x) -> bool:
@@ -103,7 +119,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask_kind, window, q_offset, scale, kernel):
-        fwd = flash_attention_cuda if kernel else flash_attention_plain
+        fwd = flash_attention_op if kernel else flash_attention_plain
         out, lse = each_rank(
             lambda r, q, k, v: fwd(q, k, v, mask_kind=mask_kind,
                                    window=window,
@@ -118,7 +134,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_cuda if ctx.kernel \
+        bwd = flash_attention_bwd_op if ctx.kernel \
             else flash_attention_bwd_plain
         args = dict(ctx.args)
         off = args.pop("q_offset")
@@ -138,7 +154,7 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bmat, Cmat, initial_state, chunk, kernel):
-        fwd = ssd_cuda if kernel else ssd_plain
+        fwd = ssd_op if kernel else ssd_plain
         y, state = each_rank(
             lambda r, x, dt, A, Bmat, Cmat, h0: fwd(
                 x, dt, A, Bmat, Cmat, chunk=chunk, initial_state=h0),
@@ -153,7 +169,7 @@ class SSDScan(torch.autograd.Function):
         x, dt, A, Bmat, Cmat, h0 = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        bwd = ssd_bwd_cuda if ctx.kernel else ssd_bwd_plain
+        bwd = ssd_bwd_op if ctx.kernel else ssd_bwd_plain
         chunk = ctx.chunk
         grads = each_rank(
             lambda r, h0, *ts: bwd(*ts, chunk=chunk, initial_state=h0),
@@ -175,8 +191,8 @@ class RGLRUScan(torch.autograd.Function):
     def forward(ctx, x, gate_a, gate_i, log_a, initial_state, c, kernel):
         def fwd(r, x, gate_a, gate_i, log_a, h0):
             if kernel:
-                return rglru_cuda(x, gate_a, gate_i, log_a, initial_state=h0,
-                                  c=c, entering=True)
+                return rglru_op(x, gate_a, gate_i, log_a, initial_state=h0,
+                                c=c, entering=True)
             return (*rglru_plain(x, gate_a, gate_i, log_a, initial_state=h0,
                                  c=c), None)
 
@@ -197,8 +213,8 @@ class RGLRUScan(torch.autograd.Function):
 
         def bwd(r, entering, h0, *args):
             if kernel:
-                return rglru_bwd_cuda(*args, entering=entering,
-                                      initial_state=h0, c=c)
+                return rglru_bwd_op(*args, entering=entering,
+                                    initial_state=h0, c=c)
             return rglru_bwd_plain(*args, initial_state=h0, c=c)
 
         grads = each_rank(bwd, entering, h0, x, gate_a, gate_i, log_a,
@@ -224,7 +240,7 @@ def flash_attention(
         scale = scale if scale is not None else q.shape[-1] ** -0.5
         return FlashAttention.apply(q, k, v, mask_kind, window, q_offset,
                                     scale, kernel)
-    fn = flash_attention_cuda if kernel else flash_attention_plain
+    fn = flash_attention_op if kernel else flash_attention_plain
     return each_rank(
         lambda r, q, k, v: fn(q, k, v, mask_kind=mask_kind, window=window,
                               q_offset=_offset(q_offset, r), scale=scale),
@@ -244,7 +260,7 @@ def decode_attention(
     """Single-token attention against a padded KV cache.  [B, H, Dv]; with
     ``return_lse``, ``(out, lse)`` with lse fp32 [B, H] (-inf for a row of
     length 0)."""
-    fn = decode_attention_cuda if _use_kernel(backend, q) \
+    fn = decode_attention_op if _use_kernel(backend, q) \
         else decode_attention_plain
     return each_rank(
         lambda r, q, k, v, n: fn(q, k, v, n, scale=scale,
@@ -268,7 +284,7 @@ def ssd(
     if _needs_grad(x, dt, A, Bmat, Cmat, initial_state):
         return SSDScan.apply(x, dt, A, Bmat, Cmat, initial_state, chunk,
                              kernel)
-    fn = ssd_cuda if kernel else ssd_plain
+    fn = ssd_op if kernel else ssd_plain
     return each_rank(
         lambda r, x, dt, A, Bmat, Cmat, h0: fn(x, dt, A, Bmat, Cmat,
                                                chunk=chunk, initial_state=h0),
@@ -310,7 +326,7 @@ def rglru(
     if _needs_grad(x, gate_a, gate_i, log_a, initial_state):
         return RGLRUScan.apply(x, gate_a, gate_i, log_a, initial_state, c,
                                kernel)
-    fn = rglru_cuda if kernel else rglru_plain
+    fn = rglru_op if kernel else rglru_plain
     return each_rank(
         lambda r, x, gate_a, gate_i, log_a, h0: fn(
             x, gate_a, gate_i, log_a, initial_state=h0, c=c),

@@ -43,6 +43,15 @@ tests: one CTA per (batch, tile of ``TILE`` channels) walks its chunks of
 entering state, its ``WARPS`` warps taking sub-segments of ``CHUNK //
 WARPS`` steps; each chunk's inputs arrive in one of ``STAGES`` shared-
 memory buffers, and its gradients leave from the same buffer.
+
+The launch is the operator ``torch.ops.repro_torch.rglru_scan_bwd`` (x,
+gate_a, gate_i, log_a, dh, dstate or None, entering, initial_state or
+None, c) -> (dx, d gate_a, d gate_i, d log_a, d initial_state), the last
+empty without an initial state: its CUDA implementation launches, its
+fake one allocates the gradients and the scratch (each batch row's d
+log_a; the grid needs no device query), its flop formula counts no
+products.  :func:`rglru_bwd_op` calls it; :func:`rglru_bwd_cuda` also
+refuses tensor subclasses and tensors off the card.
 """
 
 from __future__ import annotations
@@ -125,6 +134,118 @@ def occupancy(tma: bool = True) -> int:
     return blocks.value
 
 
+def _check(x, gate_a, gate_i, log_a, dh, dstate, entering, initial_state,
+           real: bool) -> None:
+    """Raise on anything the kernel does not take (``real`` also checks
+    the device)."""
+    if x.dim() != 3:
+        raise ValueError("x must be [B, S, C]")
+    B, S, C = x.shape
+    dev = x.device
+    if real and dev.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {dev}")
+    args = [("x", x, torch.bfloat16, (B, S, C)),
+            ("gate_a", gate_a, torch.float32, (B, S, C)),
+            ("gate_i", gate_i, torch.float32, (B, S, C)),
+            ("log_a", log_a, torch.float32, (C,)),
+            ("dh", dh, torch.bfloat16, (B, S, C)),
+            ("entering", entering, torch.float32, (B, -(-S // CHUNK), C))]
+    if dstate is not None:
+        args.append(("dstate", dstate, torch.float32, (B, C)))
+    if initial_state is not None:
+        args.append(("initial_state", initial_state, torch.float32, (B, C)))
+    for name, t, dtype, shape in args:
+        _build.check_tensor(name, t, dtype, shape, dev, real)
+    if S * C >= 2 ** 31:
+        raise ValueError(f"S * C = {S * C} must be under 2^31 (the kernel's "
+                         f"offsets within a batch row are 32-bit)")
+
+
+def _allocate(x, gate_a, gate_i, log_a, initial_state):
+    """The gradients (d initial_state empty without one) and each batch
+    row's d log_a (scratch; None where the launch has nothing to do)."""
+    B, S, C = x.shape
+    grads = (torch.empty_like(x), torch.empty_like(gate_a),
+             torch.empty_like(gate_i), torch.empty_like(log_a),
+             x.new_empty((B, C), dtype=torch.float32)
+             if initial_state is not None else _build.nothing(x))
+    if B == 0 or C == 0:
+        return grads, None
+    return grads, x.new_empty((B, C), dtype=torch.float32)
+
+
+def _launch(x, gate_a, gate_i, log_a, dh, dstate, entering, initial_state,
+            c: float):
+    """The op's CUDA implementation: check, allocate, launch."""
+    _check(x, gate_a, gate_i, log_a, dh, dstate, entering, initial_state,
+           True)
+    (dx, dga, dgi, dla, dh0), partial = _allocate(x, gate_a, gate_i, log_a,
+                                                  initial_state)
+    if partial is None:
+        return dx, dga, dgi, dla.zero_(), dh0
+    B, S, C = x.shape
+    dev = x.device
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    lib = _lib()
+    status = lib.rglru_scan_bwd(
+        ptr(x), ptr(gate_a), ptr(gate_i), ptr(log_a), ptr(dh), ptr(dstate),
+        ptr(entering), ptr(dx), ptr(dga), ptr(dgi), ptr(dla),
+        ptr(dh0 if initial_state is not None else None),
+        ptr(partial), B, S, C, float(c), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, status, "rglru_scan_bwd")
+    rglru_bwd_cuda.launches += 1
+    return dx, dga, dgi, dla, dh0
+
+
+def _plain(x, gate_a, gate_i, log_a, dh, dstate, entering, initial_state,
+           c: float):
+    """The op's CPU implementation: the plain formula (float32; it
+    recomputes the states, so ``entering`` is not read), laid out as the
+    kernel lays its outputs."""
+    grads = rglru_bwd_plain(x, gate_a, gate_i, log_a, dh, dstate,
+                            initial_state=initial_state, c=c)
+    return tuple(_build.nothing(x) if g is None
+                 else g.clone(memory_format=torch.contiguous_format)
+                 for g in grads)
+
+
+def _fake(x, gate_a, gate_i, log_a, dh, dstate, entering, initial_state,
+          c: float):
+    _check(x, gate_a, gate_i, log_a, dh, dstate, entering, initial_state,
+           False)
+    grads, partial = _allocate(x, gate_a, gate_i, log_a, initial_state)
+    _build.fake_scratch(partial)
+    return grads
+
+
+def flops(*shapes, out_shape=None) -> int:
+    """No products: the reverse scan is elementwise."""
+    return 0
+
+
+OP = _build.define_op(
+    "rglru_scan_bwd",
+    "(Tensor x, Tensor gate_a, Tensor gate_i, Tensor log_a, Tensor dh, "
+    "Tensor? dstate, Tensor entering, Tensor? initial_state, float c) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cuda=_launch, cpu=_plain, fake=_fake, flops=flops)
+
+
+def rglru_bwd_op(x, gate_a, gate_i, log_a, dh, dstate=None, *,
+                 entering: torch.Tensor,
+                 initial_state: Optional[torch.Tensor] = None,
+                 c: float = 8.0) -> Tuple:
+    """The op: the kernel for CUDA tensors, the fake implementation for
+    fake ones.  Returns what :func:`rglru_bwd_cuda` returns."""
+    grads = OP(x, gate_a, gate_i, log_a, dh, dstate, entering,
+               initial_state, float(c))
+    return grads[:4] + ((grads[4] if initial_state is not None else None),)
+
+
 def rglru_bwd_cuda(x, gate_a, gate_i, log_a, dh, dstate=None, *,
                    entering: torch.Tensor,
                    initial_state: Optional[torch.Tensor] = None,
@@ -138,48 +259,10 @@ def rglru_bwd_cuda(x, gate_a, gate_i, log_a, dh, dstate=None, *,
                         entering, initial_state)
     if x.dim() != 3:
         raise ValueError("x must be [B, S, C]")
-    B, S, C = x.shape
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"x must be a CUDA tensor, got {dev}")
-    args = [("x", x, torch.bfloat16, (B, S, C)),
-            ("gate_a", gate_a, torch.float32, (B, S, C)),
-            ("gate_i", gate_i, torch.float32, (B, S, C)),
-            ("log_a", log_a, torch.float32, (C,)),
-            ("dh", dh, torch.bfloat16, (B, S, C)),
-            ("entering", entering, torch.float32, (B, -(-S // CHUNK), C))]
-    if dstate is not None:
-        args.append(("dstate", dstate, torch.float32, (B, C)))
-    if initial_state is not None:
-        args.append(("initial_state", initial_state, torch.float32, (B, C)))
-    for name, t, dtype, shape in args:
-        _build.check_tensor(name, t, dtype, shape, dev)
-    if S * C >= 2 ** 31:
-        raise ValueError(f"S * C = {S * C} must be under 2^31 (the kernel's "
-                         f"offsets within a batch row are 32-bit)")
-    dx = torch.empty_like(x)
-    dga = torch.empty_like(gate_a)
-    dgi = torch.empty_like(gate_i)
-    dla = torch.empty_like(log_a)
-    dh0 = torch.empty((B, C), dtype=torch.float32, device=dev) \
-        if initial_state is not None else None
-    if B == 0 or C == 0:
-        return dx, dga, dgi, dla.zero_(), dh0
-    # each batch row's d log_a
-    partial = torch.empty((B, C), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
-    lib = _lib()
-    status = lib.rglru_scan_bwd(
-        ptr(x), ptr(gate_a), ptr(gate_i), ptr(log_a), ptr(dh), ptr(dstate),
-        ptr(entering), ptr(dx), ptr(dga), ptr(dgi), ptr(dla), ptr(dh0),
-        ptr(partial), B, S, C, float(c), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, status, "rglru_scan_bwd")
-    rglru_bwd_cuda.launches += 1
-    return dx, dga, dgi, dla, dh0
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    return rglru_bwd_op(x, gate_a, gate_i, log_a, dh, dstate,
+                        entering=entering, initial_state=initial_state, c=c)
 
 
 #: Launches of the CUDA kernel since the last reset (``launches = 0``).

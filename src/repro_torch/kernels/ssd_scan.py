@@ -11,6 +11,13 @@ P, N]`` fp32), checks them, allocates y (bf16) and the final state (fp32)
 and launches on PyTorch's current stream.  Unlike the Pallas kernel it
 takes ``initial_state`` itself.  It raises on anything the kernel does not
 take; it never falls back to the plain version.
+
+The launch is the operator ``torch.ops.repro_torch.ssd_scan`` (x, dt, A,
+B, C, initial_state or None, chunk) -> (y, state): its CUDA implementation
+launches, its fake one allocates the same outputs (the kernel needs no
+scratch), its flop formula (:func:`flops`) counts the products the kernel
+issues.  :func:`ssd_op` calls it; :func:`ssd_cuda` also refuses tensor
+subclasses and tensors off the card.
 """
 
 from __future__ import annotations
@@ -134,12 +141,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def ssd_cuda(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
-             initial_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel.  Returns (y ``[B, S, H, P]`` bf16, final
-    state ``[B, H, P, N]`` fp32)."""
-    _build.check_plain("ssd_cuda", x, dt, A, Bmat, Cmat, initial_state)
+def _check(x, dt, A, Bmat, Cmat, initial_state, chunk: int,
+           real: bool) -> int:
+    """Raise on anything the kernel does not take (``real`` also checks
+    the device); returns the chunk the kernel runs."""
     if x.dim() != 4 or Bmat.dim() != 4:
         raise ValueError("x must be [B, S, H, P] and B, C [B, S, G, N]")
     Bsz, S, H, P = x.shape
@@ -153,7 +158,7 @@ def ssd_cuda(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
         args.append(("initial_state", initial_state, torch.float32,
                      (Bsz, H, P, N)))
     for name, t, dtype, shape in args:
-        _build.check_tensor(name, t, dtype, shape, x.device)
+        _build.check_tensor(name, t, dtype, shape, x.device, real)
     if G == 0 or H % G:
         raise ValueError(f"n_heads {H} is not a multiple of n_groups {G}")
     Q = _chunk_len(S, chunk)
@@ -170,9 +175,22 @@ def ssd_cuda(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
         raise ValueError(f"a [{P}, {N}] state does not fit the kernel's "
                          f"registers (at most {_MAX_STATE_TILES} n8 tiles "
                          f"per warp)")
+    return Q
+
+
+def _outputs(x, Bmat):
+    Bsz, _, H, P = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((Bsz, H, P, Bmat.shape[3]), dtype=torch.float32))
+
+
+def _launch(x, dt, A, Bmat, Cmat, initial_state, chunk: int):
+    """The op's CUDA implementation: check, allocate, launch."""
+    Q = _check(x, dt, A, Bmat, Cmat, initial_state, chunk, True)
+    Bsz, S, H, P = x.shape
+    G, N = Bmat.shape[2], Bmat.shape[3]
     lib = _lib()
-    y = torch.empty_like(x)
-    state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    y, state = _outputs(x, Bmat)
     if Bsz == 0 or H == 0:
         return y, state
     status = lib.ssd_scan_fwd(
@@ -184,6 +202,62 @@ def ssd_cuda(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
     _build.check(lib, status, "ssd_scan_fwd")
     ssd_cuda.launches += 1
     return y, state
+
+
+def _plain(x, dt, A, Bmat, Cmat, initial_state, chunk: int):
+    """The op's CPU implementation: the plain version, laid out as the
+    kernel lays its outputs."""
+    y, state = ssd_plain(x, dt, A, Bmat, Cmat, chunk=chunk,
+                         initial_state=initial_state)
+    return (y.clone(memory_format=torch.contiguous_format),
+            state.clone(memory_format=torch.contiguous_format))
+
+
+def _fake(x, dt, A, Bmat, Cmat, initial_state, chunk: int):
+    _check(x, dt, A, Bmat, Cmat, initial_state, chunk, False)
+    return _outputs(x, Bmat)
+
+
+def flops(x_shape, dt_shape, A_shape, B_shape, C_shape, h0_shape, chunk,
+          out_shape=None) -> int:
+    """The products the kernel issues, Q, P and N padded to 16: per
+    (batch, head, chunk) C B^T and L x on the 16 x 16 blocks on and
+    below the diagonal (T (T + 1) / 2 of them, T = Q / 16), C state^T
+    and the chunk's state update (x o w)^T B."""
+    Bsz, S, H, P = x_shape
+    N = B_shape[3]
+    Q = _chunk_len(S, chunk)
+    Qp, Pp, Np = _round16(Q), _round16(P), _round16(N)
+    T = Qp // 16
+    per_chunk = T * (T + 1) // 2 * 256 * (Np + Pp) + 2 * Qp * Pp * Np
+    return 2 * Bsz * H * (S // Q) * per_chunk
+
+
+OP = _build.define_op(
+    "ssd_scan",
+    "(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, "
+    "Tensor? initial_state, int chunk) -> (Tensor, Tensor)",
+    cuda=_launch, cpu=_plain, fake=_fake, flops=flops)
+
+
+def ssd_op(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
+           initial_state: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op: the kernel for CUDA tensors, the fake implementation for
+    fake ones.  Returns ``(y, state)``."""
+    return OP(x, dt, A, Bmat, Cmat, initial_state, int(chunk))
+
+
+def ssd_cuda(x, dt, A, Bmat, Cmat, *, chunk: int = 128,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel.  Returns (y ``[B, S, H, P]`` bf16, final
+    state ``[B, H, P, N]`` fp32)."""
+    _build.check_plain("ssd_cuda", x, dt, A, Bmat, Cmat, initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    return ssd_op(x, dt, A, Bmat, Cmat, chunk=chunk,
+                  initial_state=initial_state)
 
 
 #: Launches of the CUDA kernel since the last reset (``launches = 0``).

@@ -39,6 +39,15 @@ carry their [P, N] state in registers as the forward does) mirror the
 kernel's layouts and tiling so that CPU tests can check them;
 :func:`flops` counts the products the gradients need and those the
 kernel issues, for its bound.
+
+The launch is the operator ``torch.ops.repro_torch.ssd_scan_bwd`` (x, dt,
+A, B, C, dy, dstate or None, initial_state or None, chunk) -> (dx, ddt,
+dA, dB, dC, dh0), dh0 empty without an initial state: its CUDA
+implementation launches, its fake one allocates the gradients and the
+scratch (planned for ``_build.H100_SMS`` SMs), its flop formula counts
+the products the kernels issue (:func:`flops`' design count).
+:func:`ssd_bwd_op` calls it; :func:`ssd_bwd_cuda` also refuses tensor
+subclasses and tensors off the card.
 """
 
 from __future__ import annotations
@@ -335,13 +344,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def ssd_bwd_cuda(x, dt, A, Bmat, Cmat, dy, dstate=None, *, chunk: int = 128,
-                 initial_state: Optional[torch.Tensor] = None) -> tuple:
-    """Launch the CUDA kernel.  Returns ``(dx, ddt, dA, dB, dC, dh0)``:
-    bf16, fp32, fp32, bf16, bf16 and fp32 (None without
-    ``initial_state``).  ``dstate`` None counts as zeros."""
-    _build.check_plain("ssd_bwd_cuda", x, dt, A, Bmat, Cmat, dy, dstate,
-                        initial_state)
+def _check(x, dt, A, Bmat, Cmat, dy, dstate, initial_state, chunk: int,
+           real: bool) -> int:
+    """Raise on anything the kernels do not take (``real`` also checks
+    the device); returns the chunk the kernels run."""
     if x.dim() != 4 or Bmat.dim() != 4:
         raise ValueError("x must be [B, S, H, P] and B, C [B, S, G, N]")
     Bsz, S, H, P = x.shape
@@ -358,7 +364,7 @@ def ssd_bwd_cuda(x, dt, A, Bmat, Cmat, dy, dstate=None, *, chunk: int = 128,
     if initial_state is not None:
         args.append(("initial_state", initial_state, torch.float32, state))
     for name, t, dtype, shape in args:
-        _build.check_tensor(name, t, dtype, shape, x.device)
+        _build.check_tensor(name, t, dtype, shape, x.device, real)
     if G == 0 or H % G:
         raise ValueError(f"n_heads {H} is not a multiple of n_groups {G}")
     Q = _chunk_len(S, chunk)
@@ -372,38 +378,56 @@ def ssd_bwd_cuda(x, dt, A, Bmat, Cmat, dy, dstate=None, *, chunk: int = 128,
         raise ValueError(f"chunk {Q}, head dim {P}, state dim {N} need "
                          f"{smem} bytes of shared memory (at most "
                          f"{MAX_SMEM})")
+    return Q
+
+
+def _allocate(x, dt, A, Bmat, Cmat, initial_state, Q: int, sms: int):
+    """The gradients (dh0 empty without an initial state) and, where the
+    launch has work, its scratch and R (:func:`plan` on ``sms`` SMs):
+    ``(grads, scratch or None, R)``.  Scratch: the states entering each
+    chunk and the gradients of the states leaving it (bf16 [P, N], rows
+    padded to 64 and columns to 16; the walks write rows up to P padded
+    to 16, the rest stays zeros), each chunk's dt and cum (fp32, rows
+    padded to 64), one dB and dC partial per head slice and dA per
+    (batch, head, chunk); summed in a fixed order, no atomics."""
+    Bsz, S, H, P = x.shape
+    G, N = Bmat.shape[2], Bmat.shape[3]
+    grads = (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
+             torch.empty_like(Bmat), torch.empty_like(Cmat),
+             x.new_empty((Bsz, H, P, N), dtype=torch.float32)
+             if initial_state is not None else _build.nothing(x))
+    if Bsz == 0 or H == 0:
+        return grads, None, 0
+    nc = S // Q
+    R = plan(Bsz, nc, H, G, sms)
+    n_sl = -(-(H // G) // R)
+    f32 = dict(dtype=torch.float32)
+    P64, Pp, Np = _round64(P), _round16(P), _round16(N)
+    alloc = x.new_zeros if P64 > Pp else x.new_empty
+    scratch = (alloc((Bsz, H, nc, P64, Np)),                  # states
+               alloc((Bsz, H, nc, P64, Np)),                  # dstates
+               x.new_empty((Bsz, H, nc, 2, _round64(Q)), **f32),
+               x.new_empty((Bsz, S, G * n_sl, N), **f32),     # part_b
+               x.new_empty((Bsz, S, G * n_sl, N), **f32),     # part_c
+               x.new_empty((Bsz, H, nc), **f32))              # part_a
+    return grads, scratch, R
+
+
+def _launch(x, dt, A, Bmat, Cmat, dy, dstate, initial_state, chunk: int):
+    """The op's CUDA implementation: check, allocate, launch."""
+    Q = _check(x, dt, A, Bmat, Cmat, dy, dstate, initial_state, chunk, True)
     lib = _lib()
     dev = x.device
-    nc = S // Q
-    dx = torch.empty_like(x)
-    ddt = torch.empty_like(dt)
-    dA = torch.empty_like(A)
-    dB = torch.empty_like(Bmat)
-    dC = torch.empty_like(Cmat)
-    dh0 = torch.empty(state, dtype=torch.float32, device=dev) \
-        if initial_state is not None else None
-    if Bsz == 0 or H == 0:
+    (dx, ddt, dA, dB, dC, dh0), scratch, R = _allocate(
+        x, dt, A, Bmat, Cmat, initial_state, Q,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    if scratch is None:
         for t in (dA, dB, dC):
             t.zero_()
         return dx, ddt, dA, dB, dC, dh0
-    R = plan(Bsz, nc, H, G,
-             torch.cuda.get_device_properties(dev).multi_processor_count)
-    n_sl = -(-(H // G) // R)
-    f32 = dict(dtype=torch.float32, device=dev)
-    # Scratch: the states entering each chunk and the gradients of the
-    # states leaving it (bf16 [P, N], rows padded to 64 and columns to 16;
-    # the walks write rows up to P padded to 16, the rest stays zeros),
-    # each chunk's dt and cum (fp32, rows padded to 64), one dB and dC
-    # partial per head slice and dA per (batch, head, chunk); summed in a
-    # fixed order, no atomics.
-    P64, Pp, Np = _round64(P), _round16(P), _round16(N)
-    alloc = torch.zeros if P64 > Pp else torch.empty
-    states = alloc((Bsz, H, nc, P64, Np), dtype=torch.bfloat16, device=dev)
-    dstates = alloc((Bsz, H, nc, P64, Np), dtype=torch.bfloat16, device=dev)
-    dtc = torch.empty((Bsz, H, nc, 2, _round64(Q)), **f32)
-    part_b = torch.empty((Bsz, S, G * n_sl, N), **f32)
-    part_c = torch.empty((Bsz, S, G * n_sl, N), **f32)
-    part_a = torch.empty((Bsz, H, nc), **f32)
+    states, dstates, dtc, part_b, part_c, part_a = scratch
+    Bsz, S, H, P = x.shape
+    G, N = Bmat.shape[2], Bmat.shape[3]
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -414,11 +438,66 @@ def ssd_bwd_cuda(x, dt, A, Bmat, Cmat, dy, dstate=None, *, chunk: int = 128,
         states.data_ptr(), dstates.data_ptr(), dtc.data_ptr(),
         part_b.data_ptr(), part_c.data_ptr(), part_a.data_ptr(),
         dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), ptr(dh0), Bsz, S, H, P, G, N, Q, R, dev.index,
+        dC.data_ptr(), ptr(dh0 if initial_state is not None else None),
+        Bsz, S, H, P, G, N, Q, R, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "ssd_scan_bwd")
     ssd_bwd_cuda.launches += 1
     return dx, ddt, dA, dB, dC, dh0
+
+
+def _plain(x, dt, A, Bmat, Cmat, dy, dstate, initial_state, chunk: int):
+    """The op's CPU implementation: the plain formula (float32), laid out
+    as the kernel lays its outputs."""
+    grads = ssd_bwd_plain(x, dt, A, Bmat, Cmat, dy, dstate, chunk=chunk,
+                          initial_state=initial_state)
+    return tuple(_build.nothing(x) if g is None
+                 else g.clone(memory_format=torch.contiguous_format)
+                 for g in grads)
+
+
+def _fake(x, dt, A, Bmat, Cmat, dy, dstate, initial_state, chunk: int):
+    Q = _check(x, dt, A, Bmat, Cmat, dy, dstate, initial_state, chunk, False)
+    grads, scratch, _ = _allocate(x, dt, A, Bmat, Cmat, initial_state, Q,
+                                  _build.H100_SMS)
+    _build.fake_scratch(*(scratch or ()))
+    return grads
+
+
+def _flops(x_shape, dt_shape, A_shape, B_shape, C_shape, dy_shape,
+           dstate_shape, h0_shape, chunk, out_shape=None) -> int:
+    Bsz, S, H, P = x_shape
+    G, N = B_shape[2], B_shape[3]
+    return int(flops(Bsz, S, H, P, G, N, chunk, _build.H100_SMS)[1])
+
+
+OP = _build.define_op(
+    "ssd_scan_bwd",
+    "(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor dy, "
+    "Tensor? dstate, Tensor? initial_state, int chunk) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cuda=_launch, cpu=_plain, fake=_fake, flops=_flops)
+
+
+def ssd_bwd_op(x, dt, A, Bmat, Cmat, dy, dstate=None, *, chunk: int = 128,
+               initial_state: Optional[torch.Tensor] = None) -> tuple:
+    """The op: the kernels for CUDA tensors, the fake implementation for
+    fake ones.  Returns what :func:`ssd_bwd_cuda` returns."""
+    grads = OP(x, dt, A, Bmat, Cmat, dy, dstate, initial_state, int(chunk))
+    return grads[:5] + ((grads[5] if initial_state is not None else None),)
+
+
+def ssd_bwd_cuda(x, dt, A, Bmat, Cmat, dy, dstate=None, *, chunk: int = 128,
+                 initial_state: Optional[torch.Tensor] = None) -> tuple:
+    """Launch the CUDA kernel.  Returns ``(dx, ddt, dA, dB, dC, dh0)``:
+    bf16, fp32, fp32, bf16, bf16 and fp32 (None without
+    ``initial_state``).  ``dstate`` None counts as zeros."""
+    _build.check_plain("ssd_bwd_cuda", x, dt, A, Bmat, Cmat, dy, dstate,
+                        initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    return ssd_bwd_op(x, dt, A, Bmat, Cmat, dy, dstate, chunk=chunk,
+                      initial_state=initial_state)
 
 
 #: Launches of the CUDA kernel since the last reset (``launches = 0``).

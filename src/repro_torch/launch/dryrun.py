@@ -5,7 +5,7 @@ record its roofline terms per device.
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b \\
-        --shape train_4k
+        --shape train_4k [--backend kernel|ref]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] \\
         [--out artifacts/dryrun_torch] [--scenario poisson-open --seed 3]
 
@@ -15,9 +15,16 @@ fake backend: collectives return at once, nothing is sent) under
 the reference compiles for 512 placeholder host devices.  The step is
 built on the (16, 16) ``("data", "model")`` mesh, or (2, 16, 16) with
 ``--multi-pod``; its arguments are DTensors whose local shards are fake
-tensors of each rank's shape; it is traced once, eagerly, with the
-``ref`` backend (the kernels' plain versions: a fake tensor has no
-storage for a kernel to read), as the reference traces ``backend="xla"``.
+tensors of each rank's shape; it is traced once, eagerly, on the step's
+default backend, ``kernel``, as the reference traces its own default
+(``backend="xla"``): ``local_map`` hands rank 0's fake shards to each
+kernel's operator (``torch.ops.repro_torch.*``; the model's ops send a
+fake tensor there on any device), whose fake implementation allocates
+the launch's outputs and scratch.  The mesh and the fake tensors are
+``cpu`` ones: a CPU-only build cannot run autograd or indexing on fake
+CUDA tensors.  ``--backend ref`` traces the kernels' plain versions
+instead (their S x S attention scores included): the parity trace,
+written under ``<out>/ref/``.
 A dispatch mode under DTensor sees the local ops of rank 0 and counts:
 
 * ``cost_analysis.flops``: per-device flops of every product
@@ -29,7 +36,8 @@ A dispatch mode under DTensor sees the local ops of rank 0 and counts:
 * ``memory_analysis``: the local bytes of the arguments (params,
   optimizer state, batch or caches), of the outputs, of outputs that are
   arguments updated in place (``alias``), and the peak of live storages
-  made during the trace (``temp``; ``peak_bytes`` adds the arguments);
+  made during the trace (``temp``; ``peak_bytes`` adds the arguments),
+  a kernel's scratch live beside its outputs at its launch;
 * ``collectives``: bytes (each collective's local result) and counts by
   kind, and ``collectives_by_axis`` by mesh axis;
 * ``trace_s``: the trace's wall time on the host.
@@ -38,7 +46,8 @@ Eager tracing runs every layer, so the totals are the whole step (the
 reference corrects XLA's once-per-loop count with its probes).  The
 probes (``lm.apply_unit`` / ``decode_unit`` / the encoder's layer, one
 repeat each) are traced too, for the per-unit view and as a consistency
-check.  Each cell writes ``<out>/<mesh>/<arch>__<shape>.json``.
+check.  Each cell writes ``<out>/<mesh>/<arch>__<shape>.json`` (a
+``ref`` trace ``<out>/ref/<mesh>/...``).
 """
 
 from __future__ import annotations
@@ -57,15 +66,27 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs import ARCHS, SHAPES, get_arch
-from ..configs.shapes import SHAPE_ORDER, shape_applicable
+from ..configs.base import ArchConfig
+from ..configs.shapes import SHAPE_ORDER, InputShape, shape_applicable
 from ..core.predictor import staircase_runtime
 from ..core.scenarios import make_scenario, open_loop_names
+from ..kernels import _build
 from ..tree import leaves, leaves_with_path, tree_map
 from .mesh import _mesh, make_production_mesh
 from .steps import Struct, build_step, build_unit_probes
 
 #: The fake world: enough ranks for the multi-pod mesh.
 WORLD = 512
+#: The backends a cell is traced on (``--backend``).
+BACKENDS = ("kernel", "ref")
+TRACED = {
+    "kernel": "eager, backend=kernel (the CUDA kernels' operators through "
+              "their fake implementations, each launch's scratch counted), "
+              "FakeTensorMode, fake process group; counts are rank 0's "
+              "local ops",
+    "ref": "eager, backend=ref (plain versions), FakeTensorMode, fake "
+           "process group; counts are rank 0's local ops",
+}
 
 _KINDS = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
           "reduce_scatter_tensor": "reduce-scatter",
@@ -100,6 +121,9 @@ class _Trace:
         self.peak = 0
         self._sizes: Dict[int, int] = {}
         self._meta = 0
+        self._scratch = 0
+        #: The op at which the peak was last raised (not recorded).
+        self.peak_op = ""
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -142,8 +166,18 @@ class _Trace:
         ins = [t for t in tree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
         self.bytes += sum(_nbytes(t) for t in ins + outs)
+        peak = self.peak
         for t in outs:
             self.hold(t)
+        if self._scratch:           # a launch's scratch, freed on return
+            self.peak = max(self.peak, self.live + self._scratch)
+            self._scratch = 0
+        if self.peak > peak:
+            self.peak_op = f"{func} in {_port_frame()}"
+
+    def _add_scratch(self, tensors) -> None:
+        if not self._meta:
+            self._scratch += sum(_nbytes(t) for t in tensors)
 
     def hold(self, t: torch.Tensor) -> None:
         """Count ``t``'s storage as live until it is freed."""
@@ -163,10 +197,14 @@ class _Trace:
     @contextlib.contextmanager
     def active(self):
         """The counting mode, with DTensor's own bookkeeping left out: its
-        shape inference (which runs the op on fake global tensors) and the
-        shard sizes of a strided shard (a view merging two sharded dims),
-        which it reads from a small index tensor -- a real one here, since
-        a fake one has no values to read."""
+        sharding propagation (which may run an op's decomposition on meta
+        tensors to find its strategy, only where the propagation is not
+        cached yet: counted, it made the first trace of a process differ
+        from the next), its shape inference (which runs the op on fake
+        global tensors) and the shard sizes of a strided shard (a view
+        merging two sharded dims), which it reads from a small index
+        tensor -- a real one here, since a fake one has no values to
+        read."""
         from torch._subclasses.fake_tensor import unset_fake_temporarily
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
         from torch.distributed.tensor.placement_types import _StridedShard
@@ -185,14 +223,16 @@ class _Trace:
                     trace._meta -= 1
             return wrapped
 
-        patched = [(ShardingPropagator, "_propagate_tensor_meta_non_cached",
+        patched = [(ShardingPropagator, "propagate_op_sharding_non_cached",
+                    False),
+                   (ShardingPropagator, "_propagate_tensor_meta_non_cached",
                     False),
                    (_StridedShard, "local_shard_size_and_offset", True)]
         saved = [(cls, name, getattr(cls, name)) for cls, name, _ in patched]
         for cls, name, real in patched:
             setattr(cls, name, bookkeeping(getattr(cls, name), real))
         try:
-            with self.mode:
+            with self.mode, _build.watch_scratch(self._add_scratch):
                 yield self
         finally:
             for cls, name, fn in saved:
@@ -200,6 +240,20 @@ class _Trace:
 
     def collectives_record(self) -> dict:
         return {k: dict(v) for k, v in self.collectives.items()}
+
+
+def _port_frame() -> str:
+    """``file:line (function)`` of the innermost frame of the port's model
+    code on the stack (the dry-run and the kernels' wrappers left out)."""
+    frame = sys._getframe(1)
+    while frame is not None:
+        name = frame.f_code.co_filename
+        if "repro_torch" in name and not name.endswith(
+                ("dryrun.py", "local.py", "_build.py")):
+            where = name[name.rindex("repro_torch"):]
+            return f"{where}:{frame.f_lineno} ({frame.f_code.co_name})"
+        frame = frame.f_back
+    return "?"
 
 
 def _local_shape(s: Struct, mesh) -> Tuple[int, ...]:
@@ -291,14 +345,65 @@ def mesh_name_of(multi_pod: bool, mesh_shape: Optional[Tuple[int, ...]]):
     return "pod2x16x16" if multi_pod else "pod16x16"
 
 
-def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
-             out_dir: Path, verbose: bool = True, *, reduced: bool = False,
-             mesh_shape: Optional[Tuple[int, ...]] = None) -> dict:
-    """Trace one cell and write its record.  ``reduced`` takes the arch's
-    ``.reduced()`` config; ``mesh_shape`` (a ``("data", "model")`` shape)
-    replaces the production mesh (tests)."""
+def trace_step(cfg: ArchConfig, shape: InputShape, mesh, backend: str,
+               probes: bool = True, verbose: bool = False) -> dict:
+    """Trace ``build_step(cfg, shape, mesh=mesh, backend=backend)`` (and,
+    with ``probes``, its unit probes) under ``FakeTensorMode``; the
+    record's measured fields.  ``verbose`` prints the op at which the
+    peak was reached.  Needs a fake process group."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    train = shape.kind == "train"
+    bundle = build_step(cfg, shape, mesh=mesh, backend=backend)
+    record: dict = {}
+    with FakeTensorMode():
+        args = fake_args(bundle.arg_specs, mesh, grad=train)
+        out, trace, wall = _traced(bundle.fn, args, mesh)
+        out_bytes, alias = _outputs(out, args)
+        del out
+        record["status"] = "ok"
+        record["trace_s"] = wall
+        record["cost_analysis"] = {"flops": trace.flops,
+                                   "bytes accessed": trace.bytes}
+        record["memory_analysis"] = {
+            "argument_size_in_bytes": _arg_bytes(args),
+            "output_size_in_bytes": out_bytes,
+            "alias_size_in_bytes": alias,
+            "temp_size_in_bytes": trace.temp,
+            "peak_bytes": trace.peak,
+        }
+        record["collectives"] = trace.collectives_record()
+        record["collectives_by_axis"] = trace.by_axis
+        del args
+        if verbose:
+            print(f"[dryrun] {backend}: the peak was reached at "
+                  f"{trace.peak_op}", flush=True)
+        if not probes:
+            return record
+        record["probes"] = {}
+        for key, (pb, repeats) in build_unit_probes(
+                cfg, shape, mesh=mesh, backend=backend).items():
+            pargs = fake_args(pb.arg_specs, mesh, grad=train)
+            if train:
+                for t in leaves(pargs[1:]):
+                    t.requires_grad_()
+            _, ptrace, pwall = _traced(pb.fn, pargs, mesh)
+            record["probes"][key] = {
+                "repeats": repeats, "flops": ptrace.flops,
+                "bytes_accessed": ptrace.bytes,
+                "collectives": ptrace.collectives_record(),
+                "temp_bytes": ptrace.temp, "trace_s": pwall,
+            }
+    return record
+
+
+def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
+             out_dir: Path, verbose: bool = True, *, reduced: bool = False,
+             mesh_shape: Optional[Tuple[int, ...]] = None,
+             backend: str = "kernel") -> dict:
+    """Trace one cell on ``backend`` and write its record.  ``reduced``
+    takes the arch's ``.reduced()`` config; ``mesh_shape`` (a ``("data",
+    "model")`` shape) replaces the production mesh (tests)."""
     cfg = get_arch(arch_id)
     if reduced:
         cfg = cfg.reduced()
@@ -309,14 +414,13 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
         "kind": shape.kind, "seq_len": shape.seq_len,
         "global_batch": shape.global_batch, "reduced": reduced,
         "n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(),
-        "traced": "eager, backend=ref (plain versions), FakeTensorMode, "
-                  "fake process group; counts are rank 0's local ops",
+        "traced": TRACED[backend],
     }
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         record["status"] = "skipped"
         record["why"] = why
-        _write(out_dir, mesh_name, arch_id, shape_name, record)
+        _write(out_dir, mesh_name, arch_id, shape_name, record, backend)
         return record
 
     world = math.prod(mesh_shape) if mesh_shape is not None else WORLD
@@ -325,59 +429,35 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
             if mesh_shape is not None \
             else make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         record["mesh_shape"] = list(mesh.shape)
-        train = shape.kind == "train"
-        bundle = build_step(cfg, shape, mesh=mesh, backend="ref")
-        with FakeTensorMode():
-            args = fake_args(bundle.arg_specs, mesh, grad=train)
-            out, trace, wall = _traced(bundle.fn, args, mesh)
-            out_bytes, alias = _outputs(out, args)
-            del out
-            record["status"] = "ok"
-            record["trace_s"] = wall
-            record["cost_analysis"] = {"flops": trace.flops,
-                                       "bytes accessed": trace.bytes}
-            record["memory_analysis"] = {
-                "argument_size_in_bytes": _arg_bytes(args),
-                "output_size_in_bytes": out_bytes,
-                "alias_size_in_bytes": alias,
-                "temp_size_in_bytes": trace.temp,
-                "peak_bytes": trace.peak,
-            }
-            record["collectives"] = trace.collectives_record()
-            record["collectives_by_axis"] = trace.by_axis
-            del args
-            record["probes"] = {}
-            for key, (pb, repeats) in build_unit_probes(
-                    cfg, shape, mesh=mesh, backend="ref").items():
-                pargs = fake_args(pb.arg_specs, mesh, grad=train)
-                if train:
-                    for t in leaves(pargs[1:]):
-                        t.requires_grad_()
-                _, ptrace, pwall = _traced(pb.fn, pargs, mesh)
-                record["probes"][key] = {
-                    "repeats": repeats, "flops": ptrace.flops,
-                    "bytes_accessed": ptrace.bytes,
-                    "collectives": ptrace.collectives_record(),
-                    "temp_bytes": ptrace.temp, "trace_s": pwall,
-                }
+        record.update(trace_step(cfg, shape, mesh, backend,
+                                 verbose=verbose))
 
-    _write(out_dir, mesh_name, arch_id, shape_name, record)
+    _write(out_dir, mesh_name, arch_id, shape_name, record, backend)
     if verbose:
         ma = record["memory_analysis"]
         coll = sum(v["bytes"] for v in record["collectives"].values())
-        print(f"[dryrun] {mesh_name} {arch_id} {shape_name}: "
-              f"trace={wall:.1f}s flops/dev={trace.flops:.4g} "
+        print(f"[dryrun] {mesh_name} {arch_id} {shape_name} {backend}: "
+              f"trace={record['trace_s']:.1f}s "
+              f"flops/dev={record['cost_analysis']['flops']:.4g} "
               f"args/dev={ma['argument_size_in_bytes'] / 2**30:.2f}GiB "
               f"peak/dev={ma['peak_bytes'] / 2**30:.2f}GiB "
               f"coll/dev={coll / 2**30:.3f}GiB", flush=True)
     return record
 
 
+def record_path(out_dir: Path, mesh_name: str, arch: str, shape: str,
+                backend: str = "kernel") -> Path:
+    """Where a cell's record goes: ``<out>/<mesh>/`` for the kernel
+    backend, ``<out>/ref/<mesh>/`` for the parity trace."""
+    root = Path(out_dir) if backend == "kernel" else Path(out_dir) / backend
+    return root / mesh_name / f"{arch}__{shape}.json"
+
+
 def _write(out_dir: Path, mesh_name: str, arch: str, shape: str,
-           record: dict) -> None:
-    d = Path(out_dir) / mesh_name
-    d.mkdir(parents=True, exist_ok=True)
-    with open(d / f"{arch}__{shape}.json", "w") as f:
+           record: dict, backend: str = "kernel") -> None:
+    path = record_path(out_dir, mesh_name, arch, shape, backend)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
         json.dump(record, f, indent=1, sort_keys=True, allow_nan=False)
 
 
@@ -401,6 +481,11 @@ def main(argv=None) -> None:
                     help="use the 2x16x16 multi-pod mesh (default 16x16)")
     ap.add_argument("--reduced", action="store_true",
                     help="trace the archs' .reduced() configs")
+    ap.add_argument("--backend", choices=BACKENDS, default="kernel",
+                    help="kernel: the step's default path, the kernels' "
+                         "operators through their fake implementations; "
+                         "ref: the plain versions (the parity trace, "
+                         "under <out>/ref/)")
     ap.add_argument("--out", default="artifacts/dryrun_torch", type=Path)
     ap.add_argument("--skip-existing", action="store_true")
     # trace-replay needs a trace the CLI doesn't take; closed-loop
@@ -429,7 +514,7 @@ def main(argv=None) -> None:
     mesh_name = mesh_name_of(args.multi_pod, None)
     failures = done = 0
     for i, (arch, shape) in enumerate(cells):
-        path = args.out / mesh_name / f"{arch}__{shape}.json"
+        path = record_path(args.out, mesh_name, arch, shape, args.backend)
         if args.skip_existing and path.exists():
             st = json.loads(path.read_text()).get("status")
             if st in ("ok", "skipped"):
@@ -439,7 +524,7 @@ def main(argv=None) -> None:
         t_cell0 = time.perf_counter()
         try:
             run_cell(arch, shape, args.multi_pod, args.out,
-                     reduced=args.reduced)
+                     reduced=args.reduced, backend=args.backend)
             done += 1
             remaining = len(cells) - i - 1
             if done == 1 and remaining:
@@ -458,7 +543,7 @@ def main(argv=None) -> None:
             _write(args.out, mesh_name, arch, shape, {
                 "arch": arch, "shape": shape, "mesh": mesh_name,
                 "status": "failed", "error": traceback.format_exc(),
-            })
+            }, args.backend)
     sys.exit(1 if failures else 0)
 
 

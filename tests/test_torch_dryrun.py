@@ -8,9 +8,11 @@ mesh, which a counter at the DTensor level would report); a leaf sharded
 16 x 16 puts 1/256 of its bytes into the argument bytes; the whole step's
 flops are the probes' times their repeats plus the head's; reduced
 dbrx-132b train and decode cells complete on a (4, 4) mesh; the CLI
-completes a reduced cell of each kind on the production mesh; the cell
-order under ``--scenario`` is the reference's; the roofline reads a
+completes a reduced cell of each kind on the production mesh, on the
+kernel path by default and on the ``ref`` one under ``<out>/ref/``; the
+cell order under ``--scenario`` is the reference's; the roofline reads a
 record.
+The kernel path's own checks are in ``test_torch_dryrun_kernel.py``.
 """
 
 from __future__ import annotations
@@ -145,6 +147,18 @@ def test_cli_completes_a_reduced_cell_of_each_kind(tmp_path):
                           / f"yi-6b__{shape}.json").read_text())
         assert rec["status"] == "ok" and rec["kind"] == shape.split("_")[0]
         assert rec["mesh_shape"] == [16, 16]
+        assert rec["traced"] == dryrun.TRACED["kernel"]
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--arch", "yi-6b", "--shape", "decode_32k", "--reduced",
+                     "--backend", "ref", "--out", str(tmp_path)])
+    assert done.value.code == 0
+    ref = json.loads((tmp_path / "ref" / "pod16x16"
+                      / "yi-6b__decode_32k.json").read_text())
+    kernel = json.loads((tmp_path / "pod16x16"
+                         / "yi-6b__decode_32k.json").read_text())
+    assert ref["traced"] == dryrun.TRACED["ref"] != kernel["traced"]
+    assert ref["memory_analysis"]["peak_bytes"] \
+        > kernel["memory_analysis"]["peak_bytes"]
 
 
 def _reference_scenario_order():
@@ -178,3 +192,4 @@ def test_test_mesh_is_named_and_sized():
         mesh = make_test_mesh((4, 2))
         assert tuple(mesh.mesh_dim_names) == ("data", "model")
         assert tuple(mesh.shape) == (4, 2)
+
