@@ -71,6 +71,21 @@ ends the script with a non-zero exit and no result line:
               1e-4, two launches bitwise equal; its time against
               the bound of its bytes, the plain version's, and each of its
               CUDA kernels' (the scan, the reduction of d log_a).
+   threefry -- the threefry kernel (jax.random's streams; it replaces no
+              Pallas kernel) against its plain version on the card: raw
+              bits (also past counter 2**32) and float32 uniforms bitwise,
+              float32 normals (times a scale, or divided by one, stored
+              in float32 or bf16) within THREEFRY_ULPS ulps and bf16
+              draws (the data's patches and frames) within one bf16 ulp,
+              each with its bitwise share; full-width yi-6b's init on the
+              card against the plain version on the CPU on a few leaves
+              (within one bf16 ulp); the kernel's time on one yi-34b
+              feed-forward leaf against its bound (integer operations at
+              the card's INT32 rate, or the bytes it stores) and the
+              plain version's; and the full-width yi-34b init with the
+              kernel and with the torch.randn init it replaced, in turns
+              (old, new, new, old), beside the card's name and power
+              limit.
 4. model   -- full-width yi-6b, mamba2-2.7b, recurrentgemma-2b, minicpm3-4b,
               deepseek-v2-lite-16b, whisper-large-v3 (prefill with 1536
               frames: the encoder, then the cross keys and values cached),
@@ -266,8 +281,10 @@ recurrentgemma-2b's, yi-34b's and the reduced make smoke line's decode
 steps;
 RG-LRU: recurrentgemma-2b's prefill at B 4 and at B 1; the RG-LRU
 backward: recurrentgemma-2b's training shape; decode also yi-6b's with
-the lse; launches summed over the serve, train, sharded and reduced
-paths); the last line is ``{"ok": true,
+the lse; threefry: yi-34b's feed-forward leaf, a normal stored in bf16;
+launches summed over the serve, train, sharded and reduced paths, the
+threefry kernel's over the serve, train and reduced paths, where it draws
+every job's weights and batches); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -295,6 +312,26 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_FLOPS = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# INT32 rate of an H100 SXM: 64 INT32 lanes on each SM (Hopper
+# architecture white paper) at the 1.98 GHz boost clock, times the card's
+# SM count (132 on the SXM part).
+INT32_PER_SM_CLOCK, BOOST_HZ = 64, 1.98e9
+# The threefry kernel against its plain version on the card: bits and
+# uniforms bitwise; float32 normals within THREEFRY_ULPS (the plain
+# version's FMAs, a float64 product and sum rounded once more to float32,
+# round twice where the sum needs more than 53 bits); bf16 values within
+# one bf16 ulp.
+THREEFRY_ULPS = 4
+# The threefry phase's timing: yi-34b's feed-forward matrix of one layer
+# (d 7168 x d_ff 20480), a normal times 1 / sqrt(7168) stored in bf16, as
+# the serving init draws it; and the whole yi-34b init (60 layers, 64.1
+# GiB of bf16) with this tree's kernel and with the torch.randn init the
+# port had before, in turns.
+THREEFRY_LEAF = (7168, 20480)
+# Seconds of every phase of the whole script on a tree before the
+# threefry kernel (NVIDIA H100 80GB HBM3 at 700 W), printed beside this
+# run's total.
+PREVIOUS_TOTAL_S = 662.6
 # Kernel vs plain version: |kernel - plain| <= tol + tol * |plain|, with the
 # bf16 tolerances of tests/test_kernels.py.  Attention (2e-2): the kernels
 # round probabilities to bf16 before the PV product (flash) and the output
@@ -553,14 +590,18 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
 
 
 # ------------------------------------------------------------------ phases
-def phase_device() -> str:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this script needs a GPU")
-    smi = subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    print(card(), flush=True)
     name = torch.cuda.get_device_name(0)
     print(f"[device] {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)",
@@ -1873,6 +1914,198 @@ def rerouted(a, b) -> str:
     return f"{diff}/{total} = {diff / max(total, 1):.3%}"
 
 
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0: the model's seven
+    (``ops.KERNELS``) and the threefry kernel, which draws the weights and
+    batches."""
+    from repro_torch.kernels import ops, threefry
+
+    ops.reset_launch_counts()
+    threefry.threefry_cuda.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import ops, threefry
+
+    return {**ops.launch_counts(),
+            "threefry": threefry.threefry_cuda.launches}
+
+
+def randn_init(cfg, seed: int = 0, device="cuda",
+               dtype=torch.bfloat16) -> dict:
+    """The port's ``lm.init`` before the threefry kernel: every random
+    leaf from ``torch.randn`` with one generator, one repeat at a time
+    through a float32 transient.  Kept here only to time the init
+    against."""
+    from repro_torch.models import lm
+    from repro_torch.models.bridge import leaf_dtype, params_from_numpy
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    flat = {}
+    for key, (shape, how) in lm.param_shapes(cfg).items():
+        if isinstance(how, str):
+            flat[key] = lm._fixed_init(how, shape[-1]).to(device).expand(
+                shape).clone()
+            continue
+        t = torch.empty(shape, dtype=leaf_dtype(key, dtype), device=device)
+        stacked_leaf = key.startswith(("stage", "encoder/layers"))
+        for part in (t if stacked_leaf else [t]):
+            part.copy_(torch.randn(part.shape, generator=gen,
+                                   device=device).mul_(how))
+        flat[key] = t
+    return params_from_numpy(cfg, flat, device=device, dtype=dtype)
+
+
+def threefry_agree(label: str, got: torch.Tensor, want: torch.Tensor,
+                   exact: bool) -> float:
+    """Fail unless ``got`` equals ``want`` bitwise (``exact``) or within
+    THREEFRY_ULPS float32 ulps (one bf16 ulp for bf16); print the bitwise
+    share.  Returns the largest absolute difference."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"threefry {label}: {tuple(got.shape)} {got.dtype} vs "
+             f"{tuple(want.shape)} {want.dtype}")
+    if got.dtype == torch.int32:
+        ulps = (got.long() - want.long()).abs()
+    else:
+        wide = got.dtype == torch.bfloat16
+        a = (got.float() if wide else got).view(torch.int32).long()
+        b = (want.float() if wide else want).view(torch.int32).long()
+        ulps = (a - b).abs() >> (16 if wide else 0)
+    limit = 0 if exact else (1 if got.dtype == torch.bfloat16
+                             else THREEFRY_ULPS)
+    worst, share = int(ulps.max()), float((ulps == 0).double().mean())
+    err = float((got.double() - want.double()).abs().max())
+    print(f"[threefry] {label}: {share:.6%} bitwise, at most {worst} "
+          f"{'bf16 ' if got.dtype == torch.bfloat16 else ''}ulps apart "
+          f"(limit {limit}), max_abs_err {err:.3e}", flush=True)
+    if worst > limit or not torch.isfinite(got.double()).all():
+        fail(f"threefry {label} disagrees with its plain version")
+    return err
+
+
+def phase_threefry() -> list:
+    """The threefry kernel against its plain version on the card, yi-6b's
+    init against the CPU plain version, the kernel's time against its
+    bound, and yi-34b's init time against the torch.randn init's."""
+    from repro_torch import prng, tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import threefry
+    from repro_torch.models import lm
+
+    key = prng.fold_in(prng.key(0), 12345)
+    errs = []
+    cases = [
+        ("bits", 1 << 24, "bits", {}, torch.int32, 0),
+        ("bits past counter 2**32", 1 << 20, "bits", {}, torch.int32,
+         2 ** 32 - 4096),
+        ("uniform [1e-6, 1) (tokens)", 1 << 24, "uniform",
+         dict(lo=1e-6, hi=1.0), torch.float32, 0),
+        ("uniform [-3, 0.5)", 1 << 20, "uniform", dict(lo=-3.0, hi=0.5),
+         torch.float32, 7),
+        ("normal x 1/sqrt(4096)", 1 << 24, "normal",
+         dict(scale=1 / math.sqrt(4096)), torch.float32, 0),
+        ("normal / sqrt(1536) into bf16", 1 << 24, "normal",
+         dict(scale=math.sqrt(1536), divide=True), torch.bfloat16, 99),
+        ("normal x 0.02 into bf16 (weights)", 1 << 24, "normal",
+         dict(scale=0.02), torch.bfloat16, 0),
+        ("bf16 normal x 0.02 (whisper's frames)", 4 * 1536 * 1280,
+         "normal", dict(scale=0.02, bf16_math=True), torch.bfloat16, 0),
+    ]
+    for label, n, dist, kw, dtype, offset in cases:
+        got = threefry.threefry_cuda(torch.empty(n, dtype=dtype,
+                                                 device="cuda"), key, dist,
+                                     offset=offset, **kw)
+        torch.cuda.synchronize()
+        plain = threefry.threefry_plain(key, n, dist, offset=offset,
+                                        device="cuda", **kw).to(dtype)
+        errs.append(threefry_agree(f"{label}, {n} elements at {offset}",
+                                   got, plain, dist != "normal"))
+        again = threefry.threefry_cuda(torch.empty_like(got), key, dist,
+                                       offset=offset, **kw)
+        if not torch.equal(again, got):
+            fail(f"threefry {label}: two launches differ")
+        del got, plain, again
+
+    # Full-width yi-6b's serving init on the card against the plain
+    # version on the CPU, on parts of a few leaves (offsets into the leaf).
+    cfg = get_arch("yi-6b")
+    params = lm.init(cfg, seed=0, device="cuda")
+    draws = lm.draw_keys(cfg, 0)
+    leaves = [("embed/table", None, params["embed"]["table"], 0),
+              ("embed/table", None, params["embed"]["table"], 123_456_789),
+              ("stage0/u0/mixer/wq", 0, params["stage0"]["u0"][0]["mixer"]
+               ["wq"], 0),
+              ("stage0/u0/mixer/wo", 31, params["stage0"]["u0"][31]["mixer"]
+               ["wo"], 4_000_000),
+              ("stage0/u0/ffn/down/w", 17, params["stage0"]["u0"][17]["ffn"]
+               ["down"]["w"], 1_000_000)]
+    for path, r, leaf, offset in leaves:
+        keys, scale, divide = draws[path]
+        flat = leaf.reshape(-1)[offset:offset + (1 << 20)]
+        cpu = threefry.draw(torch.empty(flat.numel()), keys[r or 0],
+                            "normal", scale=scale, divide=divide,
+                            offset=offset)
+        threefry_agree(f"yi-6b {path}{'' if r is None else f'[{r}]'} at "
+                       f"{offset} (card vs CPU)", flat.cpu(),
+                       cpu.to(torch.bfloat16), False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Time on one yi-34b feed-forward leaf against its bound.
+    n = THREEFRY_LEAF[0] * THREEFRY_LEAF[1]
+    out = torch.empty(THREEFRY_LEAF, dtype=torch.bfloat16, device="cuda")
+    scale = 1 / math.sqrt(THREEFRY_LEAF[0])
+    ms = device_ms(lambda: threefry.threefry_cuda(out, key, scale=scale), 20)
+    plain_ms = wall_ms(lambda: threefry.threefry_plain(
+        key, n, scale=scale, device="cuda").to(torch.bfloat16), 2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ms = threefry.int_ops(n, "normal") / (
+        sms * INT32_PER_SM_CLOCK * BOOST_HZ) * 1e3
+    flt_ms = threefry.float_ops(n, "normal") / PEAK_FP32 * 1e3
+    byte_ms = n * out.element_size() / PEAK_BYTES * 1e3
+    b_ms = max(int_ms, byte_ms)
+    b_by = "operations" if int_ms > byte_ms else "bytes"
+    print(f"[threefry] yi-34b ffn leaf {THREEFRY_LEAF} normal -> bf16: "
+          f"kernel {ms:.4f} ms on the device, plain {plain_ms:.4f} ms, "
+          f"library none (torch.randn draws another stream), bound "
+          f"{b_ms:.4f} ms ({b_by}: {threefry.int_ops(n, 'normal') / 1e9:.2f}"
+          f" G integer operations at {sms} SMs x {INT32_PER_SM_CLOCK} x "
+          f"{BOOST_HZ / 1e9} GHz = {int_ms:.4f} ms; stores {byte_ms:.4f} "
+          f"ms; float operations {flt_ms:.4f} ms), kernel at "
+          f"{b_ms / ms:.1%} of it", flush=True)
+    del out
+    torch.cuda.empty_cache()
+
+    # Full-width yi-34b's init, this tree's kernel against torch.randn.
+    smi = card()
+    big = get_arch("yi-34b")
+    times = {}
+    for name in ("randn", "threefry", "threefry", "randn"):
+        fn = randn_init if name == "randn" else lm.init
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = fn(big, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        gib = sum(t.numel() * t.element_size()
+                  for t in tree.leaves(p)) / 2 ** 30
+        times.setdefault(name, []).append(secs)
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[threefry] yi-34b init ({name}): {secs:.3f} s, {gib:.1f} GiB "
+              f"of weights; {smi}", flush=True)
+    print(f"[threefry] yi-34b init, mean of two in turns: threefry kernel "
+          f"{sum(times['threefry']) / 2:.3f} s, torch.randn "
+          f"{sum(times['randn']) / 2:.3f} s; {smi}", flush=True)
+    return [dict(shape=f"{THREEFRY_LEAF[0]}x{THREEFRY_LEAF[1]} normal "
+                       f"-> bf16", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+
+
 def phase_model(gen: torch.Generator, arch: str) -> None:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -2159,13 +2392,12 @@ def phase_quickstart() -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.core.predictor import staircase_runtime
     from repro_torch.examples import quickstart
-    from repro_torch.kernels import ops
 
     print("[quickstart] python -m repro_torch.examples.quickstart",
           flush=True)
-    ops.reset_launch_counts()
+    reset_counts()
     run = quickstart.main([])
-    launches = ops.launch_counts()
+    launches = read_counts()
     steps, layers = len(run["nll"]), get_arch("yi-6b").reduced().n_layers
     if steps != 12 or not all(math.isfinite(x) for x in run["nll"]):
         fail(f"quickstart: {steps} steps, nll {run['nll']}")
@@ -2184,7 +2416,6 @@ def phase_quickstart() -> dict:
 
 def phase_serve(jobs: str, path_kernels, pacing,
                 common=SERVE_COMMON) -> dict:
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     args = ["--jobs", jobs] + common + pacing
@@ -2198,9 +2429,9 @@ def phase_serve(jobs: str, path_kernels, pacing,
                     for got, want in zip(schedule, POISSON_OFFSETS))):
         fail(f"serve --scenario poisson-open submits at {schedule}, not at "
              f"the reference's {POISSON_OFFSETS}")
-    ops.reset_launch_counts()
+    reset_counts()
     runs = serve.main(args)
-    launches = ops.launch_counts()
+    launches = read_counts()
     print(f"[serve] kernel launches in the serve run: {launches}", flush=True)
     want_blocks = sorted(int(item.split(":")[1]) for item in jobs.split(","))
     for policy, run in runs.items():
@@ -2215,7 +2446,7 @@ def phase_serve(jobs: str, path_kernels, pacing,
               flush=True)
     if sorted(runs) != ["fifo", "srtf"]:
         fail(f"serve ran {sorted(runs)}, expected srtf and fifo")
-    for name in path_kernels:
+    for name in (*path_kernels, "threefry"):
         if launches[name] <= 0:
             fail(f"serve --jobs {jobs} never launched the {name} kernel")
     return launches
@@ -2514,16 +2745,15 @@ def train_run(args: list, layers: int, steps_run: int,
     before and read just after: every loss finite, each step's wall ms
     printed, and ``per_step[name]`` launches of each of ``kernels`` (a
     forward and its backward) per step: one per layer unless given."""
-    from repro_torch.kernels import ops
     from repro_torch.launch import train
 
     print(f"[train] python -m repro_torch.launch.train {' '.join(args)}",
           flush=True)
-    ops.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     run = train.main(args)
     secs = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    launches = read_counts()
     for r in run["steps"]:
         if not all(math.isfinite(r[k]) for k in TRAIN_METRICS):
             fail(f"train step {r['step']}: non-finite metrics {r}")
@@ -2545,6 +2775,9 @@ def train_run(args: list, layers: int, steps_run: int,
         if launches[name] != want[name]:
             fail(f"train launched {name} {launches[name]} times, expected "
                  f"{want[name]}")
+    if launches["threefry"] <= 0:
+        fail("train drew its weights and batches without the threefry "
+             "kernel")
     gc.collect()
     torch.cuda.empty_cache()
     return {"run": run, "launches": launches}
@@ -2912,7 +3145,6 @@ def phase_train_prefixed(arch: str, layers: int) -> dict:
 def phase_train_multi() -> dict:
     """``--jobs yi-6b:8,yi-6b:2`` at full width and 2 layers under SRTF and
     FIFO: every job finishes."""
-    from repro_torch.kernels import ops
     from repro_torch.launch import train
 
     launches = {}
@@ -2921,9 +3153,9 @@ def phase_train_multi() -> dict:
                 "--seq", str(PROMPT), "--policy", policy]
         print(f"[train-multi] python -m repro_torch.launch.train "
               f"{' '.join(args)}", flush=True)
-        ops.reset_launch_counts()
+        reset_counts()
         run = train.main(args)
-        counts = ops.launch_counts()
+        counts = read_counts()
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         blocks = sorted(r.blocks for r in run["results"].values())
@@ -3451,11 +3683,13 @@ def timed(name: str, fn, *args):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     kind = timed("device", phase_device)
     timed("build", phase_build)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     stats = timed("kernels", phase_kernels, gen)
+    stats["threefry"] = timed("threefry", phase_threefry)
     for arch in MODELS:
         timed("model", phase_model, gen, arch)
     launches = {}
@@ -3517,6 +3751,9 @@ def main() -> None:
         "rglru_scan": "src/repro/kernels/rglru_scan.py:74",
         "rglru_scan_bwd": "src/repro/kernels/ops.py:339 (XLA autodiff of "
                           "the two-level scan)",
+        "threefry": "none: src/repro/models/lm.py:118 and "
+                    "src/repro/data/pipeline.py:38 draw with jax.random, "
+                    "which XLA compiles",
     }
     kernels = []
     for name, replaces in sources.items():
@@ -3531,6 +3768,9 @@ def main() -> None:
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                 "shape": s["shape"]})
+    total = time.perf_counter() - t_start
+    print(f"[total] every phase took {total:.1f}s (the tree before the "
+          f"threefry kernel: {PREVIOUS_TOTAL_S}s); {card()}", flush=True)
     print(json.dumps({"kernels": kernels}, allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,10 +19,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import prng, resolve_device
 from ..checkpoint.checkpointer import Checkpointer
 from ..configs.base import ArchConfig
-from ..data.pipeline import generator
 from ..models import lm
 from ..optim import adamw
 from ..tree import leaves
@@ -35,6 +34,24 @@ def _sync(device: torch.device) -> None:
     # jax.block_until_ready); otherwise the predictor samples launch latency.
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def train_tokens(cfg: ArchConfig, seed: int, block: int, batch: int,
+                 seq: int) -> torch.Tensor:
+    """Block ``block``'s token ids of a training job, the reference's
+    ``randint(fold_in(PRNGKey(seed + 1), block), (batch, seq), 0,
+    vocab)`` (int64, on the CPU)."""
+    return prng.randint(prng.fold_in(prng.key(seed + 1), block),
+                        (batch, seq), 0, cfg.vocab_size)
+
+
+def serve_prompt(cfg: ArchConfig, seed: int, batch: int,
+                 prompt_len: int) -> torch.Tensor:
+    """A serving job's prompt, the reference's ``randint(PRNGKey(seed),
+    (batch, prompt_len), 0, vocab)`` (the weights' key, as there; int64,
+    on the CPU)."""
+    return prng.randint(prng.key(seed), (batch, prompt_len), 0,
+                        cfg.vocab_size)
 
 
 def make_train_job(
@@ -64,9 +81,9 @@ def make_train_job(
     if configured) needs no extra coordination.  With ``resume`` the job
     restores the checkpointer's latest step and runs only the blocks left.
     Weights are ``lm.init(cfg, seed=seed)`` in fp32, stacked; block ``i``
-    trains on uniform token ids (no frames or patches, as the reference's
-    job) from a generator seeded from (seed + 1, i), so a resumed job sees
-    the batches it would have seen.
+    trains on the reference's token ids (:func:`train_tokens`; no frames
+    or patches, as the reference's job), so a resumed job sees the batches
+    it would have seen.
     """
     device = resolve_device(device)
     params = lm.init(cfg, seed=seed, device=device, dtype=torch.float32,
@@ -82,8 +99,7 @@ def make_train_job(
         state["block"] = step
 
     def tokens_for(i: int) -> torch.Tensor:
-        return torch.randint(0, cfg.vocab_size, (batch, seq),
-                             generator=generator(seed + 1, i)).to(device)
+        return train_tokens(cfg, seed, i, batch, seq).to(device)
 
     def grads(params, tokens):
         loss, _ = lm.loss_fn(cfg, params, {"tokens": tokens})
@@ -135,17 +151,14 @@ def make_serve_job(
     against a live cache (prefill happens in the first block).
 
     Weights come from ``lm.init(cfg, seed=seed)``.  ``prompt`` ([batch,
-    prompt_len] token ids, a tensor or numpy array) defaults to tokens
-    drawn from a ``torch.Generator`` seeded with ``seed``; passing one lets
-    a test feed both packages the same prompt.
+    prompt_len] token ids, a tensor or numpy array) defaults to the
+    reference's (:func:`serve_prompt`).
     """
     device = resolve_device(device)
     max_seq = prompt_len + blocks * tokens_per_block + 8
     params = lm.init(cfg, seed=seed, device=device)
     if prompt is None:
-        gen = torch.Generator().manual_seed(seed)
-        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                               generator=gen)
+        prompt = serve_prompt(cfg, seed, batch, prompt_len)
     prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt)
                              else prompt).to(device=device, dtype=torch.long)
     if tuple(prompt.shape) != (batch, prompt_len):

@@ -1,16 +1,17 @@
 """Deterministic, seekable synthetic data (``repro.data.pipeline``,
 rewritten for PyTorch).
 
-Batches are pure functions of ``(seed, step)``: every draw comes from a
-CPU ``torch.Generator`` seeded from the seed, the step and the stream
-(tokens, patches, frames), so any step's batch is regenerated without
-replaying the stream, which is all that checkpoint/restart and preemption
-need of the data.  The reference draws its uniforms from JAX's threefry
-keys, which the port does not reproduce: the transform from uniforms to
-token ids (:func:`_tokens`, a Zipf-like inverse CDF) is the reference's,
-but the token ids of a step differ from the JAX package's.  Token ids are
-int64, the index type of PyTorch's embedding and gather (the reference's
-are int32).
+Batches are pure functions of ``(seed, step)``, drawn from the JAX
+package's threefry keys (:mod:`repro_torch.prng`): ``fold_in(PRNGKey(seed),
+step)`` split in 3, one key each for the tokens, the patches and the
+frames.  So a step's batch is the reference's, and any step's batch is
+regenerated without replaying the stream, which is all that
+checkpoint/restart and preemption need of the data.  Token ids come from
+fp32 uniforms through the reference's Zipf-like inverse CDF
+(:func:`_tokens`); patches and frames are bf16 normals times 0.02.  The
+draws run on ``device`` (the threefry kernel on the card, the plain
+version on the CPU).  Token ids are int64, the index type of PyTorch's
+embedding and gather (the reference's are int32).
 """
 
 from __future__ import annotations
@@ -20,13 +21,12 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, Iterator, Tuple
 
-import numpy as np
 import torch
 
+from .. import prng
 from ..configs.base import ArchConfig
 from ..configs.shapes import InputShape
-
-_TOKENS, _PATCHES, _FRAMES = 0, 1, 2        # streams of one step
+from ..kernels import threefry
 
 
 @dataclass(frozen=True)
@@ -37,50 +37,40 @@ class DataConfig:
     zipf_alpha: float = 1.1
 
 
-def generator(seed: int, step: int, stream: int = _TOKENS
-              ) -> torch.Generator:
-    """The CPU generator of one (seed, step, stream)."""
-    state = np.random.SeedSequence([seed, step, stream]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator().manual_seed(int(state))
-
-
-def uniform(gen: torch.Generator, shape: Tuple[int, ...],
-            minval: float = 1e-6, maxval: float = 1.0) -> torch.Tensor:
-    """Uniform fp32 in [minval, maxval), as ``jax.random.uniform`` maps
-    its [0, 1) floats: ``max(minval, u * (maxval - minval) + minval)``."""
-    u = torch.rand(shape, generator=gen, dtype=torch.float32)
-    return torch.clamp(u * (maxval - minval) + minval, min=minval)
-
-
 def _tokens(u: torch.Tensor, vocab: int, alpha: float) -> torch.Tensor:
     """Zipf-distributed token ids via inverse-CDF on uniform draws ``u``:
-    rank ~ u^(-1/(alpha-1)), truncated to the vocabulary (alpha > 1)."""
-    ranks = torch.floor(u ** (-1.0 / (alpha - 1.0))) - 1.0
+    rank ~ u^(-1/(alpha-1)), truncated to the vocabulary (alpha > 1).  The
+    power is taken in float64 and rounded to float32, which agrees with
+    XLA's float32 ``pow`` far more often than torch's does (a floor
+    flips where they differ)."""
+    e = prng.round_f32(-1.0 / (alpha - 1.0))
+    ranks = torch.floor((u.double() ** e).float()) - 1.0
     return torch.clamp(ranks, 0, vocab - 1).to(torch.int64)
 
 
 def batch_for_step(cfg: ArchConfig, shape: InputShape, step: int,
                    data_cfg: DataConfig = DataConfig(),
                    device=None) -> Dict[str, torch.Tensor]:
-    """Global batch for ``step``, made on the CPU and moved to
-    ``device``."""
+    """The reference's global batch for ``step``, drawn on ``device``
+    (the CPU if None)."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    ks = prng.split(prng.fold_in(prng.key(data_cfg.seed), step), 3)
     n_text = shape.seq_len - (cfg.n_patches or 0)
-    u = uniform(generator(data_cfg.seed, step, _TOKENS),
-                (shape.global_batch, n_text))
+    u = threefry.draw(torch.empty((shape.global_batch, n_text),
+                                  device=device), ks[0], "uniform",
+                      lo=1e-6, hi=1.0)
     batch = {"tokens": _tokens(u, cfg.vocab_size, data_cfg.zipf_alpha)}
     if cfg.n_patches:
-        batch["patches"] = 0.02 * torch.randn(
+        batch["patches"] = threefry.draw(torch.empty(
             (shape.global_batch, cfg.n_patches, cfg.d_model),
-            generator=generator(data_cfg.seed, step, _PATCHES)).to(
-                torch.bfloat16)
+            dtype=torch.bfloat16, device=device), ks[1], "normal",
+            scale=0.02, bf16_math=True)
     if cfg.encoder is not None:
-        batch["frames"] = 0.02 * torch.randn(
+        batch["frames"] = threefry.draw(torch.empty(
             (shape.global_batch, cfg.encoder.n_frames, cfg.d_model),
-            generator=generator(data_cfg.seed, step, _FRAMES)).to(
-                torch.bfloat16)
-    return {k: v.to(device) for k, v in batch.items()} if device is not None \
-        else batch
+            dtype=torch.bfloat16, device=device), ks[2], "normal",
+            scale=0.02, bf16_math=True)
+    return batch
 
 
 def batch_spec(cfg: ArchConfig, shape: InputShape

@@ -55,8 +55,9 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .. import resolve_device
+from .. import prng, resolve_device
 from ..configs.base import ArchConfig
+from ..kernels import threefry
 from ..sharding import calls
 from ..sharding.annotate import NULL_SHARDER
 from ..sharding.specs import cache_spec, placements
@@ -269,34 +270,165 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
     return shapes
 
 
+#: A random leaf's draw: its key (one per repeat for a stacked leaf),
+#: and the factor applied to the standard normal, with whether the
+#: reference divides by it (``normal / math.sqrt(n)``) or multiplies.
+Draw = Tuple[list, float, bool]
+
+
+def draw_keys(cfg: ArchConfig, seed: int = 0) -> Dict[str, Draw]:
+    """Every random leaf of ``repro.models.lm.init(cfg, PRNGKey(seed))``
+    by its flat path, with the threefry key the reference draws it from:
+    ``split(key, len(plan) + 4)``; the embedding from key 0, the head from
+    key 1, the encoder's layers from ``split(split(key 2, 2)[0],
+    n_layers)``; stage ``si``'s unit ``ui``, repeat ``r`` from
+    ``split(fold_in(key 3 + si, ui), repeats)[r]``; inside each module the
+    module's own splits (``_layer_init`` 6, ``_encoder_layer_init`` 3,
+    ``gqa_init`` 4, ``mlp_init`` 3, ``mla_init`` 8, ``moe_init`` 5,
+    ``mamba2_init`` 8 and ``out_proj`` from ``fold_in(key, 99)``,
+    ``rglru_block_init`` 6)."""
+    plan = build_plan(cfg)
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim_
+    s_in = 1.0 / math.sqrt(d)
+
+    def mul(k, scale):
+        return k, scale, False
+
+    def div(k, n):
+        return k, math.sqrt(n), True
+
+    def gqa(k) -> Dict:                               # attention.gqa_init
+        ks = prng.split(k, 4)
+        return {"wq": mul(ks[0], s_in), "wk": mul(ks[1], s_in),
+                "wv": mul(ks[2], s_in),
+                "wo": mul(ks[3], 1.0 / math.sqrt(H * hd))}
+
+    def mlp(k, ff: int, act: str) -> Dict:            # layers.mlp_init
+        ks = prng.split(k, 3)
+        names = ("gate", "up", "down") if act in ("swiglu", "geglu") \
+            else ("up", "down")
+        return {f"{n}/w": mul(ks[i], 1.0 / math.sqrt(ff if n == "down"
+                                                     else d))
+                for i, n in enumerate(names)}
+
+    def mla(k) -> Dict:                               # mla.mla_init
+        m = cfg.mla
+        ks = prng.split(k, 8)
+        out = {}
+        if m.q_lora_rank:
+            out["wdq"] = mul(ks[0], s_in)
+            out["wuq"] = div(ks[1], m.q_lora_rank)
+        else:
+            out["wq"] = mul(ks[1], s_in)
+        out.update(wdkv=mul(ks[2], s_in), wkr=mul(ks[3], s_in),
+                   wuk=div(ks[4], m.kv_lora_rank),
+                   wuv=div(ks[5], m.kv_lora_rank),
+                   wo=div(ks[6], H * m.v_head_dim))
+        return out
+
+    def mamba2(k) -> Dict:                            # ssm.mamba2_init
+        ks = prng.split(k, 8)
+        out = {n: mul(ks[i], s_in) for i, n in enumerate(
+            ("w_gate", "w_x", "w_b", "w_c", "w_dt"))}
+        out.update({n: mul(ks[5 + i], 0.2) for i, n in enumerate(
+            ("conv_x_w", "conv_b_w", "conv_c_w"))})
+        out["out_proj"] = div(prng.fold_in(k, 99), cfg.ssm.d_inner)
+        return out
+
+    def rglru(k) -> Dict:                             # rglru.rglru_block_init
+        W = cfg.rglru.width
+        blk = W // rglru_mod.N_GATE_BLOCKS
+        ks = prng.split(k, 6)
+        return {"wx": mul(ks[0], s_in), "wy": mul(ks[1], s_in),
+                "conv_w": mul(ks[2], 0.2),
+                "gate_a": mul(ks[3], 1.0 / math.sqrt(blk)),
+                "gate_i": mul(ks[4], 1.0 / math.sqrt(blk)),
+                "out": div(ks[5], W)}
+
+    def moe(k) -> Dict:                               # moe.moe_init
+        ks = prng.split(k, 5)
+        s_out = 1.0 / math.sqrt(cfg.d_ff)
+        out = {"router": mul(ks[0], s_in), "gate_w": mul(ks[1], s_in),
+               "up_w": mul(ks[2], s_in), "down_w": mul(ks[3], s_out)}
+        if cfg.moe.n_shared:
+            out.update({f"shared/{n}": v for n, v in mlp(
+                ks[4], cfg.moe.n_shared * cfg.d_ff, "swiglu").items()})
+        return out
+
+    mixers = {"gqa": gqa, "local": gqa, "mla": mla, "ssd": mamba2,
+              "rglru": rglru}
+
+    def layer(k, spec: LayerSpec) -> Dict:            # _layer_init
+        ks = prng.split(k, 6)
+        out = {f"mixer/{n}": v for n, v in mixers[spec.mixer](ks[0]).items()}
+        if spec.cross:
+            out.update({f"cross/{n}": v for n, v in gqa(ks[1]).items()})
+        if spec.ffn == "dense":
+            ffn = mlp(ks[2], spec.d_ff or cfg.d_ff, cfg.act)
+        elif spec.ffn == "moe":
+            ffn = moe(ks[2])
+        else:
+            ffn = {}
+        out.update({f"ffn/{n}": v for n, v in ffn.items()})
+        return out
+
+    def encoder_layer(k) -> Dict:                     # _encoder_layer_init
+        ks = prng.split(k, 3)
+        out = {f"mixer/{n}": v for n, v in gqa(ks[0]).items()}
+        out.update({f"ffn/{n}": v for n, v in mlp(ks[1], cfg.d_ff,
+                                                  cfg.act).items()})
+        return out
+
+    def stacked(prefix: str, per_repeat: list) -> Dict[str, Draw]:
+        return {f"{prefix}/{n}": ([r[n][0] for r in per_repeat], scale, dv)
+                for n, (_, scale, dv) in per_repeat[0].items()}
+
+    keys = prng.split(prng.key(seed), len(plan) + 4)
+    out: Dict[str, Draw] = {"embed/table": ([keys[0]], 0.02, False)}
+    if not cfg.tie_embeddings:
+        out["lm_head/w"] = ([keys[1]], 0.02, False)
+    if cfg.encoder is not None:
+        lk = prng.split(prng.split(keys[2], 2)[0], cfg.encoder.n_layers)
+        out.update(stacked("encoder/layers", [encoder_layer(k) for k in lk]))
+    for si, stage in enumerate(plan):
+        for ui, spec in enumerate(stage.unit):
+            lk = prng.split(prng.fold_in(keys[3 + si], ui), stage.repeats)
+            out.update(stacked(f"stage{si}/u{ui}",
+                               [layer(k, spec) for k in lk]))
+    return out
+
+
 def init(cfg: ArchConfig, *, seed: int = 0, device=None,
          dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE,
          stacked: bool = False) -> Dict:
-    """Random parameters with the JAX package's shapes and scales, drawn
-    from a ``torch.Generator`` seeded with ``seed`` on ``device`` (so they
-    are not the JAX package's numbers; tests share weights through
-    :func:`repro_torch.models.bridge.params_from_numpy`).  ``stacked``
+    """The JAX package's ``lm.init(cfg, PRNGKey(seed))`` on ``device``:
+    every random leaf is drawn from the reference's threefry key
+    (:func:`draw_keys`) by :func:`repro_torch.kernels.threefry.draw` (the
+    CUDA kernel on the card, the plain version on the CPU), in the
+    reference's shape and order, scaled as the reference scales it and
+    stored in the leaf's dtype (``bridge.leaf_dtype``).  A stacked leaf is
+    drawn one repeat at a time, straight into its slice.  ``stacked``
     keeps stage units as stacked leaves, for training
     (``params_from_numpy``)."""
     from .bridge import leaf_dtype, params_from_numpy
 
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    draws = draw_keys(cfg, seed)
     flat = {}
     for key, (shape, how) in param_shapes(cfg).items():
         if isinstance(how, str):
             flat[key] = _fixed_init(how, shape[-1]).to(device).expand(
                 shape).clone()
             continue
-        # A stacked leaf is drawn one repeat at a time, so the float32
-        # transient is one layer's (deepseek-v2-lite's expert weights are
-        # 4.8 G elements per leaf).
         t = torch.empty(shape, dtype=leaf_dtype(key, dtype), device=device)
+        keys, scale, divide = draws[key]
         stacked_leaf = key.startswith(("stage", "encoder/layers"))
-        for part in (t if stacked_leaf else [t]):
-            part.copy_(torch.randn(part.shape, generator=gen,
-                                   device=device).mul_(how))
+        parts = list(t) if stacked_leaf else [t]
+        if len(parts) != len(keys):
+            raise AssertionError(f"{key}: {len(parts)} parts, {len(keys)} "
+                                 f"keys")
+        for part, k in zip(parts, keys):
+            threefry.draw(part, k, "normal", scale=scale, divide=divide)
         flat[key] = t
     return params_from_numpy(cfg, flat, device=device, dtype=dtype,
                              stacked=stacked)
