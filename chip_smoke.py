@@ -82,10 +82,14 @@ ends the script with a non-zero exit and no result line:
               (within one bf16 ulp); the kernel's time on one yi-34b
               feed-forward leaf against its bound (integer operations at
               the card's INT32 rate, or the bytes it stores) and the
-              plain version's; and the full-width yi-34b init with the
+              plain version's; the full-width yi-34b init with the
               kernel and with the torch.randn init it replaced, in turns
-              (old, new, new, old), beside the card's name and power
-              limit.
+              (old, new, new, old), and its key tree (``lm.draw_keys``)
+              alone; and one full-width yi-6b train block's tokens (B x
+              PROMPT) drawn on the card, bitwise the plain version's on
+              the CPU (and a serve prompt), as host ms to issue and
+              device ms, beside the host draw copied to the card; each
+              beside the card's name and power limit.
 4. model   -- full-width yi-6b, mamba2-2.7b, recurrentgemma-2b, minicpm3-4b,
               deepseek-v2-lite-16b, whisper-large-v3 (prefill with 1536
               frames: the encoder, then the cross keys and values cached),
@@ -137,7 +141,9 @@ ends the script with a non-zero exit and no result line:
               resumed steps bitwise equal to the uninterrupted ones (a
               checkpoint takes 31 GB at 12 layers, 10.4 GB at 2).  Then
               ``--jobs yi-6b:8,yi-6b:2 --n-layers 2`` under SRTF and FIFO,
-              every job finishing.  Then ``--arch mamba2-2.7b --n-layers
+              every job finishing, with the threefry kernel launched once
+              a weight leaf part and twice a block (its tokens, drawn on
+              the card) and a warm-up.  Then ``--arch mamba2-2.7b --n-layers
               56 --steps 4`` (full width, the deepest multiple of 8 layers
               that fits): every loss finite, one SSD forward and backward
               launch per layer and step, the step wall, peak memory and
@@ -1988,9 +1994,11 @@ def threefry_agree(label: str, got: torch.Tensor, want: torch.Tensor,
 def phase_threefry() -> list:
     """The threefry kernel against its plain version on the card, yi-6b's
     init against the CPU plain version, the kernel's time against its
-    bound, and yi-34b's init time against the torch.randn init's."""
+    bound, yi-34b's init time against the torch.randn init's (and its key
+    tree's share), and a train block's tokens drawn on the card."""
     from repro_torch import prng, tree
     from repro_torch.configs import get_arch
+    from repro_torch.core import jobs
     from repro_torch.kernels import threefry
     from repro_torch.models import lm
 
@@ -2079,12 +2087,17 @@ def phase_threefry() -> list:
     del out
     torch.cuda.empty_cache()
 
-    # Full-width yi-34b's init, this tree's kernel against torch.randn.
+    # Full-width yi-34b's init, this tree's kernel against torch.randn;
+    # before each kernel init, its key tree (lm.draw_keys) alone.
     smi = card()
     big = get_arch("yi-34b")
     times = {}
     for name in ("randn", "threefry", "threefry", "randn"):
         fn = randn_init if name == "randn" else lm.init
+        if name == "threefry":
+            t0 = time.perf_counter()
+            lm.draw_keys(big, 0)
+            times.setdefault("keys", []).append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         p = fn(big, seed=0, device="cuda")
@@ -2098,9 +2111,53 @@ def phase_threefry() -> list:
         torch.cuda.empty_cache()
         print(f"[threefry] yi-34b init ({name}): {secs:.3f} s, {gib:.1f} GiB "
               f"of weights; {smi}", flush=True)
+    keys_s = sum(times["keys"]) / 2
+    init_s = sum(times["threefry"]) / 2
     print(f"[threefry] yi-34b init, mean of two in turns: threefry kernel "
-          f"{sum(times['threefry']) / 2:.3f} s, torch.randn "
-          f"{sum(times['randn']) / 2:.3f} s; {smi}", flush=True)
+          f"{init_s:.3f} s, torch.randn {sum(times['randn']) / 2:.3f} s; "
+          f"of the kernel's init, the key tree (lm.draw_keys, "
+          f"{init_launches(big)} keys, host integers) "
+          f"{keys_s * 1e3:.2f} ms and the rest (a launch a leaf part, the "
+          f"fixed leaves, the layout) {init_s - keys_s:.3f} s; {smi}",
+          flush=True)
+
+    # One full-width train block's tokens (yi-6b, B x PROMPT) drawn on the
+    # card (two bits launches and int64 arithmetic there), bitwise the
+    # plain version's on the CPU; the host's ms to issue a draw, the
+    # device's ms, and the wall ms of the host draw copied to the card.
+    cfg6 = get_arch("yi-6b")
+    for seed, block in ((0, 0), (3, 7)):
+        got = jobs.train_tokens(cfg6, seed, block, B, PROMPT, device="cuda")
+        want = prng.randint(prng.fold_in(prng.key(seed + 1), block),
+                            (B, PROMPT), 0, cfg6.vocab_size)
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+            fail(f"train tokens of block {block} drawn on the card differ "
+                 f"from the plain version's")
+    prompt = jobs.serve_prompt(cfg6, 1, B, PROMPT, device="cuda")
+    if not torch.equal(prompt.cpu(), prng.randint(
+            prng.key(1), (B, PROMPT), 0, cfg6.vocab_size)):
+        fail("a serve prompt drawn on the card differs from the plain "
+             "version's")
+
+    def tokens():
+        return jobs.train_tokens(cfg6, 0, 5, B, PROMPT, device="cuda")
+
+    tokens()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        tokens()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
+    tok_ms = device_ms(tokens, 20)
+    copy_ms = wall_ms(lambda: prng.randint(
+        prng.fold_in(prng.key(1), 5), (B, PROMPT), 0,
+        cfg6.vocab_size).to("cuda"), 5)
+    print(f"[threefry] yi-6b train block tokens {B} x {PROMPT} on the card, "
+          f"bitwise the plain version's (and a serve prompt): host "
+          f"{host_ms:.4f} ms to issue a draw, device {tok_ms:.4f} ms; "
+          f"drawn on the host and copied {copy_ms:.4f} ms wall; {smi}",
+          flush=True)
     return [dict(shape=f"{THREEFRY_LEAF[0]}x{THREEFRY_LEAF[1]} normal "
                        f"-> bf16", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                  bound_ms=b_ms, bound_by=b_by, library_ms=None)]
@@ -3142,11 +3199,27 @@ def phase_train_prefixed(arch: str, layers: int) -> dict:
     return run["launches"]
 
 
+def init_launches(cfg) -> int:
+    """Threefry launches of ``lm.init(cfg)`` on the card: one a random
+    leaf, or one a repeat of a stacked leaf."""
+    from repro_torch.models import lm
+
+    return sum(len(keys) for keys, _, _ in lm.draw_keys(cfg).values())
+
+
 def phase_train_multi() -> dict:
     """``--jobs yi-6b:8,yi-6b:2`` at full width and 2 layers under SRTF and
-    FIFO: every job finishes."""
+    FIFO: every job finishes, and each job (a solo baseline for each
+    distinct item, then the mix) launches the threefry kernel once a
+    weight leaf part and twice (its tokens' two 32-bit draws) in its
+    warm-up and in every block."""
     from repro_torch.launch import train
 
+    items = [(arch, int(n)) for arch, n in
+             (j.split(":") for j in TRAIN_JOBS.split(","))]
+    jobs = sorted(set(items)) + items
+    want_threefry = sum(init_launches(depth_cut(arch, 2)) + 2 * (n + 1)
+                        for arch, n in jobs)
     launches = {}
     for policy in ("srtf", "fifo"):
         args = ["--jobs", TRAIN_JOBS, "--n-layers", "2", "--batch", str(B),
@@ -3171,6 +3244,10 @@ def phase_train_multi() -> dict:
               f"kernel launches {counts}", flush=True)
         if counts["flash_attention_bwd"] <= 0:
             fail("multi-job training never launched the flash backward")
+        if counts["threefry"] != want_threefry:
+            fail(f"multi-job training launched threefry "
+                 f"{counts['threefry']} times, expected {want_threefry} (a "
+                 f"weight leaf part each, and two a block and a warm-up)")
     return launches
 
 

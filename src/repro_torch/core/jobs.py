@@ -22,6 +22,7 @@ import torch
 from .. import prng, resolve_device
 from ..checkpoint.checkpointer import Checkpointer
 from ..configs.base import ArchConfig
+from ..kernels import threefry
 from ..models import lm
 from ..optim import adamw
 from ..tree import leaves
@@ -37,21 +38,21 @@ def _sync(device: torch.device) -> None:
 
 
 def train_tokens(cfg: ArchConfig, seed: int, block: int, batch: int,
-                 seq: int) -> torch.Tensor:
+                 seq: int, device=None) -> torch.Tensor:
     """Block ``block``'s token ids of a training job, the reference's
     ``randint(fold_in(PRNGKey(seed + 1), block), (batch, seq), 0,
-    vocab)`` (int64, on the CPU)."""
-    return prng.randint(prng.fold_in(prng.key(seed + 1), block),
-                        (batch, seq), 0, cfg.vocab_size)
+    vocab)``, drawn on ``device`` (the CPU if None; int64)."""
+    return threefry.randint(prng.fold_in(prng.key(seed + 1), block),
+                            (batch, seq), 0, cfg.vocab_size, device=device)
 
 
-def serve_prompt(cfg: ArchConfig, seed: int, batch: int,
-                 prompt_len: int) -> torch.Tensor:
+def serve_prompt(cfg: ArchConfig, seed: int, batch: int, prompt_len: int,
+                 device=None) -> torch.Tensor:
     """A serving job's prompt, the reference's ``randint(PRNGKey(seed),
-    (batch, prompt_len), 0, vocab)`` (the weights' key, as there; int64,
-    on the CPU)."""
-    return prng.randint(prng.key(seed), (batch, prompt_len), 0,
-                        cfg.vocab_size)
+    (batch, prompt_len), 0, vocab)`` (the weights' key, as there), drawn
+    on ``device`` (the CPU if None; int64)."""
+    return threefry.randint(prng.key(seed), (batch, prompt_len), 0,
+                            cfg.vocab_size, device=device)
 
 
 def make_train_job(
@@ -81,9 +82,10 @@ def make_train_job(
     if configured) needs no extra coordination.  With ``resume`` the job
     restores the checkpointer's latest step and runs only the blocks left.
     Weights are ``lm.init(cfg, seed=seed)`` in fp32, stacked; block ``i``
-    trains on the reference's token ids (:func:`train_tokens`; no frames
-    or patches, as the reference's job), so a resumed job sees the batches
-    it would have seen.
+    trains on the reference's token ids (:func:`train_tokens`, drawn on
+    ``device`` inside the block, as the reference draws them inside its
+    step; no frames or patches, as the reference's job), so a resumed job
+    sees the batches it would have seen.
     """
     device = resolve_device(device)
     params = lm.init(cfg, seed=seed, device=device, dtype=torch.float32,
@@ -99,7 +101,7 @@ def make_train_job(
         state["block"] = step
 
     def tokens_for(i: int) -> torch.Tensor:
-        return train_tokens(cfg, seed, i, batch, seq).to(device)
+        return train_tokens(cfg, seed, i, batch, seq, device)
 
     def grads(params, tokens):
         loss, _ = lm.loss_fn(cfg, params, {"tokens": tokens})
@@ -158,7 +160,7 @@ def make_serve_job(
     max_seq = prompt_len + blocks * tokens_per_block + 8
     params = lm.init(cfg, seed=seed, device=device)
     if prompt is None:
-        prompt = serve_prompt(cfg, seed, batch, prompt_len)
+        prompt = serve_prompt(cfg, seed, batch, prompt_len, device)
     prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt)
                              else prompt).to(device=device, dtype=torch.long)
     if tuple(prompt.shape) != (batch, prompt_len):

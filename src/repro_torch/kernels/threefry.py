@@ -30,8 +30,9 @@ from .. import prng
 from . import _build
 
 DISTS = {"bits": 0, "uniform": 1, "normal": 2}
-#: Elements the plain version draws at once: its dozen int64 and float64
-#: transients then stay in a CPU's cache (twice as fast as 2**20 at once).
+#: Elements the plain version draws at once: its int32, float32 and
+#: float64 transients then stay in a CPU's cache (``tools/plain_draw_time.py``
+#: times 2**14 to 2**19 at once).
 CHUNK = 1 << 16
 
 
@@ -52,10 +53,10 @@ def threefry_plain(key: torch.Tensor, numel: int, dist: str = "normal", *,
                    divide: bool = False, bf16_math: bool = False,
                    offset: int = 0, device=None) -> torch.Tensor:
     """The kernel's function as plain PyTorch on ``device``: a flat tensor
-    of ``numel`` elements (int64 bits, or float32 values; bf16-exact
-    values with ``bf16_math``)."""
+    of ``numel`` elements (int32 bits, as the kernel stores them, or
+    float32 values; bf16-exact values with ``bf16_math``)."""
     if dist == "bits":
-        return prng.bits(key, numel, offset=offset, device=device)
+        return prng.bits32(key, numel, offset=offset, device=device)
     if dist not in DISTS:
         raise ValueError(f"unknown distribution {dist!r}")
     dtype = torch.bfloat16 if bf16_math else torch.float32
@@ -108,7 +109,7 @@ def _plain_op(out, k0: int, k1: int, offset: int, dist: int, lo: float,
               hi: float, scale: float, divide: bool, bf16_math: bool):
     """The op's CPU implementation: the plain version into ``out``, chunk
     by chunk on one intra-op thread (a chunk's log1p and sqrt would
-    otherwise wake every thread, which then spin between the chunk's ~250
+    otherwise wake every thread, which then spin between the chunk's ~170
     small operations: 10x the CPU time for no gain in wall time)."""
     _check(out, dist, False)
     key = torch.tensor([k0, k1], dtype=torch.int64)
@@ -123,7 +124,7 @@ def _plain_op(out, k0: int, k1: int, offset: int, dist: int, lo: float,
                                  scale=scale, divide=divide,
                                  bf16_math=bf16_math, offset=offset + start,
                                  device=out.device)
-            part.copy_(got.to(torch.int32) if name == "bits" else got)
+            part.copy_(got)
     finally:
         torch.set_num_threads(threads)
 
@@ -186,6 +187,20 @@ def draw(out: torch.Tensor, key: torch.Tensor, dist: str = "normal", *,
     _plain_op(out, *_op_args(key, dist, lo, hi, scale, divide, bf16_math,
                              offset))
     return out
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int, *,
+            device=None) -> torch.Tensor:
+    """``prng.randint(key, shape, minval, maxval)`` drawn on ``device``
+    (the CPU if None): its two 32-bit streams by :func:`draw` in
+    ``"bits"`` mode (two launches of the kernel on the card, the plain
+    version on the CPU), then :func:`prng.randint_from_bits` in int64 on
+    the device.  Returns int64 on ``device``."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    high, low = (draw(torch.empty(shape, dtype=torch.int32, device=device),
+                      k, "bits").long().bitwise_and_(prng.MASK)
+                 for k in prng.split(key))
+    return prng.randint_from_bits(high, low, minval, maxval)
 
 
 def int_ops(numel: int, dist: str) -> int:

@@ -55,7 +55,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .. import prng, resolve_device
+from .. import prng, resolve_device, xla_f32
 from ..configs.base import ArchConfig
 from ..kernels import threefry
 from ..sharding import calls
@@ -120,16 +120,18 @@ Init = Union[float, str]        # normal std, or the name of a fixed init
 
 
 def _fixed_init(how: str, n: int) -> torch.Tensor:
-    """The non-random initialisations, as vectors of length ``n``."""
+    """The non-random initialisations, as vectors of length ``n``: the
+    reference's ``jnp`` formulas in XLA's CPU float32 arithmetic
+    (:mod:`repro_torch.xla_f32`), so the leaves are its bits."""
     if how == "ones":
         return torch.ones(n)
     if how == "zeros":
         return torch.zeros(n)
     if how == "a_log":          # Mamba-2: A = -exp(a_log) in [-16, -1]
-        return torch.log(torch.linspace(1.0, 16.0, n))
+        return xla_f32.log(xla_f32.linspace(1.0, 16.0, n))
     if how == "a_param":        # RG-LRU: a = exp(-softplus(.)) in [0.9, 0.999]
-        return torch.log(torch.expm1(-torch.log(
-            torch.linspace(0.9, 0.999, n))))
+        return xla_f32.log(xla_f32.expm1(-xla_f32.log(
+            xla_f32.linspace(0.9, 0.999, n))))
     raise ValueError(f"unknown initialisation {how!r}")
 
 

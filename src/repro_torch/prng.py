@@ -5,9 +5,12 @@ The JAX package draws its seeded weights, batches and prompts from
 partitionable mode (``jax_threefry_partitionable``, on by default).  This
 module computes the same streams, so that a seeded run of the port starts
 from the reference's numbers.  Keys are int64 tensors of shape ``[2]`` on
-the CPU holding uint32 words; draws are int64 tensors holding uint32 (or
-narrower) values, masked after every add and shift, and come out on any
-device.  Each draw takes a counter ``offset``: the elements ``[offset,
+the CPU holding uint32 words; ``key``, ``split`` and ``fold_in`` hash them
+in Python integers (:func:`hash_words`), a few microseconds a key.  The
+element draws hash int32 tensors holding the words' bits, whose adds wrap
+as uint32 adds do (:func:`threefry2x32`), and come out on any device;
+``bits`` returns them as int64 tensors holding uint32 (or narrower)
+values.  Each draw takes a counter ``offset``: the elements ``[offset,
 offset + numel)`` of the row-major draw of a larger shape, so a leaf can
 be drawn in parts that equal the whole draw.
 
@@ -40,22 +43,53 @@ def _shape(shape: Shape) -> Tuple[int, ...]:
         int(d) for d in shape)
 
 
-def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Threefry-2x32 (20 rounds) of the counter pairs ``(x0, x1)`` under
-    the key ``(k0, k1)`` (ints, or int64 tensors broadcasting with the
-    counters).  Returns the two output words as int64 tensors."""
+def _i32(word: int) -> int:
+    """A uint32 word as the int32 with its bits."""
+    word &= MASK
+    return word - (1 << 32) if word >> 31 else word
+
+
+#: Each group of four rounds: its rotations as (r, 32 - r), and the key
+#: words and count injected after it.
+_SCHEDULE = tuple((tuple((r, 32 - r) for r in ROTATIONS[i % 2]),
+                   (i + 1) % 3, (i + 2) % 3, i + 1) for i in range(5))
+
+
+def hash_words(k0: int, k1: int, x0: int, x1: int) -> Tuple[int, int]:
+    """Threefry-2x32 (20 rounds) of one counter pair ``(x0, x1)`` under
+    the key ``(k0, k1)``, all uint32 words as Python ints: the key tree's
+    hash."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = (x0 + ks[0]) & MASK
-    x1 = (x1 + ks[1]) & MASK
-    for i in range(5):
-        for r in ROTATIONS[i % 2]:
-            x0 = x0.add_(x1).bitwise_and_(MASK)
-            x1 = ((x1 << r).bitwise_or_(x1 >> (32 - r))).bitwise_and_(MASK)
-            x1 = x1.bitwise_xor_(x0)
-        x0 = x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK)
-        x1 = x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(MASK)
+    x0, x1 = (x0 + k0) & MASK, (x1 + k1) & MASK
+    for rotations, a, b, count in _SCHEDULE:
+        for r, rr in rotations:
+            x0 = (x0 + x1) & MASK
+            x1 = ((x1 << r) & MASK | x1 >> rr) ^ x0
+        x0 = (x0 + ks[a]) & MASK
+        x1 = (x1 + ks[b] + count) & MASK
     return x0, x1
+
+
+def threefry2x32(k0: int, k1: int, x0, x1: torch.Tensor) -> torch.Tensor:
+    """Threefry-2x32 (20 rounds) of the counter pairs ``(x0, x1)`` under
+    the key ``(k0, k1)`` (uint32 ints), on the words' bits as int32: a
+    uint32 add is an int32 add that wraps, and a rotation masks its
+    arithmetic right shift.  ``x0`` is a uint32 int or an int32 tensor,
+    ``x1`` an int32 tensor broadcasting with it.  Returns ``out0 ^ out1``
+    (int32), the one output every draw uses."""
+    ks = (_i32(k0), _i32(k1), _i32(k0 ^ k1 ^ _PARITY))
+    x0 = x0 + ks[0] if torch.is_tensor(x0) else _i32(x0 + k0)
+    x1 = x1 + ks[1]
+    for i, (rotations, a, b, count) in enumerate(_SCHEDULE):
+        for j, (r, rr) in enumerate(rotations):
+            # the first round's x0 may be a number
+            x0 = x1 + x0 if i == j == 0 else x0.add_(x1)
+            hi = x1 << r
+            x1 = x1.bitwise_right_shift_(rr).bitwise_and_((1 << r) - 1) \
+                .bitwise_or_(hi).bitwise_xor_(x0)
+        x0 = x0.add_(ks[a])
+        x1 = x1.add_(_i32(ks[b] + count))
+    return x0.bitwise_xor_(x1)
 
 
 def words(key: torch.Tensor) -> Tuple[int, int]:
@@ -72,47 +106,49 @@ def key(seed: int) -> torch.Tensor:
     return torch.tensor([0, int(seed) & MASK], dtype=torch.int64)
 
 
-def _counters(n: int, offset: int, device) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
-    """The flat iota ``[offset, offset + n)`` split into hi and lo words
-    (``prng.iota_2x32_shape``)."""
-    flat = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
-    return flat >> 32, flat & MASK
-
-
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)`` in partitionable mode
     (``prng._threefry_split_foldlike``): key ``i`` is the two output words
     of counter ``(0, i)``.  Returns ``[num, 2]``."""
-    hi, lo = _counters(num, 0, "cpu")
-    o0, o1 = threefry2x32(*words(key), hi, lo)
-    return torch.stack([o0, o1], dim=1)
+    k0, k1 = words(key)
+    return torch.tensor([hash_words(k0, k1, 0, i) for i in range(num)],
+                        dtype=torch.int64)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: the hash of the counter ``(0,
     data mod 2**32)`` (``prng.threefry_fold_in``)."""
-    o0, o1 = threefry2x32(*words(key), torch.zeros(1, dtype=torch.int64),
-                          torch.tensor([int(data) & MASK]))
-    return torch.cat([o0, o1])
+    return torch.tensor(hash_words(*words(key), 0, int(data) & MASK),
+                        dtype=torch.int64)
+
+
+def bits32(key: torch.Tensor, numel: int, *, offset: int = 0,
+           device=None) -> torch.Tensor:
+    """Elements ``[offset, offset + numel)`` of ``jax.random.bits(key,
+    ..., uint32)`` in partitionable mode
+    (``prng._threefry_random_bits_partitionable``), flat, as int32 with
+    the words' bits: element ``i`` hashes counter ``i``, split into its hi
+    and lo words (``prng.iota_2x32_shape``), and is ``out0 ^ out1``."""
+    flat = torch.arange(offset, offset + numel, dtype=torch.int64,
+                        device=device)
+    hi = offset >> 32           # one hi word for the whole range, mostly
+    x0 = hi if (offset + numel - 1) >> 32 == hi else \
+        (flat >> 32).to(torch.int32)
+    x1 = flat.to(torch.int32)   # the lo words' bits
+    return threefry2x32(*words(key), x0, x1)
 
 
 def bits(key: torch.Tensor, shape: Shape, width: int = 32, *,
          offset: int = 0, device=None) -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32 / uint16)`` in partitionable
-    mode (``prng._threefry_random_bits_partitionable``): element ``i`` of
-    the row-major draw hashes counter ``i`` (hi and lo words) and is
-    ``out0 ^ out1``; 16- and 8-bit bits are its low bits.  ``offset`` shifts the
-    counters.  Returns int64."""
+    """``jax.random.bits(key, shape, uint32 / uint16 / uint8)`` in
+    partitionable mode (:func:`bits32`); 16- and 8-bit bits are its low
+    bits.  ``offset`` shifts the counters.  Returns int64."""
     if width not in (8, 16, 32):
         raise ValueError(f"width must be 8, 16 or 32, got {width}")
     shape = _shape(shape)
-    hi, lo = _counters(math.prod(shape), offset, device)
-    o0, o1 = threefry2x32(*words(key), hi, lo)
-    out = o0.bitwise_xor_(o1)
-    if width < 32:
-        out = out.bitwise_and_((1 << width) - 1)
-    return out.reshape(shape)
+    out = bits32(key, math.prod(shape), offset=offset,
+                 device=device).long()
+    return out.bitwise_and_((1 << width) - 1).reshape(shape)
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -133,20 +169,22 @@ def round_bf16(x: float) -> float:
     return float(torch.tensor(x, dtype=torch.bfloat16))
 
 
-def _unit(key: torch.Tensor, shape: Shape, dtype: torch.dtype, offset: int,
+def _unit(key: torch.Tensor, numel: int, dtype: torch.dtype, offset: int,
           device) -> torch.Tensor:
-    """Floats in [0, 1): the top bits of a draw as the mantissa under the
-    exponent of 1.0, minus 1 (``random._uniform``).  fp32 takes 23 of 32
-    bits; bf16, whose 7 mantissa bits are fewer than 8, takes 7 of 8."""
+    """``numel`` floats in [0, 1): the top bits of a draw as the mantissa
+    under the exponent of 1.0, minus 1 (``random._uniform``).  fp32 takes
+    23 of 32 bits; bf16, whose 7 mantissa bits are fewer than 8, takes 7
+    of 8."""
+    raw = bits32(key, numel, offset=offset, device=device)
     if dtype == torch.float32:
-        raw = bits(key, shape, 32, offset=offset, device=device)
-        f = ((raw >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+        f = raw.bitwise_right_shift_(9).bitwise_and_(0x7FFFFF) \
+            .bitwise_or_(0x3F800000).view(torch.float32)
     elif dtype == torch.bfloat16:
-        raw = bits(key, shape, 8, offset=offset, device=device)
-        f = ((raw >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16)
+        f = raw.bitwise_and_(0xFF).bitwise_right_shift_(1) \
+            .bitwise_or_(0x3F80).to(torch.int16).view(torch.bfloat16)
     else:
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
-    return f - 1.0
+    return f.sub_(1.0)
 
 
 def uniform(key: torch.Tensor, shape: Shape, dtype=torch.float32,
@@ -156,11 +194,13 @@ def uniform(key: torch.Tensor, shape: Shape, dtype=torch.float32,
     ``max(lo, f * (hi - lo) + lo)`` with ``f`` in [0, 1) from the top
     mantissa bits of 32-bit (fp32) or 8-bit (bf16) bits, ``lo``, ``hi``
     and ``hi - lo`` in ``dtype``, the product and sum one FMA."""
-    f = _unit(key, shape, dtype, offset, device)
+    shape = _shape(shape)
+    f = _unit(key, math.prod(shape), dtype, offset, device)
     rnd = round_f32 if dtype == torch.float32 else round_bf16
     lo, hi = rnd(minval), rnd(maxval)
     span = rnd(hi - lo)
-    return torch.clamp_min(_fma(f.float(), span, lo).to(dtype), lo)
+    return torch.clamp_min(_fma(f.float(), span, lo).to(dtype),
+                           lo).reshape(shape)
 
 
 # XLA's single-precision erf_inv (chlo.erf_inv, Giles' polynomial in w)
@@ -170,21 +210,36 @@ ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
                 -0.00367342844, 0.00573950773, -0.0076224613,
                 0.00943887047, 1.00167406, 2.83297682)
+_ERFINV_F32 = {"small": tuple(map(round_f32, ERFINV_SMALL)),
+               "large": tuple(map(round_f32, ERFINV_LARGE))}
+
+
+def _horner(t: torch.Tensor, coefficients) -> torch.Tensor:
+    """float32 ``c0 t^8 + ... + c8`` (float32 values) by Horner's rule,
+    each step one FMA: the product of the float32 step and ``t`` (float64,
+    holding float32 values) is exact in float64, the sum rounds there and
+    then to float32."""
+    p = torch.mul(t, coefficients[0]).add_(coefficients[1]).float()
+    for c in coefficients[2:]:
+        p = torch.mul(p, t).add_(c).float()
+    return p
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``erf_inv``: ``w = -log1p(-x * x)``; below 5 the
     polynomial in ``w - 2.5``, else in ``sqrt(w) - 3``, by Horner's rule
-    with each step one FMA; times ``x``; ``x * inf`` at ``|x| == 1``."""
-    w = -torch.log1p(-(x * x))
-    small = w < 5.0
-    t = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
-    lo = torch.tensor(ERFINV_SMALL, dtype=torch.float32, device=x.device)
-    hi = torch.tensor(ERFINV_LARGE, dtype=torch.float32, device=x.device)
-    p = torch.where(small, lo[0], hi[0])
-    for i in range(1, len(ERFINV_SMALL)):
-        p = _fma(p, t, torch.where(small, lo[i], hi[i]))
-    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+    with each step one FMA; times ``x``; ``x * inf`` at ``|x| == 1``.
+    The second branch, ``|x|`` above ~0.9966, runs on its elements
+    alone."""
+    w = torch.log1p((x * x).neg_()).neg_()
+    large = (w < 5.0).logical_not_().nonzero(as_tuple=True)
+    out = _horner((w - 2.5).double(), _ERFINV_F32["small"]).mul_(x)
+    if large[0].numel():
+        wl, xl = w[large], x[large]
+        p = _horner((torch.sqrt(wl) - 3.0).double(),
+                    _ERFINV_F32["large"])
+        out[large] = torch.where(xl.abs() == 1.0, xl * math.inf, p * xl)
+    return out
 
 
 #: float32(sqrt(2)), the factor of ``random._normal_real``.
@@ -198,25 +253,40 @@ def normal(key: torch.Tensor, shape: Shape, dtype=torch.float32, *,
     ``dtype``.  A bf16 draw takes bf16 uniforms, whose ``erf_inv`` runs in
     float32 (XLA upcasts it) and is rounded to bf16, then times
     ``bf16(sqrt(2))`` in bf16."""
-    lo = -1.0 + (2.0 ** -24 if dtype == torch.float32 else 2.0 ** -8)
-    u = uniform(key, shape, dtype, lo, 1.0, offset=offset, device=device)
+    shape = _shape(shape)
     if dtype == torch.float32:
-        return SQRT2 * erfinv(u)
+        # jax's uniform in [lo, 1) with lo = -1 + 2**-24, whose span 2 -
+        # 2**-24 rounds to 2: f * 2 is exact and the exact f * 2 + lo
+        # needs 26 bits, so one float32 add rounds as the FMA does; and
+        # f * 2 + lo >= lo, so the max with lo changes nothing.
+        u = _unit(key, math.prod(shape), dtype, offset, device).mul_(
+            2.0).add_(-1.0 + 2.0 ** -24)
+        return erfinv(u).mul_(SQRT2).reshape(shape)
+    u = uniform(key, shape, dtype, -1.0 + 2.0 ** -8, 1.0, offset=offset,
+                device=device)
     return erfinv(u.float()).to(dtype) * round_bf16(math.sqrt(2.0))
+
+
+def randint_from_bits(high: torch.Tensor, low: torch.Tensor, minval: int,
+                      maxval: int) -> torch.Tensor:
+    """``jax.random.randint``'s arithmetic on its two 32-bit draws (int64
+    tensors holding uint32 values, on any device): ``span = maxval -
+    minval``, ``m = (2**16 % span)**2 % span`` (the square wraps in
+    uint32) and ``minval + ((high % span) * m + low % span) % span``,
+    every sum and product wrapping in uint32.  Returns int64."""
+    span = max(int(maxval) - int(minval), 1)
+    mult = (((1 << 16) % span) ** 2 & MASK) % span
+    r = (high.remainder_(span).mul_(mult).bitwise_and_(MASK)
+         .add_(low.remainder_(span)).bitwise_and_(MASK).remainder_(span))
+    return r.add_(int(minval))
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int, *,
             offset: int = 0, device=None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
-    32-bit draws from ``split(key)``, ``span = maxval - minval``,
-    ``m = (2**16 % span)**2 % span`` (the square wraps in uint32) and
-    ``minval + ((hi % span) * m + lo % span) % span``, every sum and
-    product wrapping in uint32.  Returns int64."""
+    32-bit draws from ``split(key)`` through :func:`randint_from_bits`.
+    Returns int64."""
     k1, k2 = split(key)
-    span = max(int(maxval) - int(minval), 1)
-    mult = (((1 << 16) % span) ** 2 & MASK) % span
-    high = bits(k1, shape, offset=offset, device=device) % span
-    low = bits(k2, shape, offset=offset, device=device) % span
-    r = (high.mul_(mult).bitwise_and_(MASK).add_(low).bitwise_and_(MASK)
-         % span)
-    return r.add_(int(minval))
+    return randint_from_bits(bits(k1, shape, offset=offset, device=device),
+                             bits(k2, shape, offset=offset, device=device),
+                             minval, maxval)

@@ -1,5 +1,5 @@
-"""The seven CUDA kernels as operators (``torch.ops.repro_torch.*``), on the
-CPU.
+"""The seven CUDA kernels of the model, and the threefry kernel, as
+operators (``torch.ops.repro_torch.*``), on the CPU.
 
 Each kernel's launch is an operator: its CUDA implementation launches (on
 the card only), its CPU implementation is the plain version laid out as
@@ -7,7 +7,8 @@ the kernel lays its outputs, its fake implementation allocates what a
 launch allocates without a device, and its flop formula is registered
 with ``torch.utils.flop_counter``.  Checked here: every op passes
 ``torch.library.opcheck`` (schema, fake against CPU implementation,
-AOT dispatch); every fake implementation's outputs and scratch have the
+AOT dispatch; threefry's schema writes into its output, a ``bits`` and
+a ``normal`` draw); every fake implementation's outputs and scratch have the
 shapes, dtypes and strides that the launch allocates, at every (D, Dv)
 pair and group size that a config of the zoo hands to the attention
 kernels and at the scans' shapes, with the wide backward's slices
@@ -24,8 +25,9 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch import prng
 from repro_torch.configs import ARCHS, get_arch
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, ops, threefry
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fwd
 from repro_torch.kernels import flash_attention_bwd as bwd
@@ -104,6 +106,15 @@ def _cases():
         ent = _t(rng, (2, 2, 8), F32)
         out.append(("rglru_scan_bwd",
                     (x, ga, gi, la, dh, h0, ent, h0, 8.0)))
+    # threefry writes into its first argument (``Tensor(a!) out``)
+    out.append(("threefry", (torch.empty(300, dtype=torch.int32),
+                             *threefry._op_args(prng.key(3), "bits", 0.0,
+                                                1.0, 1.0, False, False,
+                                                2 ** 32 - 100))))
+    out.append(("threefry", (torch.empty((3, 100), dtype=BF16),
+                             *threefry._op_args(prng.key(4), "normal", 0.0,
+                                                1.0, 0.02, False, False,
+                                                7))))
     return out
 
 

@@ -3,16 +3,17 @@ the ``threefry`` kernel) against ``jax.random`` on the CPU, and the seeded
 weights, batches, tokens and prompts built on them against the JAX
 package's.
 
-Keys, ``split``, ``fold_in``, raw bits, uniforms and ``randint`` are
-bitwise.  A float32 normal goes through XLA's ``erf_inv``, whose
-``log1p`` is XLA's own: the port's ``torch.log1p`` differs from it by an
-ulp or two in ~8% of draws, which moves ~1% of normals by at most
+Keys, ``split``, ``fold_in`` (hashed in Python integers), raw bits,
+uniforms and ``randint`` (on the CPU, also through the jobs' ``device``
+argument) are bitwise.  A float32 normal goes through XLA's ``erf_inv``,
+whose ``log1p`` is XLA's own: the port's ``torch.log1p`` differs from it
+by an ulp or two in ~8% of draws, which moves ~1% of normals by at most
 :data:`NORMAL_ULPS` ulps (3 observed).  A bf16 normal rounds those away.
 Weight leaves are normals times a float32 scale (or divided by one), so
-they keep the same bound; the fixed leaves (norm scales, Mamba-2's
-``a_log``, RG-LRU's ``a_param``) are computed by torch's ``linspace``,
-``log`` and ``expm1`` rather than XLA's and are held to
-:data:`FIXED_RTOL` relative.
+they keep the same bound.  The fixed leaves (norm scales, Mamba-2's
+``a_log``, RG-LRU's ``a_param``) are bitwise: the port computes
+``jnp.linspace``, ``log`` and ``expm1`` in XLA's CPU float32 arithmetic
+(``repro_torch.xla_f32``), checked here at every width of ROADMAP's C6.
 """
 
 import dataclasses
@@ -35,7 +36,7 @@ from repro.launch import steps as jsteps
 from repro.launch.steps import build_train_step as j_build_train_step
 from repro.models import lm as jlm
 from repro.optim import adamw as jadamw
-from repro_torch import prng, tree
+from repro_torch import prng, tree, xla_f32
 from repro_torch.configs import get_arch
 from repro_torch.configs.shapes import InputShape
 from repro_torch.core import jobs
@@ -52,13 +53,16 @@ from repro_torch.optim import adamw
 NORMAL_ULPS = 4
 #: Share of float32 normals that must be bitwise (99.0% observed).
 NORMAL_BITWISE = 0.98
-#: Fixed (non-random) leaves: torch's and XLA's float32 log, expm1 and
-#: linspace differ by ulps, which RG-LRU's a_param = log(expm1(-log(x)))
-#: at x near 1 amplifies to ~70 ulps (~1e-5 relative).
-FIXED_RTOL = 2e-5
+#: The fixed leaves' widths: Mamba-2's heads and the RG-LRU's width,
+#: full and reduced, and the widths between (ROADMAP C6).
+C6_SIZES = (8, 16, 24, 32, 48, 64, 80, 128, 2560)
+#: Keys whose words sit at the ends of uint32.
+EDGE_KEYS = ((0, 0), (0, 1), (1, 0), (0, 2 ** 32 - 1), (2 ** 32 - 1, 0),
+             (2 ** 32 - 2, 2 ** 32 - 1), (2 ** 32 - 1, 2 ** 32 - 1))
 #: bf16 models (the serve job's prefill): the bound of test_torch_model.
 BF16_REL_L2 = 3e-2
 _SANITIZE = re.compile(r"[^A-Za-z0-9_.:-]")
+MASK = 0xFFFFFFFF
 
 
 def _jkey(words) -> jax.Array:
@@ -103,6 +107,42 @@ def test_fold_in_is_bitwise(data_):
         np.testing.assert_array_equal(
             prng.fold_in(torch.from_numpy(k), data_).numpy(),
             np.asarray(jax.random.fold_in(_jkey(k), data_)))
+
+
+@pytest.mark.parametrize("num", [1, 2, 4, 7, 16, 64])
+def test_split_at_the_word_edges(num):
+    """The key tree's Python-integer hash at keys near 0 and near
+    2**32 - 1."""
+    for k in EDGE_KEYS:
+        np.testing.assert_array_equal(
+            prng.split(torch.tensor(k), num).numpy(),
+            np.asarray(jax.random.split(_jkey(k), num)))
+
+
+@pytest.mark.parametrize("data_", [0, 1, 63, 2 ** 31, 2 ** 32 - 1])
+def test_fold_in_at_the_word_edges(data_):
+    for k in EDGE_KEYS:
+        np.testing.assert_array_equal(
+            prng.fold_in(torch.tensor(k), data_).numpy(),
+            np.asarray(jax.random.fold_in(_jkey(k), data_)))
+
+
+def test_hash_words_is_the_tensor_hash_and_jaxs():
+    """One counter pair through ``hash_words`` (ints), the int32 tensor
+    hash and jax's ``threefry2x32``."""
+    rng = np.random.default_rng(13)
+    pairs = np.concatenate([rng.integers(0, 2 ** 32, (40, 4),
+                                         dtype=np.uint64),
+                            np.array([[0, 0, 0, 0], [MASK] * 4,
+                                      [MASK, 0, MASK, 0]], np.uint64)])
+    for k0, k1, x0, x1 in pairs.tolist():
+        o0, o1 = jprng.threefry2x32_p.bind(
+            *(jnp.asarray(np.uint32(v))[None] for v in (k0, k1, x0, x1)))
+        want = (int(np.asarray(o0)[0]), int(np.asarray(o1)[0]))
+        assert prng.hash_words(k0, k1, x0, x1) == want
+        got = prng.threefry2x32(k0, k1, x0, torch.tensor(
+            [x1 - 2 ** 32 if x1 >> 31 else x1], dtype=torch.int32))
+        assert int(got) & MASK == want[0] ^ want[1]
 
 
 @pytest.mark.parametrize("width,dtype", [(32, jnp.uint32), (16, jnp.uint16),
@@ -224,7 +264,8 @@ def _sanitized(tree_) -> dict:
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_init_is_the_references_leaf_for_leaf(arch):
     """Every leaf of the port's ``init(seed=s)`` (fp32, stacked) against
-    the reference's ``init(cfg, PRNGKey(s))`` for two seeds."""
+    the reference's ``init(cfg, PRNGKey(s))`` for two seeds: normals
+    within NORMAL_ULPS, fixed leaves bitwise."""
     cfg, tcfg = j_get_arch(arch).reduced(), get_arch(arch).reduced()
     draws = lm.draw_keys(tcfg)
     for seed in (0, 3):
@@ -239,8 +280,7 @@ def test_init_is_the_references_leaf_for_leaf(arch):
             if path in {_SANITIZE.sub("_", p) for p in draws}:
                 assert _ulps(w, g).max() <= NORMAL_ULPS, path
             else:
-                np.testing.assert_allclose(g, w, rtol=FIXED_RTOL, atol=0,
-                                           err_msg=path)
+                np.testing.assert_array_equal(g, w, err_msg=path)
 
 
 def test_serving_init_rounds_the_references_leaves_to_bf16():
@@ -305,6 +345,70 @@ def test_job_tokens_and_prompts_are_the_references(seed, block):
                               cfg.vocab_size)
     np.testing.assert_array_equal(jobs.serve_prompt(cfg, seed, 2, 16).numpy(),
                                   np.asarray(want))
+
+
+@pytest.mark.parametrize("device", ["cpu", torch.device("cpu")])
+def test_tokens_and_prompts_drawn_on_the_jobs_device(device):
+    """``train_tokens`` / ``serve_prompt`` with a device, and
+    ``threefry.randint`` (the plain version through the op's ``bits``
+    draws on the CPU), against ``jax.random.randint`` (at the shape the
+    test above compiles)."""
+    cfg = get_arch("deepseek-v2-lite-16b").reduced()
+    want = jax.random.randint(jax.random.fold_in(jax.random.PRNGKey(5), 9),
+                              (2, 32), 0, cfg.vocab_size)
+    got = jobs.train_tokens(cfg, 4, 9, 2, 32, device=device)
+    assert got.dtype == torch.int64 and got.device == torch.device("cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = jax.random.randint(jax.random.PRNGKey(6), (2, 32), 0,
+                              cfg.vocab_size)
+    np.testing.assert_array_equal(
+        jobs.serve_prompt(cfg, 6, 2, 32, device=device).numpy(),
+        np.asarray(want))
+    k = torch.from_numpy(_keys(1, 15)[0])
+    np.testing.assert_array_equal(
+        threefry.randint(k, (2, 32), -3, 1000, device=device).numpy(),
+        np.asarray(jax.random.randint(_jkey(k), (2, 32), -3, 1000)))
+
+
+# --------------------------------------------------------- fixed leaves
+@pytest.mark.parametrize("n", C6_SIZES)
+@pytest.mark.parametrize("how", ["a_log", "a_param"])
+def test_fixed_leaf_is_the_references_bitwise(how, n):
+    """``lm._fixed_init`` against the reference's formulas
+    (``repro.models.ssm.mamba2_init``'s ``a_log``,
+    ``repro.models.rglru.rglru_block_init``'s ``a_param``)."""
+    if how == "a_log":
+        want = jnp.log(jnp.linspace(1.0, 16.0, n))
+    else:
+        want = jnp.log(jnp.expm1(-jnp.log(jnp.linspace(0.9, 0.999, n))))
+    np.testing.assert_array_equal(lm._fixed_init(how, n).numpy(),
+                                  np.asarray(want))
+
+
+@pytest.mark.parametrize("n", C6_SIZES)
+@pytest.mark.parametrize("fn", ["linspace", "log", "expm1"])
+def test_xla_f32_function_is_jaxs_bitwise(fn, n):
+    """Each function of ``repro_torch.xla_f32`` on its own: linspace over
+    both leaves' ranges, log and expm1 over their ranges there and over
+    ``n`` uniforms from ``default_rng(n)``."""
+    if fn == "linspace":
+        for lo, hi in ((1.0, 16.0), (0.9, 0.999)):
+            np.testing.assert_array_equal(
+                xla_f32.linspace(lo, hi, n).numpy(),
+                np.asarray(jnp.linspace(lo, hi, n)))
+        return
+    rng = np.random.default_rng(n)
+    if fn == "log":
+        x = np.concatenate([np.asarray(jnp.linspace(1.0, 16.0, n)),
+                            rng.uniform(1e-3, 20.0, 8 * n)])
+    else:
+        x = np.concatenate([-np.log(np.asarray(jnp.linspace(0.9, 0.999, n),
+                                               np.float64)),
+                            rng.uniform(-3.0, 3.0, 8 * n)])
+    x = x.astype(np.float32)
+    np.testing.assert_array_equal(
+        getattr(xla_f32, fn)(torch.from_numpy(x)).numpy(),
+        np.asarray(getattr(jnp, fn)(x)))
 
 
 # ------------------------------------------------------- the slice whole
