@@ -230,10 +230,7 @@ ends the script with a non-zero exit and no result line:
               baseline.  Prints each job's turnaround and, per block
               shape, the median wall ms of one block (launches plus the
               synchronize the executor times) and its device ms.
-9. executor sweep -- ``repro_torch.benchmarks.executor_policies`` on the
-              card (four policies and SRTF under EWMA over two long+short
-              pairs, ``jobs=1``), printing its rows.
-10. reduced -- every arch of the zoo at ``.reduced()`` (head dim 32;
+9. reduced -- every arch of the zoo at ``.reduced()`` (head dim 32;
               reduced MLA's qk 48 padded to 64 beside v 32; dbrx-132b
               included), as the reference's ``make smoke`` and quickstart
               run them: prefill of B 4 x 8 tokens (whisper with its 32
@@ -252,22 +249,30 @@ ends the script with a non-zero exit and no result line:
               layer and step).  The kernel phase checks (32, 32) and
               (64, 32) flash, their backward and (32, 32) decode at the
               reduced paths' shapes, with the others.
-11. benchmarks -- the paper's benchmarks and the cluster example, each in
+10. benchmarks -- the paper's benchmarks and the cluster example, each in
               a subprocess with the checkout's ``src`` alone on the path
               and a temporary working directory (no package of the
-              reference importable): ``python -m
-              repro_torch.benchmarks.run --no-cache`` at full size, every
-              module (the DES ones on the host, the executor rows on
-              ``cuda``, the roofline reading a dry-run record or saying it
-              found none): exit 0, no ``ERROR`` row, rows from every
-              module, the executor's rows its four policies and
-              ``srtf+ewma`` for both workloads and the note; ``--machine
+              reference importable): ``repro_torch.benchmarks.run``'s
+              ``main`` at full size with a sweep cache in the temporary
+              directory, every module (the DES ones on the host, the
+              executor rows on ``cuda``: four policies and SRTF under
+              EWMA over two long+short pairs, ``jobs=1``; the roofline
+              reading a dry-run record or saying it found none): exit 0,
+              no ``ERROR`` row, rows from every module, the executor's
+              rows its four policies and ``srtf+ewma`` for both workloads
+              and the note.  The executor sweep runs once a smoke run,
+              here: the child hands back each of its cells and the solo
+              baselines it measured, and every cell's jobs must finish on
+              the card, each spec's baseline be measured once (the EWMA
+              sweep reads them from the cache); each cell's arrivals,
+              finishes and overlap are printed on ``[sweep]`` lines;
+              ``--machine
               des --subset 2 --no-cache`` under ``--engine python`` and
               ``--engine compiled``: equal rows once ``us_per_call`` is
               dropped; ``python -m repro_torch.examples.cluster_sim`` at
               its defaults: exit 0 and its four policy lines.  Rows are
               printed on ``[bench]`` lines.
-12. analysis -- ``python -m repro_torch.analysis --json`` over the
+11. analysis -- ``python -m repro_torch.analysis --json`` over the
               checkout (the port's core, its benchmark modules and
               ``tests/test_torch_*.py``) in a subprocess run the same way:
               exit 0, ``ok`` true and no blocking finding; one
@@ -2596,56 +2601,40 @@ def phase_scenario_kernels() -> None:
               f"{dev_ms:.4f} ms on the device", flush=True)
 
 
-def phase_executor_sweep() -> None:
-    """The executor benchmark on the card.  It asserts what a run can
-    show: every cell's jobs finish on the card, the main sweep measures
-    each distinct spec's solo baseline once and the EWMA sweep reads them
-    all from the cache.  How many cells overlap their jobs in lane time
-    is printed, not checked: only those can rank the policies."""
-    import tempfile
-
+def check_executor_sweeps(record: dict) -> None:
+    """What the benchmark run's executor sweeps did on the card
+    (``BENCH_CHILD``'s record).  It asserts what a run can show: every
+    cell's jobs finish on the card, the main sweep measures each distinct
+    spec's solo baseline once and the EWMA sweep reads them all from the
+    cache.  How many cells overlap their jobs in lane time is printed, not
+    checked: only those can rank the policies."""
     from repro_torch.benchmarks import executor_policies
-    from repro_torch.core import sweep
 
-    measured = []
-    real = sweep._measure_executor_solo
-
-    def counted(payload):
-        measured.append(payload["spec"].name)
-        return real(payload)
-
-    sweep._measure_executor_solo = counted
-    try:
-        with tempfile.TemporaryDirectory() as cache:
-            result, ewma_result = executor_policies.sweeps(
-                device="cuda", jobs=1, cache_dir=cache)
-    finally:
-        sweep._measure_executor_solo = real
-    for name, derived in executor_policies.rows(result, ewma_result):
-        print(f"[sweep] {name},{derived}", flush=True)
-    cells = list(result.cells) + list(ewma_result.cells)
+    cells = record["cells"]
     want = 2 * len(executor_policies.POLICY_NAMES) + 2
     if len(cells) != want:
         fail(f"executor sweep gave {len(cells)} cells, expected {want}")
     for c in cells:
-        if (not c.measured or c.unfinished
-                or c.window.n_finished != len(c.arrival)):
-            fail(f"executor cell {c.workload}/{c.policy}/{c.predictor}: "
-                 f"{c.window.n_finished} of {len(c.arrival)} jobs finished, "
-                 f"unfinished {c.unfinished}")
-        print(f"[sweep] {c.workload} {c.policy}+{c.predictor}: arrival (s) "
-              + ", ".join(f"{k} {c.arrival[k]:.6f}" for k in sorted(
-                  c.arrival, key=c.arrival.get))
+        if (not c["measured"] or c["unfinished"]
+                or c["n_finished"] != len(c["arrival"])):
+            fail(f"executor cell {c['workload']}/{c['policy']}/"
+                 f"{c['predictor']}: {c['n_finished']} of "
+                 f"{len(c['arrival'])} jobs finished, unfinished "
+                 f"{c['unfinished']}")
+        print(f"[sweep] {c['workload']} {c['policy']}+{c['predictor']}: "
+              "arrival (s) " + ", ".join(
+                  f"{k} {v:.6f}" for k, v in sorted(
+                      c["arrival"].items(), key=lambda kv: kv[1]))
               + "; finish (s) " + ", ".join(
-                  f"{k} {v:.6f}" for k, v in sorted(c.finish.items(),
-                                                     key=lambda kv: kv[1]))
-              + f"; overlap {executor_policies.overlaps(c)}", flush=True)
+                  f"{k} {v:.6f}" for k, v in sorted(
+                      c["finish"].items(), key=lambda kv: kv[1]))
+              + f"; overlap {c['overlap']}", flush=True)
+    measured = sorted(record["measured"])
     specs = sorted(executor_policies.SPECS)
-    print(f"[sweep] solo baselines measured: {sorted(measured)}", flush=True)
-    if sorted(measured) != specs:
-        fail(f"the sweeps measured solo baselines {sorted(measured)}, "
-             f"expected each of {specs} once (the EWMA sweep reads the "
-             f"cache)")
+    print(f"[sweep] solo baselines measured: {measured}", flush=True)
+    if measured != specs:
+        fail(f"the sweeps measured solo baselines {measured}, expected "
+             f"each of {specs} once (the EWMA sweep reads the cache)")
 
 
 #: Each module of ``repro_torch.benchmarks.run`` and its rows' prefixes.
@@ -2667,19 +2656,59 @@ BENCH_ROWS = {
 }
 
 
-def bench_run(cwd: str, *args: str) -> tuple:
-    """``python -m <args>`` in ``cwd`` with the checkout's ``src`` alone on
-    the path: its stdout lines, after a zero exit."""
+def bench_run(cwd: str, *args: str, label: str = "") -> tuple:
+    """``python <args>`` in ``cwd`` with the checkout's ``src`` alone on
+    the path: its stdout lines, after a zero exit.  ``label`` names the
+    run in place of its arguments."""
+    label = label or " ".join(args)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd,
+    proc = subprocess.run([sys.executable, *args], cwd=cwd,
                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                           capture_output=True, text=True, timeout=600)
-    print(f"[bench] python -m {' '.join(args)}: exit {proc.returncode} in "
+    print(f"[bench] python {label}: exit {proc.returncode} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     if proc.returncode != 0:
-        fail(f"python -m {' '.join(args)} exited {proc.returncode}:\n"
+        fail(f"python {label} exited {proc.returncode}:\n"
              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     return proc.stdout.splitlines()
+
+
+# ``benchmarks.run``'s entry point in a child that also writes what its
+# executor sweeps did to the file named by its first argument: the solo
+# baselines it measured and each cell.  The other arguments are the run's.
+BENCH_CHILD = """
+import json, sys
+from repro_torch.benchmarks import executor_policies, run
+from repro_torch.core import sweep
+out = sys.argv.pop(1)
+measured, results = [], []
+solo, sweeps = sweep._measure_executor_solo, executor_policies.sweeps
+
+def counted(payload):
+    measured.append(payload["spec"].name)
+    return solo(payload)
+
+def kept(*args, **kwargs):
+    got = sweeps(*args, **kwargs)
+    results.extend(got)
+    return got
+
+sweep._measure_executor_solo = counted
+executor_policies.sweeps = kept
+try:
+    run.main()
+finally:
+    cells = [{"workload": c.workload, "policy": c.policy,
+              "predictor": c.predictor, "measured": c.measured,
+              "unfinished": list(c.unfinished),
+              "n_finished": c.window.n_finished, "arrival": c.arrival,
+              "finish": c.finish,
+              "overlap": executor_policies.overlaps(c)}
+             for r in results for c in r.cells]
+    with open(out, "w") as f:
+        json.dump({"measured": measured, "cells": cells}, f,
+                  allow_nan=False)
+"""
 
 
 def bench_rows(lines: list) -> tuple:
@@ -2699,9 +2728,15 @@ def phase_benchmarks() -> None:
     from repro_torch.benchmarks import executor_policies
 
     with tempfile.TemporaryDirectory() as cwd:
-        lines = bench_run(cwd, "repro_torch.benchmarks.run", "--no-cache")
+        record = os.path.join(cwd, "executor_sweeps.json")
+        lines = bench_run(cwd, "-c", BENCH_CHILD, record, "--cache-dir",
+                          os.path.join(cwd, "sweep_cache"),
+                          label="-m repro_torch.benchmarks.run --cache-dir "
+                                "<temporary>")
         for line in lines:
             print(f"[bench] {line}", flush=True)
+        with open(record) as f:
+            check_executor_sweeps(json.load(f))
         engine, rows = bench_rows(lines)
         errors = [name for name, derived in rows if derived == '"ERROR"']
         if errors:
@@ -2720,9 +2755,9 @@ def phase_benchmarks() -> None:
             fail(f"benchmarks.run's executor rows {got}, expected {want}")
         by_engine = {}
         for name in ("python", "compiled"):
-            lines = bench_run(cwd, "repro_torch.benchmarks.run", "--machine",
-                              "des", "--subset", "2", "--no-cache",
-                              "--engine", name)
+            lines = bench_run(cwd, "-m", "repro_torch.benchmarks.run",
+                              "--machine", "des", "--subset", "2",
+                              "--no-cache", "--engine", name)
             by_engine[name] = bench_rows(lines)
             print(f"[bench] --subset 2 --engine {name}: engine "
                   f"{by_engine[name][0]}, {len(by_engine[name][1])} rows",
@@ -2735,7 +2770,7 @@ def phase_benchmarks() -> None:
         print(f"[bench] full size under {engine}; at --subset 2 the python "
               f"and {by_engine['compiled'][0]} engines' rows are equal",
               flush=True)
-        lines = bench_run(cwd, "repro_torch.examples.cluster_sim")
+        lines = bench_run(cwd, "-m", "repro_torch.examples.cluster_sim")
         for line in lines:
             print(f"[bench] {line}", flush=True)
         policies = [line.split()[0] for line in lines if " STP=" in line]
@@ -3805,7 +3840,6 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + count
     timed("ops", phase_ops, gen)
     timed("scenario", phase_scenario_kernels)
-    timed("sweep", phase_executor_sweep)
     from repro_torch.configs import ARCHS
 
     for phase, *args in [(phase_reduced, gen, arch) for arch in sorted(ARCHS)] \

@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from .. import prng
+from .. import intra_op_threads, prng
 from . import _build
 
 DISTS = {"bits": 0, "uniform": 1, "normal": 2}
@@ -115,9 +115,7 @@ def _plain_op(out, k0: int, k1: int, offset: int, dist: int, lo: float,
     key = torch.tensor([k0, k1], dtype=torch.int64)
     name = next(k for k, v in DISTS.items() if v == dist)
     flat = out.view(-1)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
+    with intra_op_threads(1):
         for start in range(0, out.numel(), CHUNK):
             part = flat[start:start + CHUNK]
             got = threefry_plain(key, part.numel(), name, lo=lo, hi=hi,
@@ -125,8 +123,6 @@ def _plain_op(out, k0: int, k1: int, offset: int, dist: int, lo: float,
                                  bf16_math=bf16_math, offset=offset + start,
                                  device=out.device)
             part.copy_(got)
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _fake(out, k0: int, k1: int, offset: int, dist: int, lo: float,

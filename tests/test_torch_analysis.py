@@ -29,6 +29,7 @@ from pathlib import Path
 import pytest
 
 import repro.analysis as ref
+from repro_torch import intra_op_threads
 from repro_torch.analysis import (
     Baseline,
     Finding,
@@ -47,6 +48,17 @@ from repro_torch.analysis import (
 from repro_torch.analysis import importgraph, report
 from repro_torch.analysis.determinism import repo_scan_files
 from repro_torch.core.sweep import fingerprint_sources
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

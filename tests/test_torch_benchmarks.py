@@ -34,8 +34,20 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import intra_op_threads
 from repro_torch.benchmarks import executor_policies
 from repro_torch.examples import cluster_sim
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "src"

@@ -25,6 +25,7 @@ import ctypes
 import pytest
 import torch
 
+from repro_torch import intra_op_threads
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (
@@ -46,6 +47,17 @@ from repro_torch.kernels.ssd_scan import (
     ssd_plain,
 )
 from repro_torch.models import lm, mla
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2

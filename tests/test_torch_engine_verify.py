@@ -20,6 +20,7 @@ from pathlib import Path
 import pytest
 
 import repro.analysis as ref
+from repro_torch import intra_op_threads
 from repro_torch.analysis import (
     main,
     run_passes,
@@ -28,6 +29,17 @@ from repro_torch.analysis import (
     scan_translation,
 )
 from repro_torch.analysis.importgraph import CORE_DIR
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 BASELINE = Path(__file__).resolve().parent.parent / "src" / "repro_torch" / \
     "analysis" / "baseline.json"

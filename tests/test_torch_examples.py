@@ -21,7 +21,7 @@ from repro.launch import steps as jsteps
 from repro.launch.steps import build_train_step as j_build_train_step
 from repro.models import lm as jlm
 from repro.optim import adamw as jadamw
-from repro_torch import tree
+from repro_torch import intra_op_threads, tree
 from repro_torch.configs import get_arch
 from repro_torch.core.predictor import staircase_runtime
 from repro_torch.examples import concurrent_serving, quickstart
@@ -30,6 +30,16 @@ from repro_torch.launch.steps import build_train_step
 from repro_torch.models import lm
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.optim import adamw
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
 
 
 def test_concurrent_serving_example_reduced_on_cpu(capsys):

@@ -19,9 +19,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import intra_op_threads
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention_bwd as fb
 from repro_torch.kernels.flash_attention import flash_attention_plain
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 LOG2E = 1.4426950408889634
 SMEM_LIMIT = 232_448           # the H100's dynamic shared memory per block

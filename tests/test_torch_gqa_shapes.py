@@ -35,10 +35,21 @@ import torch
 from repro.checkpoint.checkpointer import _flatten
 from repro.configs import get_arch
 from repro.models import lm as jlm
-from repro_torch import tree
+from repro_torch import intra_op_threads, tree
 from repro_torch.configs import get_arch as t_get_arch
 from repro_torch.models import lm
 from repro_torch.models.bridge import params_from_numpy
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 SHAPES = {
     "yi-34b": dict(n_heads=7, n_kv_heads=1, head_dim=32, d_model=224),

@@ -17,6 +17,7 @@ import re
 import pytest
 import torch
 
+from repro_torch import intra_op_threads
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.configs.shapes import InputShape
 from repro_torch.data import pipeline as data
@@ -27,6 +28,17 @@ from repro_torch.kernels import flash_attention_bwd as bwd
 from repro_torch.models import lm
 from repro_torch.models.mla import padded_qk_dim
 from repro_torch.tree import leaves
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 WRAPPERS = {"flash_attention": fwd, "flash_attention_bwd": bwd,
             "decode_attention": dec}

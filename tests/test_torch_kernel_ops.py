@@ -25,7 +25,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch import prng
+from repro_torch import intra_op_threads, prng
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.kernels import _build, ops, threefry
 from repro_torch.kernels import decode_attention as dec
@@ -37,6 +37,17 @@ from repro_torch.kernels import ssd_scan as sd
 from repro_torch.kernels import ssd_scan_bwd as sdb
 from repro_torch.models import lm
 from repro_torch.models.mla import padded_qk_dim
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 OPS = ("flash_attention", "flash_attention_bwd", "decode_attention",
        "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")

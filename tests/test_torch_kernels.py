@@ -19,6 +19,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.rglru_scan import rglru_pallas
 from repro.kernels.ssd_scan import ssd_pallas
 from repro.models.layers import causal_mask, window_mask
+from repro_torch import intra_op_threads
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
     HEAD_DIMS,
@@ -35,6 +36,17 @@ from repro_torch.kernels.ssd_scan import (
     ssd_cuda,
     state_tiles_per_warp,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 # The sweeps of tests/test_kernels.py, dtypes by name.
 ATTN_SWEEP = [

@@ -29,9 +29,21 @@ import torch
 from repro.configs import get_arch
 from repro.kernels import ops as jops, ref as jref
 from repro.models import mla as jmla, moe as jmoe
+from repro_torch import intra_op_threads
 from repro_torch.configs import get_arch as t_get_arch
 from repro_torch.kernels import ops, ref
 from repro_torch.models import mla, moe
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 F32_TOL = 1e-4
 BF16_REL_L2 = 3e-2

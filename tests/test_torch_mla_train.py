@@ -23,12 +23,23 @@ from repro.checkpoint.checkpointer import _flatten
 from repro.configs import get_arch
 from repro.configs.base import MLAConfig
 from repro.models import lm as jlm
-from repro_torch import tree
+from repro_torch import intra_op_threads, tree
 from repro_torch.configs import get_arch as t_get_arch
 from repro_torch.configs.base import MLAConfig as TMLAConfig
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.models.bridge import params_from_numpy
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 F32_TOL = 1e-4          # tests/test_torch_train.py's float32 tolerance
 LOSS_TOL = 1e-5

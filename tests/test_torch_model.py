@@ -24,9 +24,21 @@ import torch
 from repro.checkpoint.checkpointer import _flatten
 from repro.configs import get_arch
 from repro.models import lm as jlm
+from repro_torch import intra_op_threads
 from repro_torch.configs import get_arch as t_get_arch
 from repro_torch.models import lm
 from repro_torch.models.bridge import leaf_dtype, params_from_numpy
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 B, PROMPT, STEPS, MAX_SEQ = 2, 12, 4, 24
 # float32: both packages do the same float32 arithmetic in another order

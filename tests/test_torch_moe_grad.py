@@ -34,7 +34,19 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.kernels import ops as jops
+from repro_torch import intra_op_threads
 from repro_torch.kernels import ops
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 F32_TOL = 1e-4
 BF16_REL_L2 = 3e-2

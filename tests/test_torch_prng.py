@@ -36,7 +36,7 @@ from repro.launch import steps as jsteps
 from repro.launch.steps import build_train_step as j_build_train_step
 from repro.models import lm as jlm
 from repro.optim import adamw as jadamw
-from repro_torch import prng, tree, xla_f32
+from repro_torch import intra_op_threads, prng, tree, xla_f32
 from repro_torch.configs import get_arch
 from repro_torch.configs.shapes import InputShape
 from repro_torch.core import jobs
@@ -47,6 +47,17 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import lm
 from repro_torch.optim import adamw
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 #: float32 normals (and weight leaves): at most this many ulps from the
 #: reference's.

@@ -25,9 +25,21 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch import intra_op_threads
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import rglru_scan_bwd as rb
 from repro_torch.kernels.rglru_scan import rglru_plain
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 F32_REL_L2 = 1e-4
 GRADS = ("dx", "d gate_a", "d gate_i", "d log_a", "dh0")

@@ -31,12 +31,24 @@ import repro.core.executor as j_executor
 import repro.core.scenarios as j_scn
 import repro.core.sweep as j_sweep
 import repro.core.workload as j_workload
+from repro_torch import intra_op_threads
 import repro_torch.core.distrib as t_distrib
 import repro_torch.core.executor as t_executor
 import repro_torch.core.scenarios as t_scn
 import repro_torch.core.sweep as t_sweep
 import repro_torch.core.workload as t_workload
 from repro_torch.benchmarks import executor_policies
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 ROOT = Path(__file__).resolve().parent.parent
 SEEDS = [0, 1]

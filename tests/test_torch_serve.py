@@ -36,6 +36,7 @@ import repro.core.executor as j_executor
 from repro.core.executor import ExecutorJob as JJob, LaneExecutor as JLane
 from repro.core.policies import POLICIES, make_policy as j_make_policy
 from repro.core.scenarios import submission_offsets as j_offsets
+from repro_torch import intra_op_threads
 from repro_torch.configs import get_arch
 from repro_torch.core import executor as t_executor
 from repro_torch.core.executor import ExecutorJob as TJob, LaneExecutor as TLane
@@ -47,6 +48,17 @@ from repro_torch.core.sweep import SweepSpec
 from repro_torch.examples import concurrent_serving
 from repro_torch.launch import serve
 from repro_torch.models import lm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"

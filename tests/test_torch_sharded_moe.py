@@ -11,6 +11,18 @@ from __future__ import annotations
 
 import pytest
 from test_torch_sharded_steps import check_arch, time_limit  # noqa: F401
+from repro_torch import intra_op_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 MOE_CASES = [("deepseek-v2-lite-16b", (2, 2), 2, "cp"),
              ("deepseek-v2-lite-16b", (4, 2), 4, "cp")]

@@ -35,6 +35,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from repro_torch import intra_op_threads
 from repro_torch.configs import get_arch
 from repro_torch.configs.shapes import InputShape
 from repro_torch.launch import steps
@@ -45,6 +46,17 @@ from repro_torch.optim import adamw
 from repro_torch.sharding import Sharder, profile_for
 from repro_torch.sharding.specs import placements
 from repro_torch.tree import leaves, leaves_with_path, tree_map
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 #: Seconds a test of these files may take (SIGALRM fails it past that).
 LIMIT = 300

@@ -23,6 +23,7 @@ from repro.data import pipeline as jdata
 from repro.launch import steps as jsteps
 from repro.models import lm as jlm
 from repro.sharding import specs as jspecs
+from repro_torch import intra_op_threads
 from repro_torch.configs import get_arch
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.data import pipeline as tdata
@@ -31,6 +32,17 @@ from repro_torch.models import lm
 from repro_torch.sharding import specs
 from repro_torch.sharding.annotate import profile_for
 from repro_torch.tree import leaves_with_path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 MESHES = {(16, 16): ("data", "model"), (2, 16, 16): ("pod", "data", "model"),
           (2, 2): ("data", "model"), (4, 2): ("data", "model")}

@@ -35,7 +35,7 @@ from repro.kernels import ops as jops
 from repro.launch.steps import build_train_step as j_build_train_step
 from repro.models import lm as jlm
 from repro.optim import adamw as jadamw
-from repro_torch import tree
+from repro_torch import intra_op_threads, tree
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_arch as t_get_arch
 from repro_torch.configs.shapes import InputShape as TInputShape
@@ -51,6 +51,17 @@ from repro_torch.launch.steps import build_train_step
 from repro_torch.models import lm
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.optim import adamw
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The module's CPU work on one intra-op thread: its small products
+    would wake every thread, which under the suite's parallel workers
+    makes them many times slower (the rule of ``README.md``'s "Tests on
+    the CPU")."""
+    with intra_op_threads(1):
+        yield
+
 
 F32_TOL = 1e-4
 LOSS_TOL = 1e-5
