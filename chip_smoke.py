@@ -272,7 +272,17 @@ ends the script with a non-zero exit and no result line:
               dropped; ``python -m repro_torch.examples.cluster_sim`` at
               its defaults: exit 0 and its four policy lines.  Rows are
               printed on ``[bench]`` lines.
-11. analysis -- ``python -m repro_torch.analysis --json`` over the
+11. perf    -- the DES perf lane, ``python -m repro_torch.benchmarks.perf
+              --jobs 4 --repeat 2 --out <temporary>`` in full mode, run
+              the same way (on the host): exit 0, the reference's eleven
+              rows in its order, each python engine row's ``blocks``
+              equal to its ``.compiled`` row's, the compiled rows'
+              engine ``compiled-*``, both dispatchers' rows the same
+              ``cells``, the JSON written equal to the rows printed, and
+              no ``BENCH_des_torch.json`` written into the checkout's
+              root (its ``BENCH_des.json`` unchanged).  Rows are printed
+              on ``[perf]`` lines.
+12. analysis -- ``python -m repro_torch.analysis --json`` over the
               checkout (the port's core, its benchmark modules and
               ``tests/test_torch_*.py``) in a subprocess run the same way:
               exit 0, ``ok`` true and no blocking finding; one
@@ -2778,6 +2788,69 @@ def phase_benchmarks() -> None:
             fail(f"cluster_sim printed the policies {policies}")
 
 
+#: The perf lane's rows in full mode at ``--jobs 4``, in the reference's
+#: order.
+PERF_ROWS = [
+    "blocks_per_sec.table5_pair", "blocks_per_sec.mix4_10x",
+    "blocks_per_sec.mgk_saturated", "blocks_per_sec.table5_pair.compiled",
+    "blocks_per_sec.mix4_10x.compiled",
+    "blocks_per_sec.mgk_saturated.compiled", "segment_exits.mgk_saturated",
+    "table5.cold.jobs4", "table5.warm.jobs4", "sweep_cells_per_sec.local",
+    "sweep_cells_per_sec.queue",
+]
+
+
+def phase_perf() -> None:
+    """The DES perf lane through its entry point in a subprocess run from
+    a temporary directory, checked against the lane's shape and the JSON
+    it wrote."""
+    import tempfile
+
+    root_files = {name: (ROOT / name).read_bytes()
+                  if (ROOT / name).exists() else None
+                  for name in ("BENCH_des.json", "BENCH_des_torch.json")}
+    with tempfile.TemporaryDirectory() as cwd:
+        out = os.path.join(cwd, "perf.json")
+        lines = bench_run(cwd, "-m", "repro_torch.benchmarks.perf", "--jobs",
+                          "4", "--repeat", "2", "--out", out,
+                          label="-m repro_torch.benchmarks.perf --jobs 4 "
+                                "--repeat 2 --out <temporary>")
+        for line in lines:
+            print(f"[perf] {line}", flush=True)
+        with open(out) as f:
+            payload = json.load(f)
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    by_name = {row["name"]: row for row in rows}
+    names = [row["name"] for row in rows]
+    if names != PERF_ROWS:
+        fail(f"the perf lane printed the rows {names}, expected {PERF_ROWS}")
+    for name in PERF_ROWS[:3]:
+        if by_name[name]["blocks"] != by_name[f"{name}.compiled"]["blocks"]:
+            fail(f"{name}: the python engine ran {by_name[name]['blocks']} "
+                 f"blocks, the compiled one "
+                 f"{by_name[name + '.compiled']['blocks']}")
+    engines = {row["name"]: row["engine"] for row in rows
+               if row["name"].endswith(".compiled")}
+    if not all(e.startswith("compiled-") for e in engines.values()):
+        fail(f"the compiled rows ran the engines {engines}")
+    cells = [by_name[f"sweep_cells_per_sec.{d}"]["cells"]
+             for d in ("local", "queue")]
+    if cells[0] != cells[1]:
+        fail(f"the local and queue dispatchers computed {cells} cells")
+    if payload["rows"] != rows:
+        fail("the perf lane's JSON differs from the rows it printed")
+    changed = [name for name, data in root_files.items()
+               if ((ROOT / name).read_bytes() if (ROOT / name).exists()
+                   else None) != data]
+    if changed:
+        fail(f"the perf lane changed {changed} in the checkout's root")
+    print(f"[perf] {len(rows)} rows; blocks "
+          f"{[by_name[n]['blocks'] for n in PERF_ROWS[:3]]}, cells "
+          f"{cells[0]}, chunk {by_name['sweep_cells_per_sec.queue']['chunk']}"
+          f", compiled backend {payload['compiled_backend']}, commit "
+          f"{payload['commit']}", flush=True)
+
+
 def phase_analysis() -> None:
     """The static analyzer over the checkout in a subprocess run from a
     temporary directory; stale baseline entries (keys that matched no
@@ -3850,6 +3923,7 @@ def main() -> None:
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     timed("benchmarks", phase_benchmarks)
+    timed("perf", phase_perf)
     timed("analysis", phase_analysis)
     sources = {
         "flash_attention": "src/repro/kernels/flash_attention.py:109",

@@ -189,7 +189,7 @@ def test_clean_tree_cli_exits_zero(capsys):
     assert main([]) == 0
     out = capsys.readouterr().out
     assert out.splitlines()[-1] == (
-        "0 blocking finding(s), 18 baselined, 0 stale baseline entr(y/ies)")
+        "0 blocking finding(s), 26 baselined, 0 stale baseline entr(y/ies)")
 
 
 def test_clean_tree_json_is_ok_and_stable_sorted(capsys):
@@ -197,7 +197,7 @@ def test_clean_tree_json_is_ok_and_stable_sorted(capsys):
     payload = json.loads(capsys.readouterr().out)
     assert payload["ok"] is True
     records = payload["findings"]
-    assert len(records) == 18
+    assert len(records) == 26
     assert all(r["suppressed"] and r["pass"] == "determinism"
                for r in records)
     keys = [(r["file"], r["line"], r["pass"], r["rule"], r["context"],
@@ -205,6 +205,10 @@ def test_clean_tree_json_is_ok_and_stable_sorted(capsys):
     assert keys == sorted(keys)
     assert [r["location"] for r in records
             if r["file"].startswith("benchmarks/")] == [
+        "benchmarks/perf.py:162", "benchmarks/perf.py:164",
+        "benchmarks/perf.py:289", "benchmarks/perf.py:293",
+        "benchmarks/perf.py:343", "benchmarks/perf.py:346",
+        "benchmarks/perf.py:417", "benchmarks/perf.py:444",
         "benchmarks/run.py:130", "benchmarks/run.py:135"]
 
 
@@ -218,7 +222,7 @@ def test_every_baseline_entry_has_a_reason_and_matches():
                             Baseline.load(BASELINE))
     assert report.ok and not report.blocking
     assert report.stale_keys == [] and report.empty_reasons == []
-    assert sum(e["count"] for e in entries) == len(report.suppressed) == 18
+    assert sum(e["count"] for e in entries) == len(report.suppressed) == 26
 
 
 def test_clean_tree_has_no_protocol_findings():
