@@ -106,9 +106,23 @@ ends the script with a non-zero exit and no result line:
               experts, and the share of tokens they would have routed
               elsewhere is printed); prefill and decode-step times and
               where a decode step's device time goes.
+   graphs  -- in each model phase, on its weights: a serve job's decode
+              step (``core.jobs.DecodeStep``, the prompt alone) captured
+              as a CUDA graph after its eager warm-up steps, the first
+              block's prefill into the same caches, then 2 blocks of 8
+              replays, every step's token and logits and the final caches
+              bitwise the eager ``lm.decode_step`` loop's; the capture's
+              seconds and a replay's launches; the step's wall ms eager
+              and graphed in turns (eager, graphed, graphed, eager) and
+              the device idle share of a graphed step (torch.profiler),
+              beside the card's name and power limit.
 5. serve   -- the serving entry point at full width on three paths, each
               with the kernels' launch counters set to 0 just before and
-              read just after: ``--jobs yi-6b:8,yi-6b:2`` (flash and decode
+              read just after (a job's decode steps are graph replays,
+              counted at every replay; the flash, decode, SSD and RG-LRU
+              counts must equal what each job instance runs: two
+              prefills, the capture's warm-up steps and its blocks'
+              replays): ``--jobs yi-6b:8,yi-6b:2`` (flash and decode
               attention), ``--jobs mamba2-2.7b:8,recurrentgemma-2b:2`` (all
               four kernels) and ``--jobs minicpm3-4b:8,deepseek-v2-lite-16b:2``
               (flash at MLA's head dims; MLA decodes with plain matrix
@@ -228,8 +242,10 @@ ends the script with a non-zero exit and no result line:
               card, solo baselines through a sweep cache in a temporary
               directory; run twice, the second run must measure no
               baseline.  Prints each job's turnaround and, per block
-              shape, the median wall ms of one block (launches plus the
-              synchronize the executor times) and its device ms.
+              shape, the median wall ms of one block (a CUDA graph's
+              replay, captured once a shape at a job's warm-up, plus the
+              synchronize the executor times) and its device ms replayed
+              and eager.
 9. reduced -- every arch of the zoo at ``.reduced()`` (head dim 32;
               reduced MLA's qk 48 padded to 64 beside v 32; dbrx-132b
               included), as the reference's ``make smoke`` and quickstart
@@ -311,6 +327,7 @@ every job's weights and batches); the last line is ``{"ok": true,
 
 from __future__ import annotations
 
+import faulthandler
 import functools
 import gc
 import json
@@ -353,6 +370,8 @@ THREEFRY_LEAF = (7168, 20480)
 # threefry kernel (NVIDIA H100 80GB HBM3 at 700 W), printed beside this
 # run's total.
 PREVIOUS_TOTAL_S = 662.6
+# Seconds after which the run dumps every thread's stack and exits 1.
+WATCHDOG_S = 1150
 # Kernel vs plain version: |kernel - plain| <= tol + tol * |plain|, with the
 # bf16 tolerances of tests/test_kernels.py.  Attention (2e-2): the kernels
 # round probabilities to bf16 before the PV product (flash) and the output
@@ -405,6 +424,10 @@ RGLRU_BWD_F32_REL_L2 = 1e-4
 
 B, PROMPT, TOKENS_PER_BLOCK, LONGEST = 4, 1024, 8, 8
 MAX_SEQ = PROMPT + LONGEST * TOKENS_PER_BLOCK + 8   # make_serve_job's max_seq
+# Blocks of the graphs phase's replays, held to the eager steps (within
+# MAX_SEQ with the capture's warm-up steps and the timed runs, each after
+# a fresh prefill).
+GRAPH_BLOCKS = 2
 SERVE_COMMON = ["--policy", "srtf", "--compare-fifo", "--batch", str(B),
                 "--prompt-len", str(PROMPT), "--tokens-per-block",
                 str(TOKENS_PER_BLOCK)]
@@ -1854,10 +1877,10 @@ KINDS = {   # device-time classes of the profiler's kernel names
 }
 
 
-def profile(fn, n: int, what: str) -> None:
+def profile(fn, n: int, what: str, tag: str = "model") -> None:
     """torch.profiler over ``n`` calls: device busy time by kind of kernel,
     and the device's idle share between the first kernel's start and the
-    last one's end."""
+    last one's end; printed on ``[tag]`` lines."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1881,11 +1904,11 @@ def profile(fn, n: int, what: str) -> None:
         last = max(last, e.time_range.end)
     busy = sum(kinds.values())
     if busy == 0.0:
-        print(f"[model] profiler recorded no device time for the {what}: "
+        print(f"[{tag}] profiler recorded no device time for the {what}: "
               f"device busy and idle share not measured", flush=True)
         return
     parts = ", ".join(f"{k} {v / 1e3 / n:.3f} ms" for k, v in kinds.items())
-    print(f"[model] profiled {what} (torch.profiler, {n} calls): device busy "
+    print(f"[{tag}] profiled {what} (torch.profiler, {n} calls): device busy "
           f"{busy / 1e3 / n:.3f} ms per call ({parts}); device idle "
           f"{1 - busy / (last - first):.1%} of the "
           f"{(last - first) / 1e3 / n:.3f} ms per call between first and "
@@ -2322,9 +2345,78 @@ def phase_model(gen: torch.Generator, arch: str) -> None:
           + f" / 3.35 TB/s = {read / PEAK_BYTES * 1e3:.3f} ms", flush=True)
     profile(step, 3, f"{arch} decode step")
     profile(do_prefill, 1, f"{arch} prefill")
-    del params, got, want, caches
+    del got, want, caches
+    timed("graphs", phase_graphs, arch, cfg, params)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_graphs(arch: str, cfg, params) -> None:
+    """A serve job's decode step on the card as the job runs it
+    (``core.jobs.DecodeStep``: the prompt alone, as a serve job passes
+    it; a prefill, the capture of one step as a CUDA graph after its eager
+    warm-up steps, then the first block's prefill into the same caches
+    and GRAPH_BLOCKS blocks of TOKENS_PER_BLOCK replays), held bitwise to
+    the eager ``lm.decode_step`` loop (every step's token and logits, the
+    caches at the end); then the step's wall ms graphed and eager in
+    turns (eager, graphed, graphed, eager; each the same body on the same
+    buffers, 10 steps back to back after a fresh prefill) and the device
+    idle share of a graphed step (torch.profiler)."""
+    from repro_torch.core import jobs
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+
+    prompt = jobs.serve_prompt(cfg, 0, B, PROMPT, device="cuda")
+    step = jobs.DecodeStep(cfg, params, prompt, MAX_SEQ)
+    step.prefill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    step.prefill()
+    n = GRAPH_BLOCKS * TOKENS_PER_BLOCK
+    got = []
+    for _ in range(n):
+        logits = step()
+        got.append((step.token.clone(), logits.clone()))
+    logits, caches = lm.prefill(cfg, params, prompt, max_seq=MAX_SEQ)
+    token = torch.argmax(logits, -1)
+    lengths = torch.full((B,), PROMPT, dtype=torch.int32, device="cuda")
+    for i, (tok, logits) in enumerate(got):
+        want, caches = lm.decode_step(cfg, params, token, caches, lengths)
+        token = torch.argmax(want, -1)
+        lengths = lengths + 1
+        if not (torch.equal(tok, token) and torch.equal(logits, want)):
+            fail(f"graphs {arch}: replayed step {i} differs from the eager "
+                 f"step (tokens {tok.tolist()} vs {token.tolist()})")
+    for g, w in zip(leaves(step.caches), leaves(caches)):
+        if not torch.equal(g, w):
+            fail(f"graphs {arch}: the caches after {n} replays differ from "
+                 f"the eager loop's")
+    del got, caches, want
+    counts = {fn.__name__: k for fn, k in step.graph.counts.items()}
+    print(f"[graphs] {arch}: {GRAPH_BLOCKS} blocks of {TOKENS_PER_BLOCK} "
+          f"replays bitwise the eager steps (tokens, logits, caches); "
+          f"capture {capture_s:.3f} s; launches a replay {counts}",
+          flush=True)
+
+    def eager():
+        jobs.decode_in_place(cfg, params, step.token, step.caches,
+                             step.lengths)
+
+    times = {"eager": [], "graphed": []}
+    for kind in ("eager", "graphed", "graphed", "eager"):
+        step.prefill()
+        times[kind].append(wall_ms(eager if kind == "eager" else step, 10,
+                                   warmup=2))
+    print(f"[graphs] {arch} decode step B{B} wall ms (10 steps back to "
+          f"back, in turns): eager {times['eager']}, graphed "
+          f"{times['graphed']}; {card()}", flush=True)
+    step.prefill()
+    profile(step, 3, f"{arch} graphed decode step", tag="graphs")
+    del step
 
 
 def phase_reduced(gen: torch.Generator, arch: str) -> dict:
@@ -2504,7 +2596,12 @@ def phase_serve(jobs: str, path_kernels, pacing,
     reset_counts()
     runs = serve.main(args)
     launches = read_counts()
-    print(f"[serve] kernel launches in the serve run: {launches}", flush=True)
+    want = serve_launches(args)
+    print(f"[serve] kernel launches in the serve run: {launches}; the "
+          f"model's kernels' expected with each decode step's launches "
+          f"counted at every replay: {want}", flush=True)
+    if any(launches[name] != n for name, n in want.items()):
+        fail(f"serve --jobs {jobs} launched {launches}, expected {want}")
     want_blocks = sorted(int(item.split(":")[1]) for item in jobs.split(","))
     for policy, run in runs.items():
         blocks = sorted(r.blocks for r in run["results"])
@@ -2524,6 +2621,39 @@ def phase_serve(jobs: str, path_kernels, pacing,
     return launches
 
 
+def serve_launches(args: list) -> dict:
+    """The kernel launches of ``launch.serve`` with ``args``, counted per
+    replay: every job instance (each distinct item's solo run, then each
+    policy's run) prefills twice (warm-up and first block) and runs
+    ``graphs.WARMUP`` eager decode steps and ``blocks x tokens_per_block``
+    replays.  Prefill launches flash at every attention layer (MLA's too)
+    and each scan at its layers; a decode step launches the decode
+    kernel at every GQA and local layer (MLA decodes with plain
+    products)."""
+    from repro_torch import graphs
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    a = serve.build_parser().parse_args(args)
+    items = serve.parse_jobs(a)
+    runs = 2 if a.compare_fifo else 1
+    want = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+            "rglru_scan": 0}
+    for arch, blocks in list(dict.fromkeys(items)) + items * runs:
+        cfg = get_arch(arch).reduced() if a.reduced else get_arch(arch)
+        mixers = [spec.mixer for stage in lm.build_plan(cfg)
+                  for spec in stage.unit * stage.repeats]
+        steps = graphs.WARMUP + blocks * a.tokens_per_block
+        want["flash_attention"] += 2 * sum(m in ("gqa", "local", "mla")
+                                           for m in mixers)
+        want["decode_attention"] += steps * sum(m in ("gqa", "local")
+                                                for m in mixers)
+        want["ssd_scan"] += 2 * mixers.count("ssd")
+        want["rglru_scan"] += 2 * mixers.count("rglru")
+    return want
+
+
 def phase_scenario_kernels() -> None:
     """The scenario's own arrivals as synthetic jobs on the card, twice:
     the second run must read every solo baseline from the sweep cache."""
@@ -2533,6 +2663,7 @@ def phase_scenario_kernels() -> None:
     from repro_torch.core import sweep
     from repro_torch.core.scenarios import (
         _synthetic_block,
+        _synthetic_graph,
         _synthetic_shape,
         executor_job,
     )
@@ -2599,16 +2730,19 @@ def phase_scenario_kernels() -> None:
             t0 = time.perf_counter()
             block()
             walls.append((time.perf_counter() - t0) * 1e3)
-        # 20 calls: 4 launches a repetition, and the launch queue holds
-        # ~1000 behind device_ms's sleep before the host has to wait.
+        # 20 calls: eager, 4 launches a repetition, and the launch queue
+        # holds ~1000 behind device_ms's sleep before the host has to
+        # wait; a replay is one launch.
         step, x0 = _synthetic_block(dim, reps, dev)
         dev_ms = device_ms(lambda: step(x0), 20)
+        graph_ms = device_ms(_synthetic_graph(dim, reps, dev).replay, 20)
         print(f"[scenario] synthetic block ({dim}, {reps}): median "
               f"{statistics.median(walls):.4f} ms wall per block (200 "
-              f"blocks, each ending in a synchronize; p10 "
+              f"blocks, each a graph replay ending in a synchronize; p10 "
               f"{statistics.quantiles(walls, n=10)[0]:.4f}, p90 "
               f"{statistics.quantiles(walls, n=10)[-1]:.4f}), "
-              f"{dev_ms:.4f} ms on the device", flush=True)
+              f"{graph_ms:.4f} ms on the device replayed, {dev_ms:.4f} ms "
+              f"eager", flush=True)
 
 
 def check_executor_sweeps(record: dict) -> None:
@@ -3868,6 +4002,9 @@ def timed(name: str, fn, *args):
 
 
 def main() -> None:
+    # A run that hangs ends with every thread's stack on stderr before the
+    # 1200 s a run may take, not at a caller's kill.
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     kind = timed("device", phase_device)
     timed("build", phase_build)

@@ -426,9 +426,14 @@ class LaneExecutor(MachineBase):
         # forever), so keep at least one healthy lane no matter how the
         # EWMAs diverge; candidates go slowest-first.
         healthy = sum(1 for ln in self.sms if not ln.failed)
+        # Nor the lane a sampling policy samples on (SRTF's sample_sm):
+        # quarantined, it could never issue a sample, and the jobs
+        # waiting for their predictions would strand the same way.  Its
+        # first blocks (a serve job's prefill) run long by design.
+        sample_lane = getattr(self.core.policy, "sample_sm", None)
         candidates = sorted(
             ((ew, idx) for idx, ew in self.lane_t_ewma.items()
-             if not self.sms[idx].failed
+             if not self.sms[idx].failed and idx != sample_lane
              and ew > self.straggler_quarantine * med),
             reverse=True)
         for _, idx in candidates:

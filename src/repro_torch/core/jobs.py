@@ -6,10 +6,13 @@ serving job's block is one k-token decode chunk for a request batch
 against its live cache (attention KV caches, Mamba-2 and RG-LRU states,
 whatever the arch's plan keeps), and its first block runs the prefill too.
 Blocks are homogeneous, the structural property the paper's predictor
-exploits.  Nothing here depends on the arch: any config the port's model
-runs makes a serving and a training job.  As in the JAX package, both
-feed the model tokens alone: whisper-large-v3 runs its decoder with cross
-attention skipped, pixtral-12b its text path.
+exploits.  On the card a serving job captures its decode step once, at
+warm-up, as a CUDA graph and every block replays it, as the reference's
+jitted step is compiled at warm-up (:class:`DecodeStep`); its prefill, run
+once a job, stays eager.  Nothing here depends on the arch: any config
+the port's model runs makes a serving and a training job.  As in the JAX
+package, both feed the model tokens alone: whisper-large-v3 runs its
+decoder with cross attention skipped, pixtral-12b its text path.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .. import prng, resolve_device
+from .. import graphs, prng, resolve_device
 from ..checkpoint.checkpointer import Checkpointer
 from ..configs.base import ArchConfig
 from ..kernels import threefry
@@ -134,6 +137,80 @@ def make_train_job(
                        warmup_fn=warmup, tenant=tenant)
 
 
+def decode_in_place(cfg: ArchConfig, params: Dict, token: torch.Tensor,
+                    caches: Dict, lengths: torch.Tensor) -> torch.Tensor:
+    """One decode step on buffers a serve job keeps across steps, the body
+    its CUDA graph captures: the caches updated in place, the step's
+    argmax written into ``token`` (int64 ``[B]``) and ``lengths`` (int32
+    ``[B]``) advanced in place, so steps follow each other with no host
+    work between them.  Returns the logits ``[B, V]``."""
+    logits, _ = lm.decode_step(cfg, params, token, caches, lengths)
+    token.copy_(torch.argmax(logits, -1))
+    lengths.add_(1)
+    return logits
+
+
+class DecodeStep:
+    """A serve job's prefill and decode step on buffers it keeps: the
+    counterpart of the reference's jitted ``do_prefill`` and ``do_decode``.
+
+    ``token``, ``lengths`` and the caches (those of the first
+    :meth:`prefill`) keep their storage for the job's life.  A later
+    :meth:`prefill` overwrites every leaf of the caches with a fresh
+    prefill's, and the token and lengths, so nothing of an earlier step
+    (a warm-up's) leaks into the next: attention keys past the prompt are
+    masked by ``lengths``, but Mamba-2's and the RG-LRU's states are read
+    whole.  :meth:`capture` captures one decode step as a CUDA graph
+    (:mod:`repro_torch.graphs`); each call then replays it.  Without a
+    capture (the CPU) a call runs the step eagerly.
+    """
+
+    def __init__(self, cfg: ArchConfig, params: Dict, prompt: torch.Tensor,
+                 max_seq: int):
+        self.cfg, self.params, self.prompt = cfg, params, prompt
+        self.max_seq = max_seq
+        batch = prompt.shape[0]
+        self.token = torch.zeros(batch, dtype=torch.long,
+                                 device=prompt.device)
+        self.lengths = torch.zeros(batch, dtype=torch.int32,
+                                   device=prompt.device)
+        self.caches: Optional[Dict] = None
+        self.graph: Optional[graphs.Graph] = None
+
+    def prefill(self) -> None:
+        """Run the prompt into the caches; the token is its argmax and
+        ``lengths`` the prompt's length."""
+        logits, caches = lm.prefill(self.cfg, self.params, self.prompt,
+                                    max_seq=self.max_seq)
+        if self.caches is None:
+            self.caches = caches
+        else:
+            for dst, src in zip(leaves(self.caches), leaves(caches)):
+                dst.copy_(src)
+        self.token.copy_(torch.argmax(logits, -1))
+        self.lengths.fill_(self.prompt.shape[1])
+
+    def capture(self) -> None:
+        """Capture one decode step (after a :meth:`prefill`) as a CUDA
+        graph; it runs the step eagerly a few times first, writing the
+        buffers, which the next :meth:`prefill` overwrites."""
+        if self.caches is None:
+            raise RuntimeError("capture needs the caches of a prefill")
+        self.graph = graphs.capture(
+            lambda: decode_in_place(self.cfg, self.params, self.token,
+                                    self.caches, self.lengths),
+            self.prompt.device)
+
+    def __call__(self) -> torch.Tensor:
+        """One decode step: the graph's replay once captured, else eager.
+        Returns the logits (a replay's are the graph's output buffer,
+        overwritten by the next)."""
+        if self.graph is not None:
+            return self.graph.replay()
+        return decode_in_place(self.cfg, self.params, self.token,
+                               self.caches, self.lengths)
+
+
 def make_serve_job(
     cfg: ArchConfig,
     name: str,
@@ -154,7 +231,10 @@ def make_serve_job(
 
     Weights come from ``lm.init(cfg, seed=seed)``.  ``prompt`` ([batch,
     prompt_len] token ids, a tensor or numpy array) defaults to the
-    reference's (:func:`serve_prompt`).
+    reference's (:func:`serve_prompt`).  On the card the warm-up captures
+    the decode step as a CUDA graph, as the reference's warm-up compiles
+    it, and every block replays it (:class:`DecodeStep`); a failed capture
+    raises.  On the CPU the steps run eagerly.
     """
     device = resolve_device(device)
     max_seq = prompt_len + blocks * tokens_per_block + 8
@@ -166,38 +246,32 @@ def make_serve_job(
     if tuple(prompt.shape) != (batch, prompt_len):
         raise ValueError(f"prompt shape {tuple(prompt.shape)}, expected "
                          f"{(batch, prompt_len)}")
-    state: Dict = {"caches": None, "lengths": None, "token": None}
-
-    def do_prefill():
-        return lm.prefill(cfg, params, prompt, max_seq=max_seq)
-
-    def do_decode(token, caches, lengths):
-        logits, caches = lm.decode_step(cfg, params, token, caches, lengths)
-        return torch.argmax(logits, -1), caches
+    step = DecodeStep(cfg, params, prompt, max_seq)
+    state = {"fresh": True}
 
     def warmup():
-        # Pays every one-time cost (kernel build and load, allocator growth)
-        # on caches of its own: the job's state is untouched.
-        logits, caches = do_prefill()
-        lengths = torch.full((batch,), prompt_len, dtype=torch.int32,
-                             device=device)
-        do_decode(torch.argmax(logits, -1), caches, lengths)
+        # Pays every one-time cost (kernel build and load, allocator
+        # growth) and on the card captures the decode step (the CPU runs
+        # it once, eagerly); the job's results are untouched, since the
+        # first block's prefill overwrites every buffer the warm-up wrote.
+        step.prefill()
+        if device.type == "cuda":
+            step.capture()
+        else:
+            step()
         _sync(device)
 
     def make_block_fn(residency: int) -> Callable[[], None]:
         def block():
-            if state["caches"] is None:
-                logits, caches = do_prefill()
-                state["caches"] = caches
-                state["lengths"] = torch.full((batch,), prompt_len,
-                                              dtype=torch.int32, device=device)
-                state["token"] = torch.argmax(logits, -1)
+            if device.type == "cuda" and step.graph is None:
+                raise RuntimeError(f"serve job {name!r}: the warm-up "
+                                   f"captures the decode step; run "
+                                   f"warmup_fn before the first block")
+            if state["fresh"]:
+                step.prefill()
+                state["fresh"] = False
             for _ in range(tokens_per_block):
-                tok, caches = do_decode(state["token"], state["caches"],
-                                        state["lengths"])
-                state["token"] = tok
-                state["caches"] = caches
-                state["lengths"] = state["lengths"] + 1
+                step()
             _sync(device)
         return block
 

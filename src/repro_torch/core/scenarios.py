@@ -1071,6 +1071,17 @@ def _synthetic_block(dim: int, reps: int, device):
     return step, x0
 
 
+@functools.lru_cache(maxsize=None)
+def _synthetic_graph(dim: int, reps: int, device):
+    """:func:`_synthetic_block`'s body on its input captured as a CUDA
+    graph on ``device`` (a card), once a shape: the first call (a job's
+    warm-up) captures it, and every block replays it."""
+    from ..graphs import capture
+
+    step, x0 = _synthetic_block(dim, reps, device)
+    return capture(lambda: step(x0), device)
+
+
 def executor_job(arrival: Arrival, *, n_lanes: int = 4,
                  time_scale: float = DEFAULT_EXECUTOR_TIME_SCALE,
                  device=None) -> ExecutorJob:
@@ -1083,10 +1094,11 @@ def executor_job(arrival: Arrival, *, n_lanes: int = 4,
     (``cuda`` unless asked; raises without a card) whose cost is a
     deterministic function of the spec (:func:`_synthetic_shape`), so
     executor sweeps measure actual dispatch/compute behavior at
-    scenario-declared sizes.  A block on the card ends in a synchronize,
-    so the executor times the work and not its enqueueing; the warm-up
-    runs one block, which puts the CUDA context and the cuBLAS handle
-    outside every measured block.
+    scenario-declared sizes.  On the card a block replays the shape's
+    CUDA graph (:func:`_synthetic_graph`) and ends in a synchronize, so
+    the executor times the work and not its enqueueing; the warm-up runs
+    one block, which puts the CUDA context, the cuBLAS handle and the
+    graph's capture outside every measured block.
     """
     from .. import resolve_device
 
@@ -1097,10 +1109,12 @@ def executor_job(arrival: Arrival, *, n_lanes: int = 4,
     def block():
         import torch
 
-        step, x0 = _synthetic_block(dim, reps, dev)
-        step(x0)                          # result discarded; cost only
         if dev.type == "cuda":
+            _synthetic_graph(dim, reps, dev).replay()   # cost only
             torch.cuda.synchronize(dev)
+        else:
+            step, x0 = _synthetic_block(dim, reps, dev)
+            step(x0)                      # result discarded; cost only
 
     return ExecutorJob(
         name=spec.name, num_blocks=spec.num_blocks,

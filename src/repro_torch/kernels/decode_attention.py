@@ -10,7 +10,8 @@ never read on the host: :func:`plan` picks the number of splits from the
 shapes alone, and the kernel shares each row's filled keys over them.  The
 kernel's last CTA per (batch, KV head) is found with an int32 counter that
 every call leaves at zero; the wrapper keeps one such tensor per device
-(:func:`counters`), grown when ``B * KV`` grows.  It raises on anything the
+(:func:`counters`), grown when ``B * KV`` grows, and a CUDA graph that
+captured a launch keeps the tensor it baked in.  It raises on anything the
 kernel does not take; it never falls back.
 
 Both versions return zeros for a row with ``length == 0``, as the Pallas
@@ -39,6 +40,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import graphs
 from . import _build, ref
 
 #: (D, Dv) pairs the kernel is built for; (32, 32) is the reduced configs'.
@@ -119,10 +121,17 @@ _COUNTERS: Dict[int, torch.Tensor] = {}
 
 def counters(device: torch.device, n: int = 0) -> torch.Tensor:
     """The zeroed int32 counters the kernel uses on ``device``, at least
-    ``n`` of them.  Every launch leaves them at zero; all launches run on
-    one stream, so no two calls share them at once."""
+    ``n`` of them.  Every launch leaves them at zero and launches run one
+    at a time (one stream, or a graph's capture stream waited for), so no
+    two calls share them at once.  A larger ``n`` replaces the tensor; a
+    CUDA graph keeps the one its launches baked in (:func:`graphs.hold`),
+    so the tensor may not grow while a graph is being captured."""
     t = _COUNTERS.get(device.index)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode_attention: the counters would grow inside a CUDA "
+                "graph capture; launch the step eagerly first")
         t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
         _COUNTERS[device.index] = t
     return t
@@ -190,15 +199,16 @@ def _launch(q, k_cache, v_cache, length, scale: float, return_lse: bool):
     B, H, D = q.shape
     S, KV, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[-1]
     lib = _lib()
+    count = counters(q.device, B * KV)
+    graphs.hold(count)
     status = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        length.data_ptr(), part.data_ptr(),
-        counters(q.device, B * KV).data_ptr(), out.data_ptr(),
+        length.data_ptr(), part.data_ptr(), count.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None, B, S, H, KV,
         D, Dv, n_split, float(scale), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "decode_attention_fwd")
-    decode_attention_cuda.launches += 1
+    graphs.count(decode_attention_cuda)
     return out, lse
 
 

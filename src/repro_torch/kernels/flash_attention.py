@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from .. import graphs
 from . import _build, ref
 
 MASK_KINDS = {"none": 0, "causal": 1, "window": 2}
@@ -145,7 +146,7 @@ def _launch(q, k, v, mask_kind: str, window: int, q_offset: int,
         int(q_offset), float(scale), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_fwd")
-    flash_attention_cuda.launches += 1
+    graphs.count(flash_attention_cuda)
     if return_lse and Sk == 0:        # the kernel only zeroed out
         lse.fill_(NO_KEY_LSE)
     return out, lse

@@ -48,6 +48,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from .. import graphs
 from . import _build
 from .flash_attention import MASK_KINDS, mask_for
 
@@ -350,7 +351,7 @@ def _launch(q, k, v, out, dout, lse, mask_kind: str, window: int,
         MASK_KINDS[mask_kind], int(window), int(q_offset), float(scale),
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "flash_attention_bwd")
-    flash_attention_bwd_cuda.launches += 1
+    graphs.count(flash_attention_bwd_cuda)
     return dq, dk, dv
 
 

@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from .. import graphs
 from . import _build, ref
 
 
@@ -119,7 +120,7 @@ def _launch(x, gate_a, gate_i, log_a, initial_state, c: float,
         states.data_ptr() if entering else None, B, S, C, float(c),
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, status, "rglru_scan_fwd")
-    rglru_cuda.launches += 1
+    graphs.count(rglru_cuda)
     return h, state, states
 
 

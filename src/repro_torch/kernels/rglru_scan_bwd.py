@@ -62,6 +62,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import graphs
 from . import _build
 
 # csrc/rglru_scan_bwd.cu: T, TILE, WARPS (the forward's) and STAGES.
@@ -197,7 +198,7 @@ def _launch(x, gate_a, gate_i, log_a, dh, dstate, entering, initial_state,
         ptr(partial), B, S, C, float(c), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "rglru_scan_bwd")
-    rglru_bwd_cuda.launches += 1
+    graphs.count(rglru_bwd_cuda)
     return dx, dga, dgi, dla, dh0
 
 

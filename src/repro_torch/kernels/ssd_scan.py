@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import graphs
 from . import _build
 
 #: Dynamic shared memory one CTA may use on an H100 (227 KB opt-in).
@@ -200,7 +201,7 @@ def _launch(x, dt, A, Bmat, Cmat, initial_state, chunk: int):
         y.data_ptr(), state.data_ptr(), Bsz, S, H, P, G, N, Q,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, status, "ssd_scan_fwd")
-    ssd_cuda.launches += 1
+    graphs.count(ssd_cuda)
     return y, state
 
 

@@ -58,6 +58,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from .. import graphs
 from . import _build
 from .ssd_scan import MAX_SMEM, _chunk_len, _round16
 
@@ -442,7 +443,7 @@ def _launch(x, dt, A, Bmat, Cmat, dy, dstate, initial_state, chunk: int):
         Bsz, S, H, P, G, N, Q, R, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "ssd_scan_bwd")
-    ssd_bwd_cuda.launches += 1
+    graphs.count(ssd_bwd_cuda)
     return dx, ddt, dA, dB, dC, dh0
 
 

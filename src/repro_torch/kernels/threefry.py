@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from .. import intra_op_threads, prng
+from .. import graphs, intra_op_threads, prng
 from . import _build
 
 DISTS = {"bits": 0, "uniform": 1, "normal": 2}
@@ -102,7 +102,7 @@ def _launch(out, k0: int, k1: int, offset: int, dist: int, lo: float,
         int(bf16_math), int(out.dtype == torch.bfloat16), out.data_ptr(),
         out.device.index, torch.cuda.current_stream(out.device).cuda_stream)
     _build.check(lib, status, "threefry_draw")
-    threefry_cuda.launches += 1
+    graphs.count(threefry_cuda)
 
 
 def _plain_op(out, k0: int, k1: int, offset: int, dist: int, lo: float,

@@ -1516,3 +1516,216 @@ def test_two_rank_sharded_serving_matches_unsharded():
     # bf16 serving, slices combined by log-sum-exp in fp32: PERF.md's
     # model bound
     assert max(errs) <= 5e-2, errs
+
+
+# ------------------------------------------------------------ CUDA graphs
+def _depth_cut(arch: str, layers: int):
+    """``arch`` at full width cut to ``layers`` layers (an encoder's
+    stack alike), as ``launch.train --n-layers`` cuts it."""
+    from repro_torch.launch import train
+
+    return train.arch_config(
+        train.build_parser().parse_args(["--n-layers", str(layers)]), arch)
+
+
+#: Every arch the full-width serve paths run, cut to a few layers
+#: (recurrentgemma-2b to one (rec, rec, local) unit, deepseek-v2-lite-16b
+#: to one dense and one MoE layer).
+GRAPH_ARCHS = [("yi-6b", 2), ("mamba2-2.7b", 2), ("recurrentgemma-2b", 3),
+               ("minicpm3-4b", 2), ("deepseek-v2-lite-16b", 2),
+               ("whisper-large-v3", 2), ("pixtral-12b", 2), ("yi-34b", 2),
+               ("mistral-nemo-12b", 2)]
+
+
+def _eager_steps(cfg, params, prompt, max_seq, n):
+    """The eager serving loop: prefill, then ``n`` decode steps with each
+    argmax fed back.  Returns ([(token, logits)], caches)."""
+    logits, caches = lm.prefill(cfg, params, prompt, max_seq=max_seq)
+    token = torch.argmax(logits, -1)
+    lengths = torch.full((prompt.shape[0],), prompt.shape[1],
+                         dtype=torch.int32, device=prompt.device)
+    out = []
+    for _ in range(n):
+        logits, caches = lm.decode_step(cfg, params, token, caches, lengths)
+        token = torch.argmax(logits, -1)
+        lengths = lengths + 1
+        out.append((token, logits))
+    return out, caches
+
+
+@pytest.mark.parametrize("arch,layers", GRAPH_ARCHS,
+                         ids=[a for a, _ in GRAPH_ARCHS])
+def test_graphed_serve_blocks_are_the_eager_steps_bitwise(arch, layers, gen):
+    """A serve job's step as the job runs it on the card (a prefill, the
+    capture of one decode step after its eager warm-up steps, then the
+    first block's prefill into the same caches and two blocks of four
+    replays), at full width and small depth, B 4 x 64 tokens: every
+    step's token and logits, and the caches at the end, bitwise the eager
+    ``lm.decode_step`` loop's."""
+    from repro_torch.core import jobs
+    from repro_torch.tree import leaves
+
+    cfg = _depth_cut(arch, layers)
+    params = lm.init(cfg, seed=0, device="cuda")
+    b, s, n = 4, 64, 8
+    max_seq = s + n + 8
+    prompt = jobs.serve_prompt(cfg, 0, b, s, device="cuda")
+    step = jobs.DecodeStep(cfg, params, prompt, max_seq)
+    step.prefill()
+    step.capture()
+    step.prefill()
+    got = []
+    for _ in range(n):
+        logits = step()
+        got.append((step.token.clone(), logits.clone()))
+    want, caches = _eager_steps(cfg, params, prompt, max_seq, n)
+    for i, ((tok, logits), (wtok, wlogits)) in enumerate(zip(got, want)):
+        assert torch.equal(tok, wtok), (arch, i)
+        assert torch.equal(logits, wlogits), (arch, i)
+    for g, w in zip(leaves(step.caches), leaves(caches)):
+        assert torch.equal(g, w), arch
+
+
+def test_a_capture_succeeds_while_another_thread_allocates_and_draws(gen):
+    """While one thread captures a decode step (a serving run's driver
+    thread at a job's warm-up), another allocates fresh memory and
+    launches the threefry kernel on the default stream (its asyncio
+    thread building the next job): the capture succeeds, counts none of
+    the other thread's launches, and replays bitwise the eager step; the
+    other thread's draws are the plain version's."""
+    import threading
+
+    from repro_torch import prng
+    from repro_torch.core import jobs
+    from repro_torch.kernels import threefry
+
+    cfg = _depth_cut("yi-6b", 2)
+    params = lm.init(cfg, seed=0, device="cuda")
+    prompt = jobs.serve_prompt(cfg, 0, 4, 64, device="cuda")
+    stop, started, draws, errors = (threading.Event(), threading.Event(),
+                                    [], [])
+
+    def other():
+        try:
+            i = 0
+            while not stop.is_set():
+                kept = torch.empty((i % 8 + 1) << 24, dtype=torch.uint8,
+                                   device="cuda")
+                draws[:] = [(i, threefry.randint(
+                    prng.key(i), (64, 1024), 0, 50000, device="cuda"))]
+                del kept
+                started.set()
+                i += 1
+        except Exception as exc:          # surfaced by the assert below
+            errors.append(exc)
+            started.set()
+
+    worker = threading.Thread(target=other)
+    worker.start()
+    try:
+        assert started.wait(60)
+        threefry.threefry_cuda.launches = 0
+        steps = []
+        for _ in range(3):
+            step = jobs.DecodeStep(cfg, params, prompt, 64 + 16)
+            step.prefill()
+            step.capture()
+            steps.append(step)
+    finally:
+        stop.set()
+        worker.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert draws and draws[-1][0] > 3
+    for step in steps:
+        assert threefry.threefry_cuda not in step.graph.counts
+        step.prefill()
+        got = [(step().clone(), step.token.clone()) for _ in range(4)]
+        want, _ = _eager_steps(cfg, params, prompt, 64 + 16, 4)
+        for (logits, tok), (wtok, wlogits) in zip(got, want):
+            assert torch.equal(logits, wlogits) and torch.equal(tok, wtok)
+    i, drawn = draws[-1]
+    assert torch.equal(drawn.cpu(), threefry.randint(
+        prng.key(i), (64, 1024), 0, 50000, device="cpu"))
+
+
+def test_a_graph_replays_bitwise_after_the_decode_counters_grew(gen):
+    """A graph keeps the decode kernel's counters it baked in: after an
+    eager launch with a larger B x KV replaced the per-device tensor (and
+    the freed memory was taken by other tensors), it replays bitwise and
+    leaves both counter tensors at zero."""
+    from repro_torch import graphs
+    from repro_torch.kernels import decode_attention as da
+
+    q = _randn(gen, 2, 16, 128)
+    kc, vc = _randn(gen, 2, 300, 2, 128), _randn(gen, 2, 300, 2, 128)
+    length = torch.tensor([300, 123], dtype=torch.int32, device="cuda")
+    graph = graphs.capture(lambda: decode_attention_cuda(q, kc, vc, length),
+                           "cuda")
+    baked = decode_counters(q.device)
+    assert any(t is baked for t in graph._held)
+    first = graph.replay().clone()
+    big = baked.numel() // 2 + 1
+    bq = _randn(gen, big, 16, 128)
+    bk, bv = _randn(gen, big, 40, 2, 128), _randn(gen, big, 40, 2, 128)
+    blen = torch.full((big,), 40, dtype=torch.int32, device="cuda")
+    decode_attention_cuda(bq, bk, bv, blen)
+    grown = decode_counters(q.device)
+    assert grown is not baked and grown.numel() >= 2 * big
+    del bq, bk, bv, blen
+    torch.cuda.empty_cache()
+    filler = [torch.full((1 << 20,), 7, dtype=torch.int32, device="cuda")
+              for _ in range(8)]
+    again = graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(again, first)
+    assert not baked.any() and not grown.any()
+    del filler
+
+
+def test_replays_count_the_launches_the_card_runs(gen):
+    """N replays of a decode step count N times the eager step's kernel
+    launches; the capture itself counts none."""
+    from repro_torch.core import jobs
+
+    cfg = _depth_cut("recurrentgemma-2b", 3)
+    params = lm.init(cfg, seed=0, device="cuda")
+    prompt = jobs.serve_prompt(cfg, 0, 4, 64, device="cuda")
+    step = jobs.DecodeStep(cfg, params, prompt, 64 + 24)
+    step.prefill()
+    ops.reset_launch_counts()
+    step()
+    eager = ops.launch_counts()
+    assert eager["decode_attention"] == 1          # the one local layer
+    step.prefill()
+    ops.reset_launch_counts()
+    step.capture()
+    warm = ops.launch_counts()
+    assert warm == {k: 2 * v for k, v in eager.items()}   # WARMUP eager
+    step.prefill()
+    ops.reset_launch_counts()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {k: 10 * v for k, v in eager.items()}
+    ops.reset_launch_counts()
+
+
+def test_a_failed_capture_raises_and_a_job_needs_its_warmup(gen):
+    """A step that reads the device on the host fails its capture with an
+    error, not an eager fallback; a serve job's block before its warm-up
+    (which captures) raises."""
+    from repro_torch import graphs
+    from repro_torch.core import jobs
+
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(RuntimeError):
+        graphs.capture(lambda: x.sum().item(), "cuda")
+    torch.cuda.synchronize()
+    job = jobs.make_serve_job(get_arch("yi-6b").reduced(), "w", blocks=1,
+                              tokens_per_block=2, batch=1, prompt_len=8,
+                              device="cuda")
+    with pytest.raises(RuntimeError, match="warmup_fn"):
+        job.make_block_fn(1)()
+    job.warmup_fn()
+    job.make_block_fn(1)()
